@@ -5,12 +5,16 @@
 
 Phases, each printing one JSON line:
   device   the card (torch and nvidia-smi);
-  build    compiles the CUDA kernels from decafnet_tpu_torch/csrc with nvcc;
+  build    compiles the CUDA kernels from decafnet_tpu_torch/csrc with nvcc,
+           prints ptxas's registers / shared memory / spills of the conv3
+           kernels and checks in their SASS (cuobjdump) that they run on the
+           tensor cores (HMMA);
   kernels  holds each kernel against its plain PyTorch version on the card at
            the served shapes (V=8 videos x Q=8 queries = 64 rows, T=2304, all
-           7 FPN levels) and at edge shapes, and times kernel, plain version
-           and, where one exists, the one PyTorch call computing the same
-           function (library_ms, timed here only);
+           7 FPN levels) and at edge shapes, holds conv3_ln_act against an f64
+           run of the same function at every served shape, and times kernel,
+           plain version and, where one exists, the one PyTorch call
+           computing the same function (library_ms, timed here only);
   serve    builds GroundingService at the Ego4D-NLQ width
            (configs/ego4d_nlq.yaml) with seeded random weights on the card,
            answers requests through ground() and ground_many(), checks the
@@ -27,6 +31,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -38,8 +43,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit): f32
-# outside the tensor cores and HBM3 bandwidth. Every kernel here is f32.
+# outside the tensor cores, dense TF32 on the tensor cores, HBM3 bandwidth.
+# Every kernel here computes in f32; conv3_ln_act runs its products on the
+# tensor cores as three TF32 passes (3xTF32), the others on the CUDA cores.
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 
 # the served shape: 8 videos x 8 queries of a 2304-clip bucket
@@ -50,6 +58,9 @@ VIDEO_LENS = (2304, 2304, 2200, 2000, 1800, 1500, 1100, 700)
 # conv3_ln_act sums 3*C_in (up to 480) f32 products in another order than
 # cuDNN before a LayerNorm; the trio and band attention sum 3 and 5*32 terms
 TOL = {"conv3_ln_act": 1e-4, "qkv_depthwise_ln": 1e-5, "band_attention": 1e-5}
+# conv3_ln_act against an f64 run of the same function: 3xTF32 must keep
+# f32 accuracy (one TF32 pass is off by ~1e-3 at these widths)
+TOL_F64 = 1e-5
 # served detections, kernels vs plain versions and ground vs ground_many
 SEG_TOL_S, SCORE_TOL = 1e-3, 1e-4
 
@@ -58,19 +69,26 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(n_bytes, n_flops):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / F32_FLOPS
+def bound_ms(n_bytes, n_flops, tc_flops=0):
+    """Least time for the work: bytes at the HBM rate, f32 operations at the
+    CUDA-core rate, tensor-core TF32 operations at the TF32 rate; the units
+    run side by side, so the largest of the three."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(n_flops / F32_FLOPS, tc_flops / TF32_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def time_ms(fn, iters, warmup=2):
     """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
-    events, after warm-up)."""
+    events, after warm-up). The card first spins for ~0.5 ms per call, so
+    the host has queued every call before the first one starts: a kernel
+    shorter than its Python wrapper is timed on the card, not on the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1_000_000 * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -94,7 +112,63 @@ def row_lens(level):
     return [math.ceil(n / 2 ** level) for n in VIDEO_LENS for _ in range(8)]
 
 
+# -------------------------------------------------------------------- build
+
+def ptxas_report(log):
+    """Per kernel of one source: registers, static shared memory and spill
+    bytes, from nvcc's -Xptxas=-v output."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def sass_hmma(lib_path, name):
+    """Tensor-core (HMMA) instructions per compiled kernel whose name holds
+    ``name``, from cuobjdump -sass of the built library."""
+    from decafnet_tpu_torch.ops import cuda
+
+    sass = subprocess.run([cuda.toolkit_binary("cuobjdump"), "-sass", lib_path],
+                          capture_output=True, text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if name in m.group(1) else None
+            if cur:
+                counts[cur] = 0
+        elif cur and "HMMA" in line:
+            counts[cur] += 1
+    return counts
+
+
 # ------------------------------------------------------------------ kernels
+
+def conv3_f64(x, mask, w, bias, ln_w, ln_b, act="relu", eps=1e-5):
+    """conv3_ln_act in f64 end to end (the plain version's channel LN keeps
+    its statistics in f32): the yardstick of the kernel's accuracy."""
+    d = torch.float64
+    xm = x.to(d) * mask[:, None, :].to(d)
+    y = torch.nn.functional.conv1d(xm, w.to(d), None if bias is None
+                                   else bias.to(d), padding=1)
+    y = y - y.mean(dim=1, keepdim=True)
+    y = y * torch.rsqrt(y.square().mean(dim=1, keepdim=True) + eps)
+    if ln_w is not None:
+        y = y * ln_w.reshape(-1, 1).to(d) + ln_b.reshape(-1, 1).to(d)
+    return torch.relu(y) if act == "relu" else y
+
 
 def conv3_case(dev, g, B, C, T, lens, bias=False, act="relu"):
     x = torch.randn(B, C, T, generator=g, device=dev)
@@ -164,13 +238,16 @@ def run_kernels(dev):
     rec = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                "flop_ms": 0.0, "byte_ms": 0.0, "library_ms": None, "levels": []}
            for n in ("conv3_ln_act", "band_attention", "qkv_depthwise_ln")}
+    rec["conv3_ln_act"].update(bound_f32_ms=0.0, max_abs_err_f64=0.0,
+                               plain_max_abs_err_f64=0.0)
 
-    def add(name, count, args, kw, op, plain, n_bytes, n_flops, level, lib=None):
+    def add(name, count, args, kw, op, plain, n_bytes, n_flops, level, lib=None,
+            tc_flops=0):
         err = check(op, plain, args, kw, name, f"served level {level}, "
                     f"shape {tuple(args[0].shape)}")
         ms = time_ms(lambda: op(*args, **kw), 20)
         plain_ms = time_ms(lambda: plain(*args, **kw), 5, warmup=1)
-        b_ms, _ = bound_ms(n_bytes, n_flops)
+        b_ms, _ = bound_ms(n_bytes, n_flops, tc_flops)
         lib_ms = time_ms(lambda: lib(*args, **kw), 3, warmup=1) if lib else None
         r = rec[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -178,12 +255,40 @@ def run_kernels(dev):
         r["plain_ms"] += count * plain_ms
         r["bound_ms"] += count * b_ms
         r["byte_ms"] += count * 1e3 * n_bytes / HBM_BYTES_PER_S
-        r["flop_ms"] += count * 1e3 * n_flops / F32_FLOPS
+        r["flop_ms"] += count * 1e3 * max(n_flops / F32_FLOPS,
+                                          tc_flops / TF32_FLOPS)
         if lib_ms is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + count * lib_ms
         r["levels"].append({"level": level, "shape": list(args[0].shape),
                             "calls": count, "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": b_ms, "library_ms": lib_ms})
+        return r["levels"][-1]
+
+    def conv3_accuracy(args, kw, lvl, n_bytes, gemm_flops, ln_flops):
+        """Kernel and plain version against f64, and the f32 CUDA-core bound
+        beside the 3xTF32 one."""
+        from decafnet_tpu_torch.ops import cuda
+
+        want = conv3_f64(*args, **kw)
+        got = conv3_ln_act(*args, **kw)
+        with cuda.plain_versions():
+            plain = conv3_ln_act(*args, **kw)
+        err, err_plain = max_err(got.double(), want), max_err(plain.double(), want)
+        f32_ms, _ = bound_ms(n_bytes, gemm_flops + ln_flops)
+        r = rec["conv3_ln_act"]
+        r["max_abs_err_f64"] = max(r["max_abs_err_f64"], err)
+        r["plain_max_abs_err_f64"] = max(r["plain_max_abs_err_f64"], err_plain)
+        r["bound_f32_ms"] += lvl["calls"] * f32_ms
+        lvl.update(bound_f32_ms=f32_ms, max_abs_err_f64=err,
+                   plain_max_abs_err_f64=err_plain)
+        ok = err <= TOL_F64
+        emit({"phase": "kernels", "kernel": "conv3_ln_act", "check":
+              f"vs f64, served level {lvl['level']}, shape {lvl['shape']}",
+              "max_abs_err_f64": err, "plain_max_abs_err_f64": err_plain,
+              "tol": TOL_F64, "ok": ok})
+        if not ok:
+            raise AssertionError(f"conv3_ln_act is off f64 by {err} at "
+                                 f"{lvl['shape']}")
 
     # served shapes: every FPN level of one 64-row decode call
     for level in range(LEVELS):
@@ -193,9 +298,13 @@ def run_kernels(dev):
         for C, count in ((EMBD, 4 if level == 0 else 2), (EMBD + RDIM, 4)):
             args, kw = conv3_case(dev, g, ROWS, C, T, lens)
             n_bytes = 4 * (2 * ROWS * C * T + 3 * C * C + 2 * C) + ROWS * T
-            n_flops = 2 * ROWS * T * C * 3 * C + 8 * ROWS * C * T
-            add("conv3_ln_act", count, args, kw, conv3_ln_act,
-                conv3_ln_act_torch, n_bytes, n_flops, level)
+            gemm_flops = 2 * ROWS * T * C * 3 * C
+            ln_flops = 8 * ROWS * C * T
+            lvl = add("conv3_ln_act", count, args, kw, conv3_ln_act,
+                      conv3_ln_act_torch, n_bytes, ln_flops, level,
+                      tc_flops=3 * gemm_flops)
+            conv3_accuracy(args, kw, lvl, n_bytes, gemm_flops, ln_flops)
+            del args
         args, kw = band_case(dev, g, ROWS, T, lens)
         D = EMBD // HEADS
         n_bytes = 4 * (3 * n_valid * HEADS * D + ROWS * HEADS * T * D) + ROWS * T
@@ -434,6 +543,12 @@ def main():
     cuda.library()
     emit({"phase": "build", "library": os.path.relpath(path, REPO),
           "nvcc_s": compile_s, "seconds": time.perf_counter() - t0})
+    emit({"phase": "build", "kernel": "conv3_ln_act", "ptxas":
+          ptxas_report(cuda.build_log("conv3_ln_act.cu"))})
+    hmma = sass_hmma(path, "conv3_ln_act")
+    emit({"phase": "build", "kernel": "conv3_ln_act", "sass_hmma": hmma})
+    assert hmma and all(n > 0 for n in hmma.values()), \
+        "conv3_ln_act does not run on the tensor cores"
 
     rec = run_kernels(dev)
     launches = run_serve(dev)
@@ -454,6 +569,8 @@ def main():
             "bound_by": "bytes" if r["byte_ms"] >= r["flop_ms"] else "operations",
             "library_ms": r["library_ms"],
             "per": "one served decode call (64 rows, T=2304, all levels)",
+            **{k: r[k] for k in ("bound_f32_ms", "max_abs_err_f64",
+                                 "plain_max_abs_err_f64") if k in r},
             "levels": r["levels"]})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -35,12 +35,12 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 LIB_NAME = "libdecafnet_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu), all returning cudaError_t
 _SIGNATURES = {
-    "decafnet_conv3_ln_act_f32": [_vp] * 7 + [_i] * 4 + [_f, _i, _vp],
+    "decafnet_conv3_ln_act_f32": [_vp] * 8 + [_i] * 4 + [_f, _i, _vp],
     "decafnet_qkv_depthwise_ln_f32": [_vp] * 14 + [_i] * 3 + [_f, _vp],
     "decafnet_band_attention_f32": [_vp] * 5 + [_i] * 4 + [_ll] * 4 + [_i, _vp],
 }
@@ -50,14 +50,15 @@ def sources():
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
-def _nvcc():
+def toolkit_binary(name="nvcc"):
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     from torch.utils.cpp_extension import CUDA_HOME
-    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    cand = os.path.join(CUDA_HOME, "bin", name) if CUDA_HOME else None
     if cand and os.path.exists(cand):
         return cand
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+        raise RuntimeError(f"{name} not found: the CUDA kernels need the CUDA "
                            "toolkit (set CUDA_HOME or put nvcc on PATH)")
     return found
 
@@ -71,6 +72,14 @@ def library_path():
     return os.path.join(BUILD_DIR, h.hexdigest()[:16], LIB_NAME)
 
 
+def build_log(source):
+    """What nvcc printed for one source (``-Xptxas=-v``: registers, shared
+    memory and spills of each kernel), beside the built library."""
+    with open(os.path.join(os.path.dirname(library_path()),
+                           os.path.basename(source) + ".log")) as f:
+        return f.read()
+
+
 def build():
     """Compile the kernels if this source hash has no library yet.
     Returns (library path, seconds spent compiling; 0.0 when cached)."""
@@ -78,7 +87,7 @@ def build():
     if os.path.exists(path):
         return path, 0.0
     t0 = time.perf_counter()
-    nvcc = _nvcc()
+    nvcc = toolkit_binary()
     out_dir = os.path.dirname(path)
     os.makedirs(out_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
@@ -93,6 +102,9 @@ def build():
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"{os.path.basename(src)}:\n{log}")
+            with open(os.path.join(out_dir, os.path.basename(src) + ".log"),
+                      "w") as f:
+                f.write(log)
         if failed:
             raise RuntimeError("nvcc failed\n" + "\n".join(failed))
         tmp_lib = os.path.join(tmp, LIB_NAME)

@@ -29,13 +29,60 @@ def conv3_ln_act_torch(x, mask, w, bias, ln_w, ln_b, act="relu", eps=1e-5):
     return torch.relu(y) if act == "relu" else y
 
 
+def tf32_split(a):
+    """``(hi, lo)`` with ``hi = tf32(a)`` and ``lo = tf32(a - hi)``, each an f32
+    tensor whose low 13 mantissa bits are zero. The rounding is to nearest
+    with ties away from zero on the magnitude, as ``cvt.rna.tf32.f32`` does."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(a)
+    return hi, rna(a - hi)
+
+
+def conv3_weight_fragments(w):
+    """The (C_out, C_in, 3) conv weight as csrc/conv3_ln_act.cu reads it:
+    (ceil(C_in/8), 3, M/16, 32, 4) with M = C_out padded to a multiple of 32,
+    zero where padded. For input-channel chunk c8, tap, m16 tile mt and lane
+    (g = lane // 4, q = lane % 4), entry 2k + h is
+    ``w[16 mt + g + 8 h, 8 c8 + q + 4 k, tap]``: the A fragment of
+    ``mma.sync.m16n8k8`` (rows = output channels, k = input channels)."""
+    C_out, C_in, _ = w.shape
+    mt, nc8 = 2 * -(-C_out // 32), -(-C_in // 8)
+    wp = w.new_zeros(16 * mt, 8 * nc8, 3, dtype=torch.float32)
+    wp[:C_out, :C_in] = w
+    # (mt, h, g, c8, k, q, tap) -> (c8, tap, mt, g, q, k, h)
+    return (wp.view(mt, 2, 8, nc8, 2, 4, 3).permute(3, 6, 0, 2, 5, 4, 1)
+            .reshape(nc8, 3, mt, 32, 4).contiguous())
+
+
+def conv3_weight_operands(w):
+    """``tf32_split(conv3_weight_fragments(w))``, built once per weight and
+    kept on the tensor itself against its ``_version`` and storage, so an
+    in-place update (``add_``, ``load_state_dict``) or a new ``.data``
+    builds a fresh pair. Inference tensors carry no version counter and are
+    not cached."""
+    stamp = (None if torch.is_inference(w)
+             else (w._version, w.data_ptr(), w.device, tuple(w.shape)))
+    hit = getattr(w, "_tf32_operands", None)
+    if stamp is not None and hit is not None and hit[0] == stamp:
+        return hit[1]
+    with torch.no_grad():
+        ops = tf32_split(conv3_weight_fragments(w.detach()))
+    if stamp is not None:
+        w._tf32_operands = (stamp, ops)
+    return ops
+
+
 def conv3_ln_act(x, mask, w, bias=None, ln_w=None, ln_b=None, act="relu",
                  eps=1e-5):
     """Fused masked conv3 + channel LN + activation (see
     :func:`conv3_ln_act_torch` for the arguments).
 
     On CUDA this launches csrc/conv3_ln_act.cu, the counterpart of the TPU
-    kernel decafnet_tpu/ops/fused_conv.py:_conv3_ln_act_pallas_impl."""
+    kernel decafnet_tpu/ops/fused_conv.py:_conv3_ln_act_pallas_impl: the
+    products run on the tensor cores in three TF32 passes (f32 accuracy),
+    on weight operands built once per weight (:func:`conv3_weight_operands`)."""
     if not cuda.use_kernel(x):
         return conv3_ln_act_torch(x, mask, w, bias, ln_w, ln_b, act=act, eps=eps)
     name = "conv3_ln_act"
@@ -52,15 +99,15 @@ def conv3_ln_act(x, mask, w, bias=None, ln_w=None, ln_b=None, act="relu",
                      if p is not None), name, "per-channel params of C_out")
     cuda.require(C_out <= 256, name, "C_out > 256 is not supported")
     cuda.require(act in ("relu", "none"), name, f"act {act!r}")
-    wt = w.permute(1, 2, 0).contiguous()            # (C_in, 3, C_out)
+    w_hi, w_lo = conv3_weight_operands(w)
     vec = lambda p: None if p is None else p.reshape(-1).contiguous()  # noqa: E731
     bias, ln_w, ln_b = vec(bias), vec(ln_w), vec(ln_b)
     m8 = cuda.as_bytes(mask)
     out = torch.empty((B, C_out, T), dtype=torch.float32, device=x.device)
     err = cuda.library().decafnet_conv3_ln_act_f32(
-        cuda.ptr(x), cuda.ptr(m8), cuda.ptr(wt), cuda.ptr(bias),
-        cuda.ptr(ln_w), cuda.ptr(ln_b), cuda.ptr(out), B, C_in, C_out, T,
-        float(eps), int(act == "relu"), cuda.stream())
+        cuda.ptr(x), cuda.ptr(m8), cuda.ptr(w_hi), cuda.ptr(w_lo),
+        cuda.ptr(bias), cuda.ptr(ln_w), cuda.ptr(ln_b), cuda.ptr(out),
+        B, C_in, C_out, T, float(eps), int(act == "relu"), cuda.stream())
     cuda.check(err, name)
     conv3_ln_act.launches += 1
     return out

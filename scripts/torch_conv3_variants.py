@@ -1,0 +1,191 @@
+#!/usr/bin/env python3
+"""Design alternatives of the port's conv3 + LN + ReLU kernel, on one card.
+
+    python3 scripts/torch_conv3_variants.py
+
+Builds decafnet_tpu_torch/csrc/conv3_ln_act.cu as shipped and a few variants
+made by editing its text (each edit must apply, or the script fails), one
+nvcc per variant, all started together, into build/conv3_variants/. Then it
+runs every variant on the same inputs: the served shapes of one decode call
+(64 rows, T=2304, all 7 levels, C=128 and 160) and edge shapes, and prints
+one JSON line per shape (each variant's max |error| against an f64 run and
+its time, CUDA events) and a last summary line: time per served decode call
+and max error per variant, with the card's name and power limit.
+
+Variants:
+  shipped    the source as it is;
+  chained    the three TF32 passes accumulate in place through all of K (no
+             fresh sum per chunk);
+  per_kstep  a fresh sum per tap (k-step) instead of per chunk of 3 taps;
+  tile128    128 time columns per block instead of 96;
+  tile64     64 time columns per block;
+  cvt_rna    x split with the cvt.rna.tf32.f32 instruction instead of the
+             two integer operations.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import os
+import subprocess
+import sys
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+SRC = os.path.join(REPO, "decafnet_tpu_torch", "csrc", "conv3_ln_act.cu")
+OUT = os.path.join(REPO, "build", "conv3_variants")
+
+PROMOTE_CHUNK = """#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (tap == 0)
+            mma_tf32(d[nt], al, bh[0][nt], zero);
+          else
+            mma_tf32(d[nt], al, bh[tap][nt], d[nt]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], ah, bl[tap][nt], d[nt]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], ah, bh[tap][nt], d[nt]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += d[nt][i];"""
+
+CHAINED = """#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma_tf32(acc[mt][nt], al, bh[tap][nt], acc[mt][nt]);
+          mma_tf32(acc[mt][nt], ah, bl[tap][nt], acc[mt][nt]);
+          mma_tf32(acc[mt][nt], ah, bh[tap][nt], acc[mt][nt]);
+        }
+        (void)d;
+        (void)zero;
+      }"""
+
+PER_KSTEP = """#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], al, bh[tap][nt], zero);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], ah, bl[tap][nt], d[nt]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], ah, bh[tap][nt], d[nt]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] += d[nt][i];
+      }"""
+
+INT_RNA = """__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}"""
+
+CVT_RNA = """__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}"""
+
+TILE = "constexpr int TILE_T = 96;"
+
+
+def variants(src):
+    def edit(old, new):
+        assert src.count(old) == 1, f"variant edit does not apply: {old[:60]!r}"
+        return src.replace(old, new)
+
+    return {"shipped": src,
+            "chained": edit(PROMOTE_CHUNK, CHAINED),
+            "per_kstep": edit(PROMOTE_CHUNK, PER_KSTEP),
+            "tile128": edit(TILE, "constexpr int TILE_T = 128;"),
+            "tile64": edit(TILE, "constexpr int TILE_T = 64;"),
+            "cvt_rna": edit(INT_RNA, CVT_RNA)}
+
+
+def build_all(srcs):
+    from decafnet_tpu_torch.ops import cuda
+
+    os.makedirs(OUT, exist_ok=True)
+    nvcc, procs = cuda.toolkit_binary(), {}
+    for name, text in srcs.items():
+        cu = os.path.join(OUT, name + ".cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [nvcc, *cuda.NVCC_FLAGS, "-shared", cu, "-o",
+             os.path.join(OUT, name + ".so")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        fn = ctypes.CDLL(os.path.join(OUT, name + ".so")).decafnet_conv3_ln_act_f32
+        fn.argtypes = cuda._SIGNATURES["decafnet_conv3_ln_act_f32"]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("torch_conv3_variants: needs a CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    import decafnet_tpu_torch  # noqa: F401  (TF32 off for the plain versions)
+    from decafnet_tpu_torch.ops import cuda
+    from decafnet_tpu_torch.ops.fused_conv import conv3_weight_operands
+
+    with open(SRC) as f:
+        fns = build_all(variants(f.read()))
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def launch(fn, x, m8, ops, b, lw, lb, out):
+        B, C_in, T = x.shape
+        err = fn(cuda.ptr(x), cuda.ptr(m8), cuda.ptr(ops[0]), cuda.ptr(ops[1]),
+                 cuda.ptr(b), cuda.ptr(lw), cuda.ptr(lb), cuda.ptr(out), B, C_in,
+                 out.shape[1], T, 1e-5, 1, cuda.stream())
+        cuda.check(err, "conv3_ln_act variant")
+
+    served = [(cs.ROWS, C, cs.T0 // 2 ** lvl, cs.row_lens(lvl),
+               4 if (C == cs.EMBD + cs.RDIM or lvl == 0) else 2)
+              for lvl in range(cs.LEVELS) for C in (cs.EMBD, cs.EMBD + cs.RDIM)]
+    edges = [(4, cs.EMBD + cs.RDIM, T, [T, max(T - 3, 1), T // 2, 0], 0)
+             for T in (1000, 36, 17, 9, 4, 3)]
+    total = {n: {"decode_ms": 0.0, "max_abs_err_f64": 0.0} for n in fns}
+    for B, C, T, lens, calls in served + edges:
+        x = torch.randn(B, C, T, generator=g, device=dev)
+        w = torch.randn(C, C, 3, generator=g, device=dev) / math.sqrt(3 * C)
+        b = torch.randn(C, generator=g, device=dev)
+        lw = 1 + 0.1 * torch.randn(C, generator=g, device=dev)
+        lb = 0.1 * torch.randn(C, generator=g, device=dev)
+        mask = cs.prefix_mask(lens, T, dev)
+        m8, ops = cuda.as_bytes(mask), conv3_weight_operands(w)
+        ref = cs.conv3_f64(x, mask, w, b, lw, lb)
+        row = {"shape": [B, C, T], "calls_per_decode": calls}
+        for name, fn in fns.items():
+            out = torch.empty(B, C, T, device=dev)
+            launch(fn, x, m8, ops, b, lw, lb, out)
+            torch.cuda.synchronize()
+            err = float((out.double() - ref).abs().max())
+            row[name] = {"max_abs_err_f64": err}
+            total[name]["max_abs_err_f64"] = max(total[name]["max_abs_err_f64"], err)
+            if calls:
+                ms = cs.time_ms(lambda: launch(fn, x, m8, ops, b, lw, lb, out), 30)
+                row[name]["ms"] = ms
+                total[name]["decode_ms"] += calls * ms
+        print(json.dumps(row), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(json.dumps({"per": "one served decode call (64 rows, T=2304, 7 levels)",
+                      "variants": total, "card": smi}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -22,6 +22,9 @@ KERNELS = ("conv3_ln_act", "qkv_depthwise_ln", "band_attention")
 # max |diff| kernel vs plain: conv3 sums 3*C_in f32 products in another order
 # than cuDNN before a LayerNorm; the trio and band attention sum few terms
 TOL = {"conv3_ln_act": 1e-4, "qkv_depthwise_ln": 1e-5, "band_attention": 1e-5}
+# conv3 kernel vs an f64 run of the same function: its 3xTF32 products must
+# keep f32 accuracy (one TF32 pass is off by ~1e-3 at these widths)
+TOL_F64 = 1e-5
 
 
 def _mask(lens, T, dev):
@@ -81,6 +84,63 @@ def test_kernel_matches_plain_version(card, name, T):
         assert g.shape == w.shape
         assert torch.isfinite(g).all()
         assert float((g - w).abs().max()) <= TOL[name]
+
+
+def _conv3_f64(x, mask, w, bias, ln_w, ln_b, act="relu", eps=1e-5):
+    """conv3 + channel LN + act in f64 end to end."""
+    d = torch.float64
+    y = torch.nn.functional.conv1d(x.to(d) * mask[:, None, :].to(d), w.to(d),
+                                   None if bias is None else bias.to(d),
+                                   padding=1)
+    y = y - y.mean(dim=1, keepdim=True)
+    y = y * torch.rsqrt(y.square().mean(dim=1, keepdim=True) + eps)
+    if ln_w is not None:
+        y = y * ln_w.reshape(-1, 1).to(d) + ln_b.reshape(-1, 1).to(d)
+    return torch.relu(y) if act == "relu" else y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,bias,affine,act", [
+    (128, 128, True, True, "relu"),      # served width, trunk layers
+    (160, 160, True, True, "relu"),      # served width, cls_head2 / reg_head
+    (16, 24, True, False, "none"),       # C_in != C_out, bias, no affine
+    (160, 128, False, True, "relu"),
+    (13, 40, True, True, "relu")])       # C_in and C_out off the tiles
+@pytest.mark.parametrize("T", [2304, 301, 4])
+def test_conv3_ln_act_widths_and_f64(card, c_in, c_out, bias, affine, act, T):
+    g = torch.Generator(device=card).manual_seed(c_in + c_out + T)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=card)
+
+    args = (rn(4, c_in, T), _mask([T, max(T - 3, 1), T // 2, 0], T, card),
+            rn(c_out, c_in, 3) / math.sqrt(3 * c_in),
+            rn(c_out) if bias else None,
+            1 + 0.1 * rn(c_out, 1) if affine else None,
+            0.1 * rn(c_out, 1) if affine else None)
+    got = ops.conv3_ln_act(*args, act=act)
+    with cuda.plain_versions():
+        want = ops.conv3_ln_act(*args, act=act)
+    ref = _conv3_f64(*args, act=act)
+    assert got.shape == (4, c_out, T) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= TOL["conv3_ln_act"]
+    assert float((got.double() - ref).abs().max()) <= TOL_F64
+
+
+@pytest.mark.cuda
+def test_conv3_weight_operands_follow_updates_on_card(card):
+    conv = torch.nn.Conv1d(32, 32, 3).to(card)
+    x = torch.randn(2, 32, 50, device=card)
+    mask = _mask([50, 20], 50, card)
+    w, b = conv.weight, conv.bias
+    first = ops.conv3_ln_act(x, mask, w, b)
+    with torch.no_grad():
+        w.mul_(-1.0)
+    second = ops.conv3_ln_act(x, mask, w, b)
+    with cuda.plain_versions():
+        want = ops.conv3_ln_act(x, mask, w, b)
+    assert float((second - want).abs().max()) <= TOL["conv3_ln_act"]
+    assert float((second - first).abs().max()) > 1e-2
 
 
 @pytest.mark.cuda
