@@ -6,12 +6,14 @@
 Phases, each printing one JSON line:
   device   the card (torch and nvidia-smi);
   build    compiles the CUDA kernels from decafnet_tpu_torch/csrc with nvcc,
-           prints ptxas's registers / shared memory / spills of the conv3
-           kernels and checks in their SASS (cuobjdump) that they run on the
-           tensor cores (HMMA);
+           prints ptxas's registers / shared memory / spills of every
+           kernel and checks in the conv3 kernels' SASS (cuobjdump) that
+           they run on the tensor cores (HMMA);
   kernels  holds each kernel against its plain PyTorch version on the card at
            the served shapes (V=8 videos x Q=8 queries = 64 rows, T=2304, all
-           7 FPN levels) and at edge shapes, holds conv3_ln_act against an f64
+           7 FPN levels) and at edge shapes (ragged and odd T, masked tails,
+           an all-masked row, base pointers off 16 bytes, padded rows, B*H
+           above 65535), holds conv3_ln_act against an f64
            run of the same function at every served shape, and times kernel,
            plain version and, where one exists, the one PyTorch call
            computing the same function (library_ms, timed here only);
@@ -179,8 +181,23 @@ def conv3_case(dev, g, B, C, T, lens, bias=False, act="relu"):
     return (x, prefix_mask(lens, T, dev), w, b, lw, lb), {"act": act}
 
 
-def trio_case(dev, g, B, C, T, lens):
-    x = torch.randn(B, C, T, generator=g, device=dev)
+def moved(x, how):
+    """``x`` (B, C, T) with the same values at another address: "offset" is
+    contiguous one element past a 16-byte boundary, "padded" sits in rows
+    padded to a multiple of 4 columns (16-byte aligned rows, the last 16
+    bytes of a row partly outside it); "as_is" is ``x``."""
+    if how == "as_is":
+        return x
+    B, C, T = x.shape
+    if how == "offset":
+        buf = torch.empty(B * C * T + 1, device=x.device)[1:].view(B, C, T)
+    else:
+        buf = torch.empty(B, C, T // 4 * 4 + 4, device=x.device)[..., :T]
+    return buf.copy_(x)
+
+
+def trio_case(dev, g, B, C, T, lens, how="as_is"):
+    x = moved(torch.randn(B, C, T, generator=g, device=dev), how)
     ws = [torch.randn(C, 1, 3, generator=g, device=dev) / math.sqrt(3)
           for _ in range(3)]
     lws = [1 + 0.1 * torch.randn(C, 1, generator=g, device=dev) for _ in range(3)]
@@ -188,12 +205,16 @@ def trio_case(dev, g, B, C, T, lens):
     return (x, prefix_mask(lens, T, dev), ws, lws, lbs), {}
 
 
-def band_case(dev, g, B, T, lens, D=EMBD // HEADS):
+def band_case(dev, g, B, T, lens, D=EMBD // HEADS, how="as_is"):
     """Strided (B, H, T, D) head views of (B, C, T) projections, as the
-    model hands them over, scaled by 1/sqrt(sqrt(D)) like q and k there."""
+    model hands them over, scaled by 1/sqrt(sqrt(D)) like q and k there
+    (``how``: see :func:`moved`; "contiguous" gives (B, H, T, D) tensors)."""
     s = float(D) ** -0.25
-    qkv = [(torch.randn(B, HEADS * D, T, generator=g, device=dev) * s)
+    qkv = [moved(torch.randn(B, HEADS * D, T, generator=g, device=dev) * s,
+                 "as_is" if how == "contiguous" else how)
            .reshape(B, HEADS, D, T).transpose(2, 3) for _ in range(3)]
+    if how == "contiguous":
+        qkv = [t.contiguous() for t in qkv]
     return (*qkv, prefix_mask(lens, T, dev), WINDOW), {}
 
 
@@ -261,7 +282,8 @@ def run_kernels(dev):
             r["library_ms"] = (r["library_ms"] or 0.0) + count * lib_ms
         r["levels"].append({"level": level, "shape": list(args[0].shape),
                             "calls": count, "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": b_ms, "library_ms": lib_ms})
+                            "bound_ms": b_ms, "share_of_bound": b_ms / ms,
+                            "library_ms": lib_ms})
         return r["levels"][-1]
 
     def conv3_accuracy(args, kw, lvl, n_bytes, gemm_flops, ln_flops):
@@ -318,22 +340,26 @@ def run_kernels(dev):
             add("qkv_depthwise_ln", 1, args, kw, qkv_depthwise_ln,
                 qkv_depthwise_ln_torch, n_bytes, n_flops, level)
 
-    # edge shapes: ragged T, masked tails, an all-masked row, tiny level-6
-    # lengths, T shorter than the attention window; and the unused options
-    for T in (1000, 36, 17, 9, 4, 3):
+    # edge shapes: ragged and odd T, masked tails, an all-masked row, tiny
+    # level-6 lengths, T shorter than the attention window, base pointers
+    # off 16 bytes, rows padded past T; and the unused options
+    for T in (1000, 301, 36, 17, 9, 4, 3):
         lens = [T, max(T - 3, 1), T // 2, 0]
         args, kw = conv3_case(dev, g, 4, EMBD + RDIM, T, lens)
         check(conv3_ln_act, conv3_ln_act_torch, args, kw, "conv3_ln_act",
               f"edge T={T}")
-        args, kw = trio_case(dev, g, 4, EMBD, T, lens)
-        check(qkv_depthwise_ln, qkv_depthwise_ln_torch, args, kw,
-              "qkv_depthwise_ln", f"edge T={T}")
-        args, kw = band_case(dev, g, 4, T, lens)
-        check(band_attention, band_attention_torch, args, kw, "band_attention",
-              f"edge T={T}")
-        cont = tuple(a.contiguous() for a in args[:3]) + args[3:]
-        check(band_attention, band_attention_torch, cont, kw, "band_attention",
-              f"edge T={T}, contiguous (B, H, T, D)")
+        for how in ("as_is", "offset"):
+            args, kw = trio_case(dev, g, 4, EMBD, T, lens, how)
+            check(qkv_depthwise_ln, qkv_depthwise_ln_torch, args, kw,
+                  "qkv_depthwise_ln", f"edge T={T}, x {how}")
+        for how in ("as_is", "contiguous", "offset", "padded"):
+            args, kw = band_case(dev, g, 4, T, lens, how=how)
+            check(band_attention, band_attention_torch, args, kw,
+                  "band_attention", f"edge T={T}, q/k/v {how}")
+    # B*H above 65535 (the old kernel's gridDim.y cap) at a tiny T
+    args, kw = band_case(dev, g, 16400, 3, [3, 2, 1, 0] * 4100)
+    check(band_attention, band_attention_torch, args, kw, "band_attention",
+          "edge B*H = 65600, T=3")
     args, kw = conv3_case(dev, g, 3, 24, 100, [100, 50, 0], bias=True, act="none")
     args = (args[0][:, :16].contiguous(), args[1],
             torch.randn(24, 16, 3, generator=g, device=dev), args[3], None, None)
@@ -543,8 +569,9 @@ def main():
     cuda.library()
     emit({"phase": "build", "library": os.path.relpath(path, REPO),
           "nvcc_s": compile_s, "seconds": time.perf_counter() - t0})
-    emit({"phase": "build", "kernel": "conv3_ln_act", "ptxas":
-          ptxas_report(cuda.build_log("conv3_ln_act.cu"))})
+    for kernel in ("conv3_ln_act", "band_attention", "qkv_depthwise_ln"):
+        emit({"phase": "build", "kernel": kernel, "ptxas":
+              ptxas_report(cuda.build_log(kernel + ".cu"))})
     hmma = sass_hmma(path, "conv3_ln_act")
     emit({"phase": "build", "kernel": "conv3_ln_act", "sass_hmma": hmma})
     assert hmma and all(n > 0 for n in hmma.values()), \

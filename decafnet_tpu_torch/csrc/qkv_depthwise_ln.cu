@@ -10,21 +10,51 @@
 //
 // What bounds it on an H100: memory. Per element it does ~9 FMAs and a few LN
 // operations against 4 bytes read and 12 written, far below the card's ~20
-// FLOP/byte f32 balance point. The design reads each x element once into shared
-// memory (with a one-column halo), computes the three branches from it, and
-// writes each output once, coalesced along time: a block owns 32 time columns
-// and every channel, so the three channel LNs stay in the epilogue.
+// FLOP/byte f32 balance point. The design:
+//   - a block owns one batch row and a tile of `tile` time columns, all C
+//     channels; x[b, :, t0 - 1 .. t0 + tile] is staged once in shared memory,
+//     the interior with 16-byte cp.async when x and its rows are 16-byte
+//     aligned (4-byte copies otherwise, and for the two halo columns);
+//   - the tile's mask is staged once as floats: a tile with no valid column
+//     (halo included) writes ln_b, which is what the LN of an all-zero column
+//     gives, and loads no x; a tile with some masked columns multiplies them
+//     into the staged x once; a fully valid tile skips that pass;
+//   - the 9 taps and the 6 LN vectors are staged in shared memory once per
+//     block, the taps of a channel as float4s;
+//   - each column is owned by CS = 4 lanes of one warp (lane part l takes
+//     channels l, l + 4, ...), so the channel statistics
+//     need no shared memory and no barrier: the parts' partial sums meet in
+//     __shfl_xor_sync. y is recomputed from the staged x for each of three
+//     passes (sum for the mean, centred squares for the variance, output),
+//     9 FMAs per element on CUDA cores that are otherwise idle, so the LN is
+//     two-pass as in the plain version;
+//   - the staged rows are padded so that the parts of a warp read distinct
+//     banks; several blocks fit on an SM, so one block's copies overlap
+//     another's arithmetic and stores.
+// The tile width is chosen by the wrapper (ops/fused_conv.py:qkv_depthwise_ln_plan).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
-constexpr int TILE_T = 32;  // time columns per block, one per lane
-constexpr int GROUPS = 8;   // channel groups (one warp each)
+using namespace decafnet;
 
-template <int CPT>
-__global__ void __launch_bounds__(TILE_T * GROUPS)
+constexpr int PAD = 4;  // interior column offset of a staged row
+constexpr int MAX_THREADS = 512;
+constexpr int CS = 4;   // lanes per time column (ops/fused_conv.py:QKV_LANES)
+constexpr int QW = 32 / CS;  // columns per warp
+
+__device__ __forceinline__ float sum_over_parts(float v) {
+#pragma unroll
+  for (int o = 32 / CS; o < 32; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
 qkv_depthwise_ln_kernel(const float* __restrict__ x, const uint8_t* __restrict__ mask,
                         const float* __restrict__ wq, const float* __restrict__ wk,
                         const float* __restrict__ wv, const float* __restrict__ lwq,
@@ -32,140 +62,170 @@ qkv_depthwise_ln_kernel(const float* __restrict__ x, const uint8_t* __restrict__
                         const float* __restrict__ lbk, const float* __restrict__ lwv,
                         const float* __restrict__ lbv, float* __restrict__ oq,
                         float* __restrict__ ok, float* __restrict__ ov, int C, int T,
-                        float eps) {
-  constexpr int C_PAD = GROUPS * CPT;
-  __shared__ float xs[C_PAD][TILE_T + 2];
-  __shared__ float red[3][GROUPS][TILE_T];
+                        int tile, int row, int n_tiles, float eps, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                                            // [C][row]
+  float4* ws = reinterpret_cast<float4*>(smem + C * row);      // [3][C] taps
+  float2* ls = reinterpret_cast<float2*>(ws + 3 * C);          // [3][C] (ln_w, ln_b)
+  float* mf = reinterpret_cast<float*>(ls + 3 * C);            // [tile + 2]
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TILE_T + tx;
-  const int nthreads = TILE_T * GROUPS;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TILE_T;
-  const int t = t0 + tx;
-  const int c0 = ty * CPT;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int tq = (tid >> 5) * QW + lane % QW;  // this thread's column in the tile
+  const int part = lane / QW;                  // its share of the channels
+  const int b = blockIdx.x / n_tiles;
+  const int t0 = (blockIdx.x - b * n_tiles) * tile;
+  const int t = t0 + tq;
   const float* xb = x + (size_t)b * C * T;
   const uint8_t* mb = mask + (size_t)b * T;
-
-  for (int i = tid; i < C_PAD * (TILE_T + 2); i += nthreads) {
-    const int c = i / (TILE_T + 2), col = i % (TILE_T + 2);
-    const int tt = t0 - 1 + col;
-    float v = 0.f;
-    if (c < C && tt >= 0 && tt < T && mb[tt]) v = xb[(size_t)c * T + tt];
-    xs[c][col] = v;
-  }
-  __syncthreads();
-
-  const float* const w3[3] = {wq, wk, wv};
-  float y[3][CPT];
-#pragma unroll
-  for (int i = 0; i < CPT; ++i) {
-    const int c = c0 + i;
-    const int cc = c < C ? c : 0;
-    const float xl = xs[c][tx], xm = xs[c][tx + 1], xr = xs[c][tx + 2];
-#pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      const float* w = w3[s] + (size_t)cc * 3;
-      y[s][i] = w[0] * xl + w[1] * xm + w[2] * xr;
-    }
-  }
-
-  float mean[3], rstd[3];
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    float acc = 0.f;
-#pragma unroll
-    for (int i = 0; i < CPT; ++i)
-      if (c0 + i < C) acc += y[s][i];
-    red[s][ty][tx] = acc;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    float acc = 0.f;
-#pragma unroll
-    for (int g = 0; g < GROUPS; ++g) acc += red[s][g][tx];
-    mean[s] = acc / (float)C;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    float acc = 0.f;
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      if (c0 + i < C) {
-        const float d = y[s][i] - mean[s];
-        acc = fmaf(d, d, acc);
-      }
-    }
-    red[s][ty][tx] = acc;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    float acc = 0.f;
-#pragma unroll
-    for (int g = 0; g < GROUPS; ++g) acc += red[s][g][tx];
-    rstd[s] = rsqrtf(acc / (float)C + eps);
-  }
-
-  if (t >= T) return;
-  const float* const lw3[3] = {lwq, lwk, lwv};
   const float* const lb3[3] = {lbq, lbk, lbv};
   float* const o3[3] = {oq, ok, ov};
+
+  bool any = false, all = true;
+  for (int i = tid; i < tile + 2; i += nthreads) {
+    const int j = t0 - 1 + i;
+    const bool m = j >= 0 && j < T && mb[j] != 0;
+    mf[i] = m ? 1.f : 0.f;
+    any = any || m;
+    all = all && m;
+  }
+  any = __syncthreads_or(any);
+  all = __syncthreads_and(all);
+  if (!any) {  // LN of an all-zero column is ln_b
+    if (t < T) {
 #pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    float* ob = o3[s] + (size_t)b * C * T + t;
+      for (int s = 0; s < 3; ++s)
+        for (int c = part; c < C; c += CS) o3[s][((size_t)b * C + c) * T + t] = lb3[s][c];
+    }
+    return;
+  }
+
+  if (vec) {
+    // 16-byte aligned rows (T % 4 == 0): 4 columns per copy
+    const int cpr = tile / 4;  // copies per row; nthreads / cpr == 4 * CS
+    const int ch = tid % cpr;
+    const int c0 = t0 + 4 * ch;
+    for (int c = tid / cpr; c < C; c += 4 * CS) {
+      float* dst = xs + c * row + PAD + 4 * ch;
+      if (c0 < T) {
+        cp_async16(dst, xb + (size_t)c * T + c0);
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+    const int col = tid % tile;  // nthreads == tile * CS
+    const bool in = t0 + col < T;
+    for (int c = tid / tile; c < C; c += CS)
+      cp_async4(xs + c * row + PAD + col, xb + (size_t)c * T + (in ? t0 + col : 0), in);
+  }
+  for (int i = tid; i < 2 * C; i += nthreads) {
+    const int c = i >> 1;
+    const int col = (i & 1) ? tile : -1;
+    const int j = t0 + col;
+    const bool in = j >= 0 && j < T;
+    cp_async4(xs + c * row + PAD + col, xb + (size_t)c * T + (in ? j : 0), in);
+  }
+  const float* const w3[3] = {wq, wk, wv};
+  const float* const lw3[3] = {lwq, lwk, lwv};
+  for (int i = tid; i < C; i += nthreads) {
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const int c = c0 + i;
-      if (c >= C) break;
-      ob[(size_t)c * T] = (y[s][i] - mean[s]) * rstd[s] * lw3[s][c] + lb3[s][c];
+    for (int s = 0; s < 3; ++s) {
+      const float* w = w3[s] + 3 * i;
+      ws[s * C + i] = make_float4(w[0], w[1], w[2], 0.f);
+      ls[s * C + i] = make_float2(lw3[s][i], lb3[s][i]);
     }
   }
-}
+  cp_async_wait_all();
+  __syncthreads();
 
-template <int CPT>
-void launch(const float* x, const uint8_t* mask, const float* wq, const float* wk,
-            const float* wv, const float* lwq, const float* lbq, const float* lwk,
-            const float* lbk, const float* lwv, const float* lbv, float* oq, float* ok,
-            float* ov, int B, int C, int T, float eps, cudaStream_t stream) {
-  dim3 grid((T + TILE_T - 1) / TILE_T, B);
-  dim3 block(TILE_T, GROUPS);
-  qkv_depthwise_ln_kernel<CPT><<<grid, block, 0, stream>>>(
-      x, mask, wq, wk, wv, lwq, lbq, lwk, lbk, lwv, lbv, oq, ok, ov, C, T, eps);
+  if (!all) {  // x * mask, once, in place: each part its own channels
+    const float ml = mf[tq], mm = mf[tq + 1], mr = mf[tq + 2];
+    for (int c = part; c < C; c += CS) {
+      float* xr = xs + c * row + PAD + tq;
+      xr[0] *= mm;
+      if (tq == 0) xr[-1] *= ml;
+      if (tq == tile - 1) xr[1] *= mr;
+    }
+    __syncthreads();
+  }
+
+  const float* xt = xs + PAD - 1 + tq;
+  auto conv = [&](int c, float (&y)[3]) {
+    const float* xr = xt + c * row;
+    const float a = xr[0], m = xr[1], r = xr[2];
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const float4 w = ws[s * C + c];
+      y[s] = fmaf(w.z, r, fmaf(w.y, m, w.x * a));
+    }
+  };
+
+  float mean[3] = {0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int c = part; c < C; c += CS) {
+    float y[3];
+    conv(c, y);
+#pragma unroll
+    for (int s = 0; s < 3; ++s) mean[s] += y[s];
+  }
+#pragma unroll
+  for (int s = 0; s < 3; ++s) mean[s] = sum_over_parts(mean[s]) / (float)C;
+
+  float rstd[3] = {0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int c = part; c < C; c += CS) {
+    float y[3];
+    conv(c, y);
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const float d = y[s] - mean[s];
+      rstd[s] = fmaf(d, d, rstd[s]);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < 3; ++s) rstd[s] = rsqrtf(sum_over_parts(rstd[s]) / (float)C + eps);
+
+  if (t >= T) return;
+  const size_t o0 = (size_t)b * C * T + t;
+#pragma unroll 4
+  for (int c = part; c < C; c += CS) {
+    float y[3];
+    conv(c, y);
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const float2 l = ls[s * C + c];
+      o3[s][o0 + (size_t)c * T] = fmaf((y[s] - mean[s]) * rstd[s], l.x, l.y);
+    }
+  }
 }
 
 }  // namespace
 
 // C entry point. x (B, C, T), mask (B, T) bytes, w_s (C, 3) depthwise taps,
 // ln params (C,), outputs (B, C, T); all f32 contiguous on the device.
-// Returns the cudaError_t of the launch.
+// Launch plan: `tile` time columns per block, a multiple of 4 and of 32 / CS
+// with tile * CS <= 512. Returns the cudaError_t of the launch.
 extern "C" int decafnet_qkv_depthwise_ln_f32(
     const float* x, const uint8_t* mask, const float* wq, const float* wk, const float* wv,
     const float* lwq, const float* lbq, const float* lwk, const float* lbk, const float* lwv,
     const float* lbv, float* oq, float* ok, float* ov, int B, int C, int T, float eps,
-    cudaStream_t stream) {
-  if (B <= 0 || C <= 0 || T <= 0 || B > 65535 || C > 256)
+    int tile, cudaStream_t stream) {
+  if (B <= 0 || C <= 0 || T <= 0 || C > 256) return (int)cudaErrorInvalidValue;
+  if (tile <= 0 || tile % 4 != 0 || tile % QW != 0 || tile * CS > MAX_THREADS)
     return (int)cudaErrorInvalidValue;
-  const int cpt = ((C + GROUPS - 1) / GROUPS + 3) / 4 * 4;
-#define DECAF_QKV_CASE(N)                                                            \
-  case N:                                                                            \
-    launch<N>(x, mask, wq, wk, wv, lwq, lbq, lwk, lbk, lwv, lbv, oq, ok, ov, B, C, T, \
-              eps, stream);                                                          \
-    break;
-  switch (cpt) {
-    DECAF_QKV_CASE(4)
-    DECAF_QKV_CASE(8)
-    DECAF_QKV_CASE(12)
-    DECAF_QKV_CASE(16)
-    DECAF_QKV_CASE(20)
-    DECAF_QKV_CASE(24)
-    DECAF_QKV_CASE(28)
-    DECAF_QKV_CASE(32)
-    default:
-      return (int)cudaErrorInvalidValue;
+  const long long n_tiles = (T + tile - 1) / tile;
+  if ((long long)B * n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int row = row_stride(tile, PAD, CS);
+  const size_t smem = sizeof(float) * ((size_t)C * row + 12 * C + 6 * C + tile + 2);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qkv_depthwise_ln_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
-#undef DECAF_QKV_CASE
+  const bool vec = T % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  qkv_depthwise_ln_kernel<<<(unsigned)(B * n_tiles), tile * CS, smem, stream>>>(
+      x, mask, wq, wk, wv, lwq, lbq, lwk, lbk, lwv, lbv, oq, ok, ov, C, T, tile, row,
+      (int)n_tiles, eps, vec);
   return (int)cudaGetLastError();
 }

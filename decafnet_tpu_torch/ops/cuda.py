@@ -21,6 +21,7 @@ import ctypes
 import functools
 import glob
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -35,19 +36,25 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 LIB_NAME = "libdecafnet_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v", "-I", CSRC_DIR)
 
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu), all returning cudaError_t
 _SIGNATURES = {
     "decafnet_conv3_ln_act_f32": [_vp] * 8 + [_i] * 4 + [_f, _i, _vp],
-    "decafnet_qkv_depthwise_ln_f32": [_vp] * 14 + [_i] * 3 + [_f, _vp],
-    "decafnet_band_attention_f32": [_vp] * 5 + [_i] * 4 + [_ll] * 4 + [_i, _vp],
+    "decafnet_qkv_depthwise_ln_f32": [_vp] * 14 + [_i] * 3 + [_f, _i, _vp],
+    "decafnet_band_attention_f32": [_vp] * 5 + [_i] * 4 + [_ll] * 4 + [_i] * 3 + [_vp],
 }
 
 
 def sources():
+    """The kernel sources, one nvcc process each."""
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def headers():
+    """The headers the sources include (part of the build's hash)."""
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def toolkit_binary(name="nvcc"):
@@ -65,7 +72,7 @@ def toolkit_binary(name="nvcc"):
 
 def library_path():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
+    for path in sources() + headers():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -176,6 +183,23 @@ def require(cond, name, what):
         raise ValueError(f"{name}: {what}")
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device):
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def as_bytes(mask):
     """(B, T) bool mask as a contiguous uint8 view for the kernels."""
     return mask.contiguous().view(torch.uint8)
+
+
+def time_tile(T, quantum, max_tile):
+    """Time columns per block for a kernel that tiles T: the fewest tiles of
+    at most ``max_tile`` columns, each as narrow as that allows, rounded up
+    to a multiple of ``quantum`` and of 4 (16-byte copies). ``max_tile``
+    must be such a multiple."""
+    step = quantum * 4 // math.gcd(quantum, 4)
+    assert max_tile % step == 0, (max_tile, step)
+    per_tile = -(-T // -(-T // max_tile))
+    return -(-per_tile // step) * step

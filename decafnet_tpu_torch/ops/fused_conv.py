@@ -129,6 +129,19 @@ def qkv_depthwise_ln_torch(x, mask, ws, ln_ws, ln_bs, eps=1e-5):
         for w, lw, lb in zip(ws, ln_ws, ln_bs))
 
 
+QKV_MAX_TILE = 64
+# lanes that share a time column in csrc/qkv_depthwise_ln.cu (its CS)
+QKV_LANES = 4
+
+
+def qkv_depthwise_ln_plan(T):
+    """Time columns per block of csrc/qkv_depthwise_ln.cu: each block owns
+    ``tile`` columns of one batch row, each column's channels split over
+    QKV_LANES lanes of a warp. ``tile`` is a multiple of the columns per
+    warp (32 // QKV_LANES) and of 4, at most QKV_MAX_TILE."""
+    return cuda.time_tile(T, 32 // QKV_LANES, QKV_MAX_TILE)
+
+
 def qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps=1e-5):
     """Depthwise q/k/v trio: x read once, three depthwise conv3 + channel LN
     outputs (see :func:`qkv_depthwise_ln_torch` for the arguments).
@@ -137,9 +150,18 @@ def qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps=1e-5):
     TPU kernel decafnet_tpu/ops/fused_conv.py:_qkv_depthwise_ln_pallas_impl."""
     if not cuda.use_kernel(x):
         return qkv_depthwise_ln_torch(x, mask, ws, ln_ws, ln_bs, eps=eps)
+    return launch_qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps,
+                                   qkv_depthwise_ln_plan(x.shape[-1]))
+
+
+def launch_qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps, tile):
+    """Check the arguments and launch csrc/qkv_depthwise_ln.cu on CUDA
+    tensors with ``tile`` time columns per block (see
+    :func:`qkv_depthwise_ln_plan`; the plan study script passes others)."""
     name = "qkv_depthwise_ln"
     B, C, T = x.shape
     params = list(ws) + list(ln_ws) + list(ln_bs)
+    cuda.require(x.is_cuda, name, "the kernel takes CUDA tensors")
     cuda.require(len(ws) == len(ln_ws) == len(ln_bs) == 3, name,
                  "three branches")
     cuda.require(all(t.dtype == torch.float32 and t.device == x.device
@@ -149,8 +171,9 @@ def qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps=1e-5):
                  "depthwise weights must be (C, 1, 3)")
     cuda.require(all(p.numel() == C for p in list(ln_ws) + list(ln_bs)), name,
                  "LN params of C")
-    cuda.require(tuple(mask.shape) == (B, T) and mask.dtype == torch.bool,
-                 name, "mask must be (B, T) bool")
+    cuda.require(tuple(mask.shape) == (B, T) and mask.dtype == torch.bool
+                 and mask.device == x.device,
+                 name, "mask must be (B, T) bool on x's device")
     cuda.require(C <= 256, name, "C > 256 is not supported")
     flat = [p.reshape(-1).contiguous() for p in params]
     outs = [torch.empty((B, C, T), dtype=torch.float32, device=x.device)
@@ -161,7 +184,7 @@ def qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps=1e-5):
         cuda.ptr(x), cuda.ptr(m8), cuda.ptr(wq), cuda.ptr(wk), cuda.ptr(wv),
         cuda.ptr(lwq), cuda.ptr(lbq), cuda.ptr(lwk), cuda.ptr(lbk),
         cuda.ptr(lwv), cuda.ptr(lbv), *map(cuda.ptr, outs), B, C, T,
-        float(eps), cuda.stream())
+        float(eps), tile, cuda.stream())
     cuda.check(err, name)
     qkv_depthwise_ln.launches += 1
     return tuple(outs)

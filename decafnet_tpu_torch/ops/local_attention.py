@@ -54,6 +54,24 @@ def band_attention_torch(q, k, v, kv_mask, window_size):
     return (out * mask_f).to(q.dtype)
 
 
+# head widths csrc/band_attention.cu is instantiated for (embd 128 / 4 heads)
+BAND_HEAD_DIMS = (32,)
+BAND_MAX_TILE = 128
+
+
+def band_attention_plan(B, H, T, sms):
+    """Launch plan ``(tile, split)`` of csrc/band_attention.cu for (B, H, T)
+    query views on a card of ``sms`` multiprocessors: each block owns
+    ``tile`` time columns of one (b, h), and each query's D is split over
+    ``split`` lanes of a warp (1, 2 or 4), the fewest that give the card
+    1024 threads per multiprocessor. With fewer a launch does not fill the
+    card, and a query's latency, not the bytes, sets its time. ``tile`` is a
+    multiple of the queries per warp (32 // split) and of 4, at most
+    BAND_MAX_TILE."""
+    split = next((s for s in (1, 2) if B * H * T * s >= 1024 * sms), 4)
+    return cuda.time_tile(T, 32 // split, BAND_MAX_TILE), split
+
+
 def band_attention(q, k, v, kv_mask, window_size):
     """Banded attention (see :func:`band_attention_torch`).
 
@@ -64,26 +82,41 @@ def band_attention(q, k, v, kv_mask, window_size):
     result is a (B, H, T, D) view of a (B, H, D, T) contiguous buffer."""
     if not cuda.use_kernel(q):
         return band_attention_torch(q, k, v, kv_mask, window_size)
+    B, H, T, _ = q.shape
+    return launch_band_attention(
+        q, k, v, kv_mask, window_size,
+        band_attention_plan(B, H, T, cuda.sm_count(q.device)))
+
+
+def launch_band_attention(q, k, v, kv_mask, window_size, plan):
+    """Check the arguments and launch csrc/band_attention.cu on CUDA tensors
+    with the launch plan ``(tile, split)`` (see :func:`band_attention_plan`;
+    the plan study script passes others)."""
     name = "band_attention"
     B, H, T, D = q.shape
     halo = window_size // 2
+    cuda.require(q.is_cuda, name, "the kernel takes CUDA tensors")
     cuda.require(window_size % 2 == 1 and 1 <= halo <= 4, name,
                  f"window_size {window_size} (odd, 3..9)")
     cuda.require(all(t.dtype == torch.float32 and t.device == q.device
                      for t in (q, k, v)), name, "f32 tensors on one device")
     cuda.require(k.shape == q.shape and v.shape == q.shape, name,
                  "q, k, v shapes differ")
+    cuda.require(D in BAND_HEAD_DIMS, name,
+                 f"head width {D}: the kernel is built for {BAND_HEAD_DIMS}")
     cuda.require(tuple(kv_mask.shape) == (B, T)
-                 and kv_mask.dtype == torch.bool, name,
-                 "kv_mask must be (B, T) bool")
+                 and kv_mask.dtype == torch.bool
+                 and kv_mask.device == q.device, name,
+                 "kv_mask must be (B, T) bool on q's device")
     if not (q.stride() == k.stride() == v.stride()):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     sb, sh, st, sd = q.stride()
+    tile, split = plan
     out = torch.empty((B, H, D, T), dtype=torch.float32, device=q.device)
     m8 = cuda.as_bytes(kv_mask)
     err = cuda.library().decafnet_band_attention_f32(
         cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m8), cuda.ptr(out),
-        B, H, T, D, sb, sh, st, sd, halo, cuda.stream())
+        B, H, T, D, sb, sh, st, sd, halo, tile, split, cuda.stream())
     cuda.check(err, name)
     band_attention.launches += 1
     return out.transpose(2, 3)

@@ -15,8 +15,9 @@ import os
 import pytest
 import torch
 
+from chip_smoke import moved
 from decafnet_tpu_torch import ops
-from decafnet_tpu_torch.ops import cuda
+from decafnet_tpu_torch.ops import cuda, fused_conv, local_attention
 
 KERNELS = ("conv3_ln_act", "qkv_depthwise_ln", "band_attention")
 # max |diff| kernel vs plain: conv3 sums 3*C_in f32 products in another order
@@ -31,25 +32,27 @@ def _mask(lens, T, dev):
     return torch.arange(T, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
 
 
-def _case(name, T, dev, seed=0, C=160, contiguous_heads=False):
-    """Arguments of one op at width C (band attention: 4 heads of C//4)."""
+def _case(name, T, dev, seed=0, C=160, contiguous_heads=False, how="as_is",
+          B=4):
+    """Arguments of one op at width C (band attention: 4 heads of C//4), the
+    (B, C, T) input(s) laid out as ``how`` says (see chip_smoke.moved)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    lens = [T, max(T - 3, 1), T // 2, 0]
+    lens = ([T, max(T - 3, 1), T // 2, 0] * B)[:B]
     mask = _mask(lens, T, dev)
 
     def rn(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
     if name == "conv3_ln_act":
-        return (rn(4, C, T), mask, rn(C, C, 3) / math.sqrt(3 * C), None,
+        return (rn(B, C, T), mask, rn(C, C, 3) / math.sqrt(3 * C), None,
                 1 + 0.1 * rn(C, 1), 0.1 * rn(C, 1))
     if name == "qkv_depthwise_ln":
-        return (rn(4, C, T), mask, [rn(C, 1, 3) for _ in range(3)],
+        return (moved(rn(B, C, T), how), mask, [rn(C, 1, 3) for _ in range(3)],
                 [1 + 0.1 * rn(C, 1) for _ in range(3)],
                 [0.1 * rn(C, 1) for _ in range(3)])
     D = C // 4
-    qkv = [(rn(4, C, T) * D ** -0.25).reshape(4, 4, D, T).transpose(2, 3)
-           for _ in range(3)]
+    qkv = [moved(rn(B, C, T) * D ** -0.25, how).reshape(B, 4, D, T)
+           .transpose(2, 3) for _ in range(3)]
     if contiguous_heads:
         qkv = [t.contiguous() for t in qkv]
     return (*qkv, mask, 5)
@@ -66,13 +69,24 @@ def card():
     return torch.device("cuda")
 
 
+# (kernel, layout of its input): the trio and band attention also take base
+# pointers off 16 bytes, band attention rows padded past T
+LAYOUTS = [("conv3_ln_act", "as_is"), ("qkv_depthwise_ln", "as_is"),
+           ("qkv_depthwise_ln", "offset"), ("band_attention", "as_is"),
+           ("band_attention", "offset"), ("band_attention", "padded")]
+
+
+# batch rows: on a 132-SM H100, at the served 64 rows band attention's plan
+# splits a query's D over 1 lane at T >= 1000, 2 at T=301 and 4 below; at
+# 4 rows always over 4
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [2304, 1000, 36, 9, 3])
-@pytest.mark.parametrize("name", KERNELS)
-def test_kernel_matches_plain_version(card, name, T):
+@pytest.mark.parametrize("rows", [4, 64])
+@pytest.mark.parametrize("T", [2304, 1000, 301, 72, 36, 17, 9, 3])
+@pytest.mark.parametrize("name,how", LAYOUTS)
+def test_kernel_matches_plain_version(card, name, how, T, rows):
     op = getattr(ops, name)
-    C = 128 if name == "qkv_depthwise_ln" else 160
-    args = _case(name, T, card, C=C)
+    C = 160 if name == "conv3_ln_act" else 128
+    args = _case(name, T, card, C=C, how=how, B=rows)
     before = op.launches
     got = op(*args)
     assert op.launches == before + 1
@@ -153,6 +167,16 @@ def test_band_attention_contiguous_heads(card):
 
 
 @pytest.mark.cuda
+def test_band_attention_more_than_65535_heads(card):
+    args = _case("band_attention", 3, card, C=128, B=16400)
+    got = ops.band_attention(*args)
+    with cuda.plain_versions():
+        want = ops.band_attention(*args)
+    assert got.shape == (16400, 4, 3, 32)
+    assert float((got - want).abs().max()) <= TOL["band_attention"]
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_bad_input(card):
     x, mask, w, b, lw, lb = _case("conv3_ln_act", 64, card, C=16)
     with pytest.raises(ValueError):
@@ -160,6 +184,21 @@ def test_kernel_rejects_bad_input(card):
                          mask, w, b, lw, lb)
     with pytest.raises(ValueError):
         ops.conv3_ln_act(x, mask.float(), w, b, lw, lb)
+    with pytest.raises(ValueError):  # head width 40: no instantiation
+        ops.band_attention(*_case("band_attention", 64, card, C=160))
+
+
+def test_launch_helpers_refuse_cpu_tensors():
+    """The launch helpers bypass the routing rule, so they check the device
+    themselves before any pointer reaches the library."""
+    q, k, v, mask, window = _case("band_attention", 40, torch.device("cpu"),
+                                  C=128)
+    with pytest.raises(ValueError, match="CUDA"):
+        local_attention.launch_band_attention(q, k, v, mask, window, (64, 4))
+    x, mask, ws, lws, lbs = _case("qkv_depthwise_ln", 40, torch.device("cpu"),
+                                  C=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_conv.launch_qkv_depthwise_ln(x, mask, ws, lws, lbs, 1e-5, 64)
 
 
 @pytest.mark.parametrize("name", KERNELS)
