@@ -22,8 +22,25 @@ Phases, each printing one JSON line:
            answers requests through ground() and ground_many(), checks the
            detections, the kernel launch counts per decode call, and the
            same requests through the plain versions; then profiles one
-           stacked decode (device time by kernel, torch.profiler).
-Then one {"kernels": [...]} line, the nvidia-smi name/power-limit line, and
+           stacked decode (device time by kernel, torch.profiler);
+  eval     writes a synthetic val split (12 videos x 4 queries, 900-3000
+           clips, so both the 2304 bucket and the 2x bucket with its PE
+           interpolation plans run) and an experiment directory
+           (configs/ego4d_nlq.yaml, seeded random weights in models/last.pth),
+           and runs the eval CLI's entry point in-process three times: device
+           SoftNMS, eval.reference_exact (host C++ SoftNMS), and device
+           SoftNMS through the plain versions. Checks the R@k tables are
+           equal, the detections agree, the eval losses are finite, and the
+           kernel launches per eval decode call. With random weights those
+           tables are all zeros, so the three modes' detections are also
+           scored against annotations made from the device detections, where
+           the meter counts hits, and those tables must be equal too;
+  http     serves the eval phase's experiment directory over HTTP
+           (service_from_logdir, as ``python -m decafnet_tpu_torch.serve``
+           does) on 127.0.0.1 (a free port, a thread): /healthz, /ground and
+           /ground_batch answer as the serve phase's service does.
+Then one {"kernels": [...]} line (launches summed over the serve, eval and
+http paths, with the breakdown), the nvidia-smi name/power-limit line, and
 last {"ok": true, "device": {...}}. Any failed check raises: the script
 exits non-zero and prints no result. Without CUDA it exits 2.
 """
@@ -36,7 +53,10 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -65,6 +85,14 @@ TOL = {"conv3_ln_act": 1e-4, "qkv_depthwise_ln": 1e-5, "band_attention": 1e-5}
 TOL_F64 = 1e-5
 # served detections, kernels vs plain versions and ground vs ground_many
 SEG_TOL_S, SCORE_TOL = 1e-3, 1e-4
+# launches of each kernel per decode call of the 2-layer-head arch (2, 0, 7)
+PER_DECODE = {"conv3_ln_act": 44, "band_attention": 7, "qkv_depthwise_ln": 1}
+# eval losses, kernels vs plain versions (sums over up to ~4600 points)
+LOSS_RTOL, LOSS_ATOL = 1e-3, 1e-4
+# least distance of a scored IoU from an IoU threshold in the annotated
+# recall check: SEG_TOL_S moves the IoU of a segment of 0.5 s or more by
+# at most 4e-3
+IOU_MARGIN = 1e-2
 
 
 def emit(obj):
@@ -497,8 +525,7 @@ def run_serve(dev):
     launches = ops.launch_counts()
     calls = dec.decode_calls - calls0
 
-    want = {"conv3_ln_act": 44 * calls, "band_attention": 7 * calls,
-            "qkv_depthwise_ln": calls}
+    want = {n: c * calls for n, c in PER_DECODE.items()}
     emit({"phase": "serve", "decode_calls": calls, "launches": launches,
           "expected": want, "per_decode_call": {n: launches[n] / calls
                                                 for n in launches}})
@@ -539,6 +566,239 @@ def run_serve(dev):
                                 "plain_versions_wall_ms": plain_batch_ms},
           "stats": service.stats(),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    return launches, service, requests
+
+
+# --------------------------------------------------------------------- eval
+
+def write_experiment(root):
+    """A synthetic val split and an experiment directory over it: opt.yaml
+    (configs/ego4d_nlq.yaml pointed at the data) and models/last.pth (seeded
+    random weights, reference layout)."""
+    from decafnet_tpu_torch.core import load_config
+    from decafnet_tpu_torch.data import apply_synthetic_cfg, make_synthetic_dataset
+    from decafnet_tpu_torch.models import random_params, save_pth
+
+    t0 = time.perf_counter()
+    cfg = load_config(os.path.join(REPO, "configs", "ego4d_nlq.yaml"))
+    paths = make_synthetic_dataset(
+        os.path.join(root, "data"), num_videos=12, num_queries=4,
+        clip_range=(900, 3000), vid_dim=cfg.model.vid_net.in_dim,
+        shallow_dim=cfg.model.vid_net.in_dim, text_dim=cfg.model.text_net.in_dim,
+        splits=("val",), seed=SEED)
+    apply_synthetic_cfg(cfg, paths)
+    logdir = os.path.join(root, "exp")
+    os.makedirs(os.path.join(logdir, "models"))
+    cfg.dump_to_file(os.path.join(logdir, "opt.yaml"))
+    save_pth(os.path.join(logdir, "models", "last.pth"), random_params(cfg, SEED))
+    with open(paths["anno_file"]) as f:
+        clips = [v["num_clips"] for v in json.load(f)["val"].values()]
+    emit({"phase": "eval", "experiment": "configs/ego4d_nlq.yaml over a "
+          "synthetic val split", "videos": len(clips), "queries_per_video": 4,
+          "clips": clips, "setup_s": time.perf_counter() - t0})
+    assert min(clips) <= cfg.model.vid_net.max_seq_len < max(clips), clips
+    return logdir
+
+
+def eval_answers(results):
+    """An EvalResults dump as lists of per-query answers, one per video."""
+    return [[{"segments": d["segments"].tolist(), "scores": d["scores"].tolist()}
+             for d in v["detections"]] for v in results.videos]
+
+
+def annotated_recall(runs, ranks, threshs):
+    """R@k tables of each mode's detections against annotations made from
+    the device-NMS detections, where the meter counts hits. A query's target
+    is its device top-1 segment shifted by a seeded fraction f of its length
+    (top-1 IoU (1 - f) / (1 + f)); f is drawn again until every scored
+    device IoU lies IOU_MARGIN or more from each threshold and detections
+    whose scores are within SCORE_TOL (which may swap places) hit and miss
+    alike. Returns ({mode: table}, number of queries)."""
+    from decafnet_tpu_torch.eval.metrics import RecallMeter, interval_iou
+
+    rng = np.random.default_rng(SEED)
+    th = np.asarray(threshs, np.float64)
+    targets = []
+    for v in eval_answers(runs["device_nms"][1]):
+        for q in v:
+            segs = np.asarray(q["segments"], np.float64).reshape(-1, 2)[:max(ranks)]
+            sc = np.asarray(q["scores"], np.float64)[:max(ranks)]
+            if not len(segs):
+                targets.append(np.array([0.0, 1.0]))
+                continue
+            tied = np.abs(sc[:, None] - sc[None]) <= SCORE_TOL
+            for _ in range(1000):
+                t = segs[0] + rng.uniform(0.0, 0.9) * (segs[0, 1] - segs[0, 0])
+                iou = interval_iou(segs, np.broadcast_to(t, segs.shape))
+                hit = iou[:, None] >= th[None]
+                if (np.abs(iou[:, None] - th[None]).min() >= IOU_MARGIN
+                        and all((hit[i] == hit[j]).all()
+                                for i, j in zip(*np.nonzero(tied)))):
+                    break
+            else:
+                raise AssertionError(f"no annotation clear of {th}: {segs}")
+            targets.append(t)
+    tables = {}
+    for mode, (_, results, _) in runs.items():
+        meter = RecallMeter(ranks, threshs)
+        answers = [q for v in eval_answers(results) for q in v]
+        for q, t in zip(answers, targets, strict=True):
+            meter.update(np.asarray(q["segments"]).reshape(-1, 2), q["scores"], t)
+        tables[mode] = meter.table()[0]
+    return tables, len(targets)
+
+
+def run_eval(root):
+    """The eval CLI's entry point on the card: device SoftNMS, reference_exact
+    and the plain versions, over an experiment directory written under
+    ``root``. Returns the kernel launches of the first two and the
+    experiment directory."""
+    from decafnet_tpu_torch import ops
+    from decafnet_tpu_torch.eval.__main__ import build_evaluator
+    from decafnet_tpu_torch.ops import cuda
+    from decafnet_tpu_torch.ops.nms import build_host
+    from decafnet_tpu_torch.utils import EvalResults
+
+    t0 = time.perf_counter()
+    lib, build_s = build_host()
+    emit({"phase": "eval", "host_nms": os.path.relpath(lib, REPO),
+          "g++_s": build_s, "seconds": time.perf_counter() - t0})
+    logdir = write_experiment(root)
+    argv = ["--name", logdir, "--set", "eval.save_results", "True"]
+    modes = {"device_nms": [], "reference_exact":
+             ["eval.reference_exact", "True"], "plain_versions": []}
+    runs, launches = {}, {n: 0 for n in PER_DECODE}
+    for mode, sets in modes.items():
+        torch.cuda.reset_peak_memory_stats()
+        # build + run: what ``python -m decafnet_tpu_torch.eval`` does
+        ev = build_evaluator(argv + sets)
+        assert ev.device.type == "cuda" and ev.decoder.reference_exact == \
+            (mode == "reference_exact")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if mode == "plain_versions":
+            with cuda.plain_versions():
+                metrics = ev.run()
+        else:
+            metrics = ev.run()
+        wall_s = time.perf_counter() - t0
+        counts, calls = ops.launch_counts(), ev.decoder.decode_calls
+        want = {n: 0 if mode == "plain_versions" else c * calls
+                for n, c in PER_DECODE.items()}
+        results = EvalResults.load(os.path.join(logdir, "results_last.pk"))
+        losses = [l for v in results.videos for l in v["losses"]]
+        emit({"phase": "eval", "mode": mode, "recall": metrics.tolist(),
+              "table": ev.meter.table()[1].replace("\n", " | "),
+              "decode_calls": calls, "launches": counts, "expected": want,
+              "wall_s": wall_s, "video_ms": ev.video_ms,
+              "phase_s": {k: sum(v) for k, v in ev.decoder.time_dict.items()},
+              "mean_loss": {k: float(np.mean([l[k] for l in losses]))
+                            for k in ("cls_loss", "reg_loss")},
+              "mean_top1_iou": float(np.mean([i for _, i in
+                                              results.top1_ious()])),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+        assert calls == len(ev.video_ms) == 12, (calls, len(ev.video_ms))
+        assert counts == want, (mode, counts, want)
+        assert all(np.isfinite(l[k]) for l in losses
+                   for k in ("cls_loss", "reg_loss")), mode
+        assert len(losses) == 48
+        runs[mode] = (metrics, results, losses)
+        if mode != "plain_versions":
+            launches = {n: launches[n] + counts[n] for n in PER_DECODE}
+
+    base_m, base_r, base_l = runs["device_nms"]
+    annotated, n_q = annotated_recall(runs, tuple(ev.cfg.eval.ranks),
+                                      tuple(ev.cfg.eval.iou_threshs))
+    base_a = annotated["device_nms"]
+    emit({"phase": "eval", "check": "annotated recall", "queries": n_q,
+          "annotations": "device top-1 shifted by a seeded fraction of its "
+          "length", "tables": {m: t.tolist() for m, t in annotated.items()}})
+    assert 0 < base_a.max() and base_a.min() < 1, base_a   # hits and misses
+    for mode in ("reference_exact", "plain_versions"):
+        metrics, results, losses = runs[mode]
+        assert np.array_equal(metrics, base_m), (mode, metrics, base_m)
+        assert np.array_equal(annotated[mode], base_a), (mode, annotated)
+        seg_d, sc_d = same_detections(eval_answers(base_r), eval_answers(results))
+        loss_d = max(abs(a[k] - b[k]) / (LOSS_ATOL / LOSS_RTOL + abs(b[k]))
+                     for a, b in zip(losses, base_l) for k in a)
+        emit({"phase": "eval", "check": f"device_nms vs {mode}",
+              "recall_equal": True, "recall_nonzero": bool(base_m.any()),
+              "annotated_recall_equal": True, "seg_s": seg_d, "score": sc_d,
+              "loss_rel": loss_d, "tol": {"seg_s": SEG_TOL_S, "score": SCORE_TOL,
+                                         "loss_rel": LOSS_RTOL}})
+        assert seg_d <= SEG_TOL_S and sc_d <= SCORE_TOL, (mode, seg_d, sc_d)
+        assert loss_d <= LOSS_RTOL, (mode, loss_d)
+    return launches, logdir
+
+
+# --------------------------------------------------------------------- http
+
+def run_http(logdir, serve_service, requests):
+    """The HTTP endpoint over the experiment directory ``logdir`` (its
+    opt.yaml and models/last.pth, loaded as the serve CLI loads them) on a
+    free local port, in a thread: /healthz, /ground with one request,
+    /ground_batch with two; answers must equal those of the serve phase's
+    service, built from the same seeded weights in memory. Returns the
+    kernel launches of the HTTP calls."""
+    from http.server import ThreadingHTTPServer
+
+    from decafnet_tpu_torch import ops
+    from decafnet_tpu_torch.serve import make_handler, service_from_logdir
+
+    service = service_from_logdir(logdir)
+    assert service.device.type == "cuda"
+
+    def as_json(req):
+        return {k: ([x.tolist() for x in v] if k == "texts" else
+                    v.tolist() if isinstance(v, np.ndarray) else v)
+                for k, v in req.items()}
+
+    one, two = requests[2], [requests[0], requests[5]]
+    want_one = serve_service.ground(**one)
+    want_two = serve_service.ground_many(two)
+    bodies = {"/ground": json.dumps(as_json(one)).encode(),
+              "/ground_batch": json.dumps(
+                  {"requests": [as_json(r) for r in two]}).encode()}
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        calls0 = service.decoder.decode_calls
+        ops.reset_launch_counts()
+        answers, walls = {}, {}
+        for path, body in bodies.items():
+            req = urllib.request.Request(url + path, data=body, headers={
+                "Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                answers[path] = json.loads(r.read())
+            walls[path] = 1e3 * (time.perf_counter() - t0)
+        launches = ops.launch_counts()
+        calls = service.decoder.decode_calls - calls0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    assert not thread.is_alive()
+
+    want = {n: c * calls for n, c in PER_DECODE.items()}
+    seg_d, sc_d = same_detections([want_one] + want_two,
+                                  [answers["/ground"]["detections"]]
+                                  + answers["/ground_batch"]["detections_batch"])
+    emit({"phase": "http", "healthz": {k: health[k] for k in
+                                       ("status", "device", "device_name",
+                                        "n_devices")},
+          "request_bytes": {p: len(b) for p, b in bodies.items()},
+          "wall_ms": walls, "decode_calls": calls, "launches": launches,
+          "expected": want, "vs_service": {"seg_s": seg_d, "score": sc_d}})
+    assert health["status"] == "ok" and health["device"].startswith("cuda")
+    assert health["device_name"] == torch.cuda.get_device_name(0)
+    assert launches == want and calls > 0, (launches, want)
+    assert seg_d <= SEG_TOL_S and sc_d <= SCORE_TOL, (seg_d, sc_d)
     return launches
 
 
@@ -578,7 +838,12 @@ def main():
         "conv3_ln_act does not run on the tensor cores"
 
     rec = run_kernels(dev)
-    launches = run_serve(dev)
+    by_path = {}
+    by_path["serve"], service, requests = run_serve(dev)
+    with tempfile.TemporaryDirectory() as root:
+        by_path["eval"], logdir = run_eval(root)
+        by_path["http"] = run_http(logdir, service, requests)
+    launches = {n: sum(p[n] for p in by_path.values()) for n in PER_DECODE}
 
     sources = {"conv3_ln_act": ("decafnet_tpu_torch/csrc/conv3_ln_act.cu",
                                 "decafnet_tpu/ops/fused_conv.py:79"),
@@ -591,7 +856,9 @@ def main():
         src, rep = sources[n]
         kernels.append({
             "name": n, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[n], "max_abs_err": r["max_abs_err"],
+            "launches": launches[n],
+            "launches_by_path": {p: c[n] for p, c in by_path.items()},
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["byte_ms"] >= r["flop_ms"] else "operations",
             "library_ms": r["library_ms"],

@@ -1,9 +1,12 @@
 """decafnet_tpu_torch: the PyTorch/CUDA port of decafnet_tpu for NVIDIA
 Hopper (H100).
 
-This slice serves the live grounder (``model.name: iter``) through
-:class:`~decafnet_tpu_torch.serve.GroundingService`. Its three fused ops run
-as hand-written CUDA kernels on the card (csrc/) and as plain PyTorch on the
+The port serves the live grounder (``model.name: iter``) through
+:class:`~decafnet_tpu_torch.serve.GroundingService` and its HTTP endpoint
+(``python -m decafnet_tpu_torch.serve``), and evaluates it on a dataset
+through :class:`~decafnet_tpu_torch.eval.Evaluator`
+(``python -m decafnet_tpu_torch.eval``). Its three fused ops run as
+hand-written CUDA kernels on the card (csrc/) and as plain PyTorch on the
 CPU. The port computes in full f32: TF32 is switched off for matrix
 products and for cuDNN convolutions (which default to TF32).
 """

@@ -1,3 +1,4 @@
 """Configuration of the port."""
 
-from .config import CfgNode, get_cfg_defaults, load_config, update_opt
+from .config import (CfgNode, file_task, get_cfg_defaults, load_config,
+                     update_eval_data, update_from, update_opt)

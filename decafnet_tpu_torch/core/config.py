@@ -1,19 +1,27 @@
-"""Configuration tree for serving (port of decafnet_tpu/core/config.py, cut
-to what the grounder's eval path reads).
+"""Configuration tree (port of decafnet_tpu/core/config.py).
 
-``CfgNode`` is a nested dict with attribute access and yaml merging;
-``get_cfg_defaults()`` builds the grounder task's default tree;
-``load_config(path)`` merges a config file (e.g. configs/ego4d_nlq.yaml)
-over the defaults and derives the dependent fields (``update_opt``).
+``CfgNode`` is a nested dict with attribute access, yaml I/O, merging and
+dotted-key overrides (``merge_from_list``: unknown keys raise ``KeyError``).
+``get_cfg_defaults(task)`` builds the task's default tree key for key as the
+JAX package does, ``tpu`` section included, so an ``opt.yaml`` written by
+the JAX trainer loads and takes ``--set`` overrides. Of the ``tpu`` section
+the port reads only ``compute_dtype`` (``models.make_model``).
+
+``update_opt`` derives the dependent fields, ``update_eval_data`` backfills
+``eval.data`` from ``data``, ``update_from`` backfills a frozen snapshot
+with defaults introduced after it. ``load_config(path)`` is defaults of the
+file's task <- the file, then ``update_opt``.
 """
 
 from __future__ import annotations
+
+import copy
 
 import yaml
 
 
 class CfgNode(dict):
-    """A nested dict with attribute access and yaml merging."""
+    """A nested dict with attribute access, clone/merge, yaml I/O."""
 
     def __getattr__(self, name):
         try:
@@ -31,6 +39,13 @@ class CfgNode(dict):
             node[k] = CfgNode.from_dict(v) if isinstance(v, dict) else v
         return node
 
+    def to_dict(self):
+        return {k: v.to_dict() if isinstance(v, CfgNode) else v
+                for k, v in self.items()}
+
+    def clone(self):
+        return copy.deepcopy(self)
+
     def merge_from_other_cfg(self, other):
         for k, v in other.items():
             if isinstance(v, dict) and isinstance(self.get(k), CfgNode):
@@ -44,6 +59,33 @@ class CfgNode(dict):
         with open(fname, "r") as f:
             self.merge_from_other_cfg(yaml.safe_load(f) or {})
 
+    def merge_from_list(self, kv_list):
+        """Dotted-key overrides ``[key, value, key, value, ...]``; values
+        are parsed as yaml and coerced to the default's type."""
+        assert len(kv_list) % 2 == 0, "override list must be key/value pairs"
+        for key, value in zip(kv_list[0::2], kv_list[1::2]):
+            node = self
+            parts = key.split(".")
+            for p in parts[:-1]:
+                if p not in node:
+                    raise KeyError(f"unknown config key: {key}")
+                node = node[p]
+            if parts[-1] not in node:
+                raise KeyError(f"unknown config key: {key}")
+            node[parts[-1]] = _parse_value(value, node[parts[-1]])
+
+    def dump(self):
+        return yaml.safe_dump(self.to_dict(), default_flow_style=False)
+
+    def dump_to_file(self, fname):
+        with open(fname, "w") as f:
+            f.write(self.dump())
+
+    @staticmethod
+    def load_file(fname):
+        with open(fname, "r") as f:
+            return CfgNode.from_dict(yaml.safe_load(f) or {})
+
 
 def _coerce(value, old):
     """Coerce merged values to the default's scalar type where unambiguous."""
@@ -54,7 +96,77 @@ def _coerce(value, old):
     return value
 
 
-def _model_defaults():
+def _parse_value(text, old):
+    """Parse a CLI override string as yaml, matching the target type."""
+    if not isinstance(text, str):
+        return _coerce(text, old)
+    try:
+        value = yaml.safe_load(text)
+    except yaml.YAMLError:
+        value = text
+    return _coerce(value, old)
+
+
+# ---------------------------------------------------------------------------
+# Task default trees
+# ---------------------------------------------------------------------------
+
+
+def _base_aux():
+    aux = CfgNode()
+    aux.mark = ""
+    aux.runid = 0
+    aux.debug = False
+    aux.log = "decaf"
+    aux.resume = True
+    aux.model_resume = None
+    aux.eval_run = -1
+    aux.eval_by = "epoch"
+    aux.save_run = 2
+    aux.log_interval = 100
+    aux.dryrun = False
+    aux.cfg_file = ()
+    aux.set_cfgs = None
+    aux.exp = ""
+    aux.logdir = ""
+    return aux
+
+
+def _base_data():
+    """``group_method`` / ``tokenizer`` exist only in the charades tree; the
+    datasets fall back to 'greedy' / None when they are absent."""
+    data = CfgNode()
+    data.name = "video_centric"
+    data.split = "train"
+    data.eval_split = "val"
+    data.anno_file = None
+    data.vid_feat_dir = None
+    data.vid_load = "npy"
+    data.shallow_vid_feat_dir = None
+    data.shallow_vid_load = "npy"
+    data.shallow_ds = None
+    data.text_feat_dir = None
+    data.ext_score_dir = None
+    data.text_cls_fname = None
+    data.clip_token_fname = None
+    data.ego4d_train_anno = None
+    data.ego4d_val_anno = None
+    data.ego4d_metadata = None
+    data.video_dir = None
+    data.clip_size = 32
+    data.clip_stride = 8
+    data.to_fixed_len = False
+    data.downsample_rate = 1
+    data.true_ds = None
+    data.max_num_text = 2
+    data.trunc_thresh = 0.5
+    data.crop_ratio = (0.9, 1.0)
+    return data
+
+
+def _base_model(delegation=True):
+    """``delegation=False`` gives the mad/charades trees, which carry only
+    ``norm`` of the delegation knobs."""
     model = CfgNode()
     model.name = "default"
 
@@ -76,13 +188,21 @@ def _model_defaults():
     model.vid_net.stride = 1
     model.vid_net.arch = (2, 0, 7)
     model.vid_net.mha_win_size = 5
+    model.vid_net.attn_pdrop = 0.0
+    model.vid_net.proj_pdrop = 0.1
+    model.vid_net.path_pdrop = 0.1
     model.vid_net.use_abs_pe = True
+    model.vid_net.fuse = "cat"   # read by no model code; kept for parity
     model.vid_net.pool_only = False
+    model.vid_net.cdrop = 0.0
 
     model.fusion = CfgNode()
     model.fusion.name = "xattn"
     model.fusion.n_layers = 2
     model.fusion.n_heads = 4
+    model.fusion.attn_pdrop = 0.0
+    model.fusion.proj_pdrop = 0.1
+    model.fusion.path_pdrop = 0.1
     model.fusion.xattn_mode = "adaln"
 
     model.cls_head = CfgNode()
@@ -94,58 +214,207 @@ def _model_defaults():
     model.reg_head.name = "reg"
     model.reg_head.n_layers = 2
 
-    model.sratio = 0.0    # fraction of saliency bins kept by delegation
-    model.sn = 60         # clips per saliency bin
-    model.msf = False     # concat shallow features channel-wise
-    model.scat = False    # append correlation row as a channel
-    model.sfonly = False  # use shallow features only
-    model.norm = False    # L2-normalize before the saliency dot product
+    model.pretrain = None
+    if delegation:
+        model.sratio = 0.0    # fraction of saliency bins kept by delegation
+        model.sn = 60         # clips per saliency bin
+        model.msf = False     # concat shallow features channel-wise
+        model.scat = False    # append correlation row as a channel
+        model.sfonly = False  # use shallow features only
+    model.norm = False        # L2-normalize before the saliency dot product
     return model
 
 
-def get_cfg_defaults():
-    """Default tree of the grounder task (Ego4D-NLQ / GoalStep), with the
-    sections the eval path reads."""
+def _base_train():
+    train = CfgNode()
+    train.batch_size = 16
+    train.num_workers = 4
+    train.epochs = 5
+    train.warmup_epochs = 5
+    train.ema_beta = 0.999
+    train.center_sampling = "radius"
+    train.center_sampling_radius = 1.5
+    train.loss_norm = 160
+    train.loss_norm_momentum = 0.9
+    train.loss_weight = 1.0
+    train.reg_loss = "diou"
+    train.version = 1
+    return train
+
+
+def _base_eval(data):
+    """``eval.data`` is ``data`` with every key None, backfilled by
+    ``update_eval_data``."""
+    ev = CfgNode()
+    ev.ranks = (1, 5)
+    ev.iou_threshs = (0.3, 0.5)
+    ev.pre_nms_thresh = 0.001
+    ev.pre_nms_topk = 2000
+    ev.seg_len_thresh = 0.1
+    ev.data = CfgNode({k: None for k in data})
+    ev.max_num_queries = 32     # query batching bucket cap
+    ev.reference_exact = False  # host C++ SoftNMS per query
+    ev.save_results = False     # dump per-video detections for analysis
+    ev.shard_videos = 0         # multi-device eval: not in the port yet
+    ev.shard_time = 0           # (ROADMAP item 11); values > 1 raise
+    ev.shard_processes = True
+    return ev
+
+
+def _base_nms():
+    nms = CfgNode()
+    nms.mode = "soft_nms"
+    nms.iou_thresh = 0.1
+    nms.min_score = 0.001
+    nms.max_num_segs = 5
+    nms.sigma = 0.9
+    nms.voting_thresh = 0.95
+    return nms
+
+
+def _base_tpu():
+    """The JAX package's runtime knobs, kept so its snapshots parse. The
+    port reads ``compute_dtype`` only: "auto" and "float32" run f32,
+    "bfloat16" raises (ROADMAP item 12)."""
+    tpu = CfgNode()
+    tpu.mesh_shape = None
+    tpu.compute_dtype = "auto"
+    tpu.matmul_precision = "auto"
+    tpu.attention_backend = "auto"
+    tpu.seq_buckets = ()
+    tpu.compilation_cache = "~/.cache/decafnet_tpu/xla"
+    tpu.remat = False
+    tpu.remat_policy = "nothing"
+    tpu.shard_time = False
+    tpu.video_major_train = True
+    return tpu
+
+
+def _defaults_common(task, delegation=True):
     cfg = CfgNode()
-    cfg.model = _model_defaults()
+    cfg.seed = None
+    cfg.task = task
+    cfg.aux = _base_aux()
+    cfg.model = _base_model(delegation=delegation)
+
+    cfg.loss = CfgNode()
+    cfg.loss.fc_a = 0.5   # focal alpha
+    cfg.loss.fc_s = 0.2   # focal label smoothing
 
     cfg.pt_gen = CfgNode()
     cfg.pt_gen.regression_range = 4
     cfg.pt_gen.sigma = 0.5
 
-    cfg.data = CfgNode()   # filled by update_opt
+    cfg.train = _base_train()
 
-    cfg.eval = CfgNode()
-    cfg.eval.pre_nms_thresh = 0.001
-    cfg.eval.pre_nms_topk = 2000
-    cfg.eval.seg_len_thresh = 0.1
-    cfg.eval.max_num_queries = 32   # query batching bucket cap
+    cfg.optimizer = CfgNode()
+    cfg.optimizer.name = "adamw"
+    cfg.optimizer.lr = 1e-3
+    cfg.optimizer.weight_decay = 0.05
+    cfg.optimizer.clip_grad_norm = 1.0
 
-    cfg.nms = CfgNode()
-    cfg.nms.mode = "soft_nms"
-    cfg.nms.iou_thresh = 0.1
-    cfg.nms.min_score = 0.001
-    cfg.nms.max_num_segs = 5
-    cfg.nms.sigma = 0.9
-    cfg.nms.voting_thresh = 0.95
+    cfg.scheduler = CfgNode()
+    cfg.scheduler.name = "multistep"
+    cfg.scheduler.steps = (-1,)
+    cfg.scheduler.gamma = 0.1
+
+    cfg.data = _base_data()
+    cfg.eval = _base_eval(cfg.data)
+    cfg.nms = _base_nms()
+
+    cfg.log = CfgNode()
+    cfg.log.log_interval = 100
+    cfg.log.checkpoint_epochs = (6, 7, 8, 9, 10)
+    cfg.log.root = "log"
+
+    cfg.tpu = _base_tpu()
+    return cfg
+
+
+def get_cfg_defaults(task="grounder"):
+    """Default tree of a task: ``grounder`` (Ego4D-NLQ / GoalStep), ``mad``
+    (movie-length) or ``charades`` (= mad + short-video extras)."""
+    cfg = _defaults_common(task, delegation=(task == "grounder"))
+    if task in ("mad", "charades"):
+        cfg.train.microbatch_size = 1
+        cfg.eval.max_vid_len = 32768
+        # keys the mad tree adds after eval.data was cloned
+        cfg.data.clip_d = 4.0
+        cfg.data.small_img_size = 112
+        cfg.data.max_feats = 16
+        cfg.data.npos_feats = 8
+        cfg.loss.dw = 0.0
+        cfg.optimizer.fpretrain = False
+        cfg.optimizer.lpretrain = None
+    if task == "charades":
+        cfg.data.group_method = None
+        cfg.eval.data.group_method = None
+        cfg.data.tokenizer = None
+        cfg.eval.data.tokenizer = None
+        cfg.model.rlayer = None
+        cfg.model.rdim = 32
     return cfg
 
 
 def update_opt(cfg):
     """Compute the fields derived from the base options (idempotent)."""
     m = cfg.model
+    m.max_text_len = m.text_net.max_seq_len
+    m.max_vid_len = m.vid_net.max_seq_len
     m.vid_stride = m.vid_net.stride
     m.num_fpn_levels = m.vid_net.arch[-1]
     m.mha_win_size = m.vid_net.mha_win_size
-    cfg.data.max_vid_len = m.vid_stride * m.vid_net.max_seq_len
+    cfg.data.max_text_len = m.max_text_len
+    cfg.data.max_vid_len = m.vid_stride * m.max_vid_len
+    cfg.scheduler.epochs = cfg.train.epochs
+    cfg.scheduler.warmup_epochs = cfg.train.warmup_epochs
 
-    m.fusion.text_dim = m.text_net.embd_dim
+    text_dim = m.text_net.embd_dim
+    vid_dim = m.vid_net.embd_dim
+    m.fusion.text_dim = text_dim
+    m.fusion.vid_dim = vid_dim
+    m.cls_head.embd_dim = vid_dim
+    m.reg_head.embd_dim = vid_dim
+    m.reg_head.num_fpn_levels = m.num_fpn_levels
     cfg.pt_gen.num_fpn_levels = m.num_fpn_levels
+    cfg.pt_gen.max_seq_len = m.max_vid_len * 4
     return cfg
 
 
+def update_eval_data(cfg):
+    """Backfill unset ``eval.data`` keys from ``data``, switch the split."""
+    for k in cfg.data:
+        if cfg.eval.data.get(k) is None:
+            cfg.eval.data[k] = copy.deepcopy(cfg.data[k])
+    if cfg.data.eval_split is not None:
+        cfg.eval.data.split = cfg.data.eval_split
+    return cfg
+
+
+def update_from(cfg, ref):
+    """A copy of ``cfg`` with every key of ``ref`` it lacks added
+    (recursively): backfills a frozen ``opt.yaml`` with newer defaults."""
+    cfg = cfg.clone()
+
+    def _merge(dst, src):
+        for k in src:
+            if k not in dst:
+                dst[k] = copy.deepcopy(src[k])
+            elif isinstance(dst[k], CfgNode) and isinstance(src[k], dict):
+                _merge(dst[k], src[k])
+
+    _merge(cfg, ref)
+    return cfg
+
+
+def file_task(path):
+    """The ``task`` a config file names, 'grounder' when it names none."""
+    with open(path, "r") as f:
+        return (yaml.safe_load(f) or {}).get("task", "grounder")
+
+
 def load_config(path):
-    """Defaults <- config file, then derived fields."""
-    cfg = get_cfg_defaults()
+    """Defaults of the file's task <- the file, then derived fields."""
+    cfg = get_cfg_defaults(file_task(path))
     cfg.merge_from_file(path)
     return update_opt(cfg)

@@ -173,9 +173,10 @@ def batchify_eval(sample, chunk, base_len, vid_stride=1, query_cap=32,
             "ext_scores": ext_p, "q_valid": q_valid, "pe_interp": pe_interp,
         })
 
+    # ground truth ("segment", "target") is there for dataset samples only
     meta = {k: sample[k] for k in
             ("fps", "duration", "clip_size", "clip_stride", "segment",
-             "clip_id", "text_id", "target")}
+             "clip_id", "text_id", "target") if k in sample}
     meta["vid_len"] = t
     meta["num_queries"] = Q
     return meta, chunks

@@ -1,0 +1,104 @@
+"""Deterministic data loader with background prefetch (port of
+decafnet_tpu/data/loader.py; sample order, epoch shuffle and rank shards are
+the JAX loader's).
+
+Per-epoch shuffling comes from an explicit seeded RNG (identical across
+processes), each process reads its own rank-strided shard, and a thread
+overlaps feature IO with device compute.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+
+import numpy as np
+
+
+class DataLoader:
+    """Iterates batches of raw sample dicts (batch assembly is the caller's
+    job)."""
+
+    def __init__(self, dataset, batch_size, shuffle, seed=2022,
+                 drop_last=True, rank=0, world_size=1, num_threads=4):
+        """For ``world_size > 1`` each rank iterates its own rank-strided
+        subset (``batch_size`` is per rank)."""
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.rank = rank
+        self.world_size = world_size
+        self.num_threads = max(1, num_threads)
+        self.epoch = 0
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+        self.dataset.set_epoch(epoch)
+
+    def _epoch_indices(self):
+        n = len(self.dataset)
+        idx = np.arange(n)
+        if self.shuffle:
+            rng = np.random.RandomState(self.seed + self.epoch)
+            rng.shuffle(idx)
+        if self.world_size > 1:
+            # rank-strided shard, equal-size with drop_last semantics
+            per = n // self.world_size if self.drop_last else -(-n // self.world_size)
+            idx = idx[self.rank::self.world_size][:per]
+        return idx
+
+    def __len__(self):
+        n = len(self._epoch_indices())
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def __iter__(self):
+        idx = self._epoch_indices()
+        batches = [idx[i * self.batch_size:(i + 1) * self.batch_size]
+                   for i in range(len(self))]
+
+        def build(b):
+            return [self.dataset[int(i)] for i in b]
+
+        if self.num_threads <= 1:
+            for b in batches:
+                yield build(b)
+            return
+
+        q = queue.Queue(maxsize=2)
+        stop = threading.Event()
+
+        def worker():
+            try:
+                for b in batches:
+                    if stop.is_set():
+                        return
+                    q.put(("item", build(b)))
+            except BaseException as e:  # noqa: BLE001 -- re-raised below
+                q.put(("error", e))
+                return
+            q.put(("end", None))
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                kind, item = q.get()
+                if kind == "end":
+                    break
+                if kind == "error":
+                    raise item
+                yield item
+        finally:
+            # the consumer stopped early (a dryrun break): let the worker
+            # finish its current put and end
+            stop.set()
+            while t.is_alive():
+                try:
+                    q.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            t.join()

@@ -1,29 +1,72 @@
-"""Loader-free decode: grounder forward + proposal decode + SoftNMS on the
-device, queries as batch rows (port of the serving path of
-decafnet_tpu/eval/evaluator.py: ``modulated_level_scores``, ``_decode_fn``,
-``_video_items``, ``_decode_group`` and ``_to_seconds``).
+"""Evaluation: grounder forward + proposal decode + NMS, queries as batch
+rows (port of decafnet_tpu/eval/evaluator.py, the per-video path that
+``eval.py`` runs).
 
-Per shape bucket (T, Q, L): the model runs video-major (V videos x Q query
-rows), scores are sigmoid logits (optionally modulated by external scores),
-the top-k cut is applied as a per-query threshold (``scores >= kth``, so tie
-handling matches the JAX decode), segments are assembled for all points and
-filtered by length, then fixed-k SoftNMS with voting picks the detections.
-Only the (Q, k, 2) detections return to the host. Wall-clock goes into the
-reference's buckets: prepare / forward / post_process / nms.
+:class:`Decoder` owns the per-shape-bucket decode of one model on one
+device, shared by the Evaluator and the serving path. Per bucket (T, Q, L)
+the model runs video-major (V videos x Q query rows); scores are sigmoid
+logits (optionally modulated by external scores); the top-k cut is a
+per-query threshold (``scores >= kth``, so ties match the JAX decode);
+segments are assembled for all points and filtered by length. Then either
+fixed-k SoftNMS with voting runs on the device and only the (Q, k, 2)
+detections return to the host, or (``eval.reference_exact``) the (Q, P)
+candidates return and the host C++ SoftNMS runs per query. With targets the
+same call computes the per-query eval losses (focal and IoU over the
+annotated points). Wall-clock goes into the reference's buckets: prepare /
+forward / post_process / nms.
+
+:class:`Evaluator` walks a dataset one video at a time, fills the
+``RecallMeter`` and prints the Rank@k / IoU@t table and the mean losses.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections import defaultdict
 
 import numpy as np
 import torch
 
-from ..data import batchify_eval, min_chunk_size
+from ..core import (CfgNode, get_cfg_defaults, update_eval_data, update_from,
+                    update_opt)
+from ..data import DataLoader, batchify_eval, make_dataset, min_chunk_size
+from ..models import load_params, load_pth, make_model
 from ..models.points import fpn_lengths, generate_points, select_points
 from ..ops.masked import max_pool1d
-from ..ops.nms import batched_nms_device
+from ..ops.nms import batched_nms_device, batched_nms_host
+from ..train.annotate import annotate_points
+from ..train.losses import calc_focal_loss, calc_iou_loss
+from ..utils import analysis   # a module: utils.analysis imports eval.metrics
+from ..utils.logging import Logger, easy_reduce, time_str
+from .metrics import RecallMeter
+
+
+def resolve_device(device=None):
+    """``None`` means the CUDA card and raises where there is none; the CPU
+    is used only when asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("the port runs on a CUDA device by default and "
+                               "none is available; pass device='cpu' to run "
+                               "on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def checkpoint_path(logdir, ckpt):
+    """``<logdir>/models/<ckpt>.pth``, the reference-layout checkpoint the
+    port reads; raises naming both candidates when it is missing (the JAX
+    trainer also writes a ``.msgpack``, which waits for the port's
+    trainer)."""
+    pth = os.path.join(logdir, "models", f"{ckpt}.pth")
+    if not os.path.exists(pth):
+        msg = os.path.join(logdir, "models", f"{ckpt}.msgpack")
+        raise FileNotFoundError(
+            f"no checkpoint at {pth}" + (
+                f" ({msg} exists, but the port reads .pth files only)"
+                if os.path.exists(msg) else f" or {msg}"))
+    return pth
 
 
 def modulated_level_scores(fpn_logits, fpn_masks, ext_scores):
@@ -44,8 +87,9 @@ def modulated_level_scores(fpn_logits, fpn_masks, ext_scores):
 class Decoder:
     """Shape-bucketed decode of one model on one device.
 
-    ``cfg`` is a full config tree (core.load_config); ``model`` a
+    ``cfg`` is a full config tree; ``model`` a
     :class:`~decafnet_tpu_torch.models.DeCafNetIterative` on ``device``.
+    ``cfg.eval.reference_exact`` selects the host SoftNMS.
     ``decode_calls`` counts model forwards (one per decoded group)."""
 
     def __init__(self, cfg, model, device):
@@ -64,9 +108,13 @@ class Decoder:
         self.pre_nms_thresh = cfg.eval.pre_nms_thresh
         self.seg_len_thresh = cfg.eval.seg_len_thresh
         self.query_cap = cfg.eval.get("max_num_queries", 32)
+        self.reference_exact = bool(cfg.eval.get("reference_exact", False))
         tn = cfg.model.text_net
         self.text_len_cap = tn.max_seq_len if tn.get("use_abs_pe") else None
         self.nms_cfg = dict(cfg.nms)
+        self.loss_cfg = (cfg.loss.fc_a, cfg.loss.fc_s,
+                         cfg.train.center_sampling,
+                         cfg.train.center_sampling_radius)
         self.time_dict = defaultdict(list)
         self._points = {}
         self.decode_calls = 0
@@ -81,17 +129,26 @@ class Decoder:
         return self._points[T]
 
     def video_items(self, sample):
-        """Split one video into per-chunk work items."""
+        """Split one video into per-chunk work items; where the sample has
+        ground truth, each item holds its rows' targets in grid units
+        (padding rows get [0, 1])."""
         t_prep = time.perf_counter()
         meta, chunks = batchify_eval(
             sample, self.chunk, self.base_len, self.vid_stride,
             self.query_cap, text_len_cap=self.text_len_cap)
         self.time_dict["prepare"].append(time.perf_counter() - t_prep)
         items, q_done = [], 0
+        tgt = meta.get("target")
         for chunk in chunks:
             n_q = int(chunk["q_valid"].sum())
-            items.append({"meta": meta, "chunk": chunk, "n_q": n_q,
-                          "q_start": q_done})
+            item = {"meta": meta, "chunk": chunk, "n_q": n_q, "q_start": q_done}
+            if tgt is not None:
+                targets = np.tile(np.array([[0.0, 1.0]], np.float32),
+                                  (chunk["text"].shape[0], 1))
+                targets[:n_q] = (np.asarray(tgt[q_done:q_done + n_q], np.float32)
+                                 / self.vid_stride)
+                item["targets"] = targets
+            items.append(item)
             q_done += n_q
         return meta, items
 
@@ -103,10 +160,14 @@ class Decoder:
 
     @torch.inference_mode()
     def decode(self, vid, shallow, vid_masks, text, text_cls, text_masks,
-               ext_scores, pe_interp, Q):
+               ext_scores, pe_interp, Q, targets=None):
         """One forward + decode over V videos x Q rows (device tensors).
-        Returns (segments (V*Q, k, 2), scores (V*Q, k), counts (V*Q,)) in
-        grid units."""
+
+        Returns a dict of (V*Q, ...) device tensors in grid units: device
+        NMS gives ``segments`` (R, k, 2), ``scores`` (R, k) and ``counts``
+        (R,); ``reference_exact`` gives the candidates ``left``, ``right``,
+        ``scores`` and ``valid``, each (R, P). With ``targets`` (R, 2) it
+        adds the per-row ``cls_loss`` and ``reg_loss`` (R,)."""
         self.decode_calls += 1
         _, logits2, offsets, masks = self.model(
             vid, shallow, vid_masks, text, text_cls, text_masks,
@@ -129,16 +190,39 @@ class Decoder:
         right = ctr + offs[:, 1, :] * stride
         top_valid = valid & ((right - left) > self.seg_len_thresh)
         top_scores = torch.where(top_valid, scores, torch.zeros_like(scores))
-        nc = self.nms_cfg
-        return batched_nms_device(
-            left, right, top_scores, top_valid, nc["max_num_segs"],
-            mode=nc["mode"], iou_thresh=nc["iou_thresh"],
-            min_score=nc["min_score"], sigma=nc["sigma"],
-            voting_thresh=nc["voting_thresh"])
 
-    def decode_group(self, items):
+        if self.reference_exact:
+            out = {"left": left, "right": right, "scores": top_scores,
+                   "valid": top_valid}
+        else:
+            nc = self.nms_cfg
+            segs, det_scores, counts = batched_nms_device(
+                left, right, top_scores, top_valid, nc["max_num_segs"],
+                mode=nc["mode"], iou_thresh=nc["iou_thresh"],
+                min_score=nc["min_score"], sigma=nc["sigma"],
+                voting_thresh=nc["voting_thresh"])
+            out = {"segments": segs, "scores": det_scores, "counts": counts}
+
+        if targets is not None:
+            # per-query eval-loss diagnostics
+            fc_a, fc_s, cs, csr = self.loss_cfg
+            gt_labels, gt_offsets = annotate_points(
+                points_t, targets, center_sampling=cs,
+                center_sampling_radius=csr)
+            pos = gt_labels & pmask
+            norm = torch.clamp_min(pos.sum(dim=1).float(), 1.0)
+            out["cls_loss"] = calc_focal_loss(
+                torch.cat(logits2, dim=1), gt_labels, pmask, smoothing=fc_s,
+                alpha=fc_a) / norm
+            out["reg_loss"] = calc_iou_loss(offs, gt_offsets, pos,
+                                            reg_loss="iou") / norm
+        return out
+
+    def decode_group(self, items, losses=False):
         """Decode V same-bucket items (V videos x Q query rows) in one call.
-        Returns one list of per-query results per item."""
+        Returns one (results, losses) pair per item: per-query detections
+        in seconds, and per-query {cls_loss, reg_loss} when ``losses`` (an
+        empty list otherwise)."""
         V = len(items)
         c0 = items[0]["chunk"]
         Q = c0["text"].shape[0]
@@ -146,40 +230,62 @@ class Decoder:
 
         t_fwd = time.perf_counter()
 
-        def cat(key):
-            arr = np.concatenate([it["chunk"][key] for it in items], axis=0)
+        def to_dev(arr):
             return torch.from_numpy(arr).to(self.device)
+
+        def cat(key):
+            return to_dev(np.concatenate([it["chunk"][key] for it in items], axis=0))
 
         pe_interp = c0["pe_interp"]
         if pe_interp is not None:
             if V == 1:
-                pe_interp = [torch.from_numpy(a).to(self.device)
-                             for a in pe_interp]
+                pe_interp = [to_dev(a) for a in pe_interp]
             else:   # per-row plans: (V, t) repeated to (V*Q, t)
-                pe_interp = [torch.from_numpy(np.repeat(np.stack(
-                    [it["chunk"]["pe_interp"][j] for it in items]), Q,
-                    axis=0)).to(self.device) for j in range(3)]
+                pe_interp = [to_dev(np.repeat(np.stack(
+                    [it["chunk"]["pe_interp"][j] for it in items]), Q, axis=0))
+                    for j in range(3)]
             pe_interp[0], pe_interp[1] = pe_interp[0].long(), pe_interp[1].long()
-        segs, scores, counts = self.decode(
+        targets = (to_dev(np.concatenate([it["targets"] for it in items]))
+                   if losses else None)
+        out = self.decode(
             cat("vid"), cat("shallow_vid"), cat("vid_masks"), cat("text"),
             cat("text_cls"), cat("text_masks"),
-            cat("ext_scores") if has_ext else None, pe_interp, Q)
-        segs, scores, counts = segs.cpu().numpy(), scores.cpu().numpy(), \
-            counts.cpu().numpy()
+            cat("ext_scores") if has_ext else None, pe_interp, Q,
+            targets=targets)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
         self.time_dict["forward"].append(time.perf_counter() - t_fwd)
 
-        # "nms" already ran on the device inside "forward"
+        # "post_process": host-side slicing and grid -> seconds; "nms": the
+        # host SoftNMS proper (device NMS already ran inside "forward")
         t_post = time.perf_counter()
+        nms_s = 0.0
+        nc = self.nms_cfg
         per_item = []
         for v, item in enumerate(items):
-            rows = slice(v * Q, (v + 1) * Q)
-            s_v, sc_v, c_v = segs[rows], scores[rows], counts[rows]
-            per_item.append([
-                self.to_seconds(s_v[qi][:int(c_v[qi])], sc_v[qi][:int(c_v[qi])],
-                                item["meta"])
-                for qi in range(item["n_q"])])
-        self.time_dict["post_process"].append(time.perf_counter() - t_post)
-        self.time_dict["nms"].append(0.0)
+            rows = range(v * Q, v * Q + item["n_q"])
+            results = []
+            for r in rows:
+                if self.reference_exact:
+                    m = out["valid"][r]
+                    t_nms = time.perf_counter()
+                    segs, scores = batched_nms_host(
+                        np.stack([out["left"][r][m], out["right"][r][m]], -1),
+                        out["scores"][r][m], iou_thresh=nc["iou_thresh"],
+                        min_score=nc["min_score"],
+                        max_num_segs=nc["max_num_segs"], mode=nc["mode"],
+                        sigma=nc["sigma"], voting_thresh=nc["voting_thresh"])
+                    nms_s += time.perf_counter() - t_nms
+                else:
+                    c = int(out["counts"][r])
+                    segs, scores = out["segments"][r][:c], out["scores"][r][:c]
+                results.append(self.to_seconds(segs, scores, item["meta"]))
+            row_losses = [{"cls_loss": float(out["cls_loss"][r]),
+                           "reg_loss": float(out["reg_loss"][r])}
+                          for r in rows] if losses else []
+            per_item.append((results, row_losses))
+        self.time_dict["post_process"].append(
+            time.perf_counter() - t_post - nms_s)
+        self.time_dict["nms"].append(nms_s)
         return per_item
 
     def to_seconds(self, segs, scores, meta):
@@ -191,3 +297,131 @@ class Decoder:
                 / meta["fps"]
             segs = np.clip(segs, 0, meta["duration"])
         return {"segments": segs, "scores": np.asarray(scores).reshape(-1)}
+
+
+def check_supported(cfg):
+    """Raise for eval settings the port does not have yet, naming the
+    ROADMAP item, instead of running something else."""
+    ev = cfg.eval
+    for key in ("shard_videos", "shard_time"):
+        if int(ev.get(key) or 1) > 1:
+            raise NotImplementedError(
+                f"eval.{key}={ev[key]}: multi-device eval is not in the port "
+                f"yet (ROADMAP item 11)")
+    if (torch.distributed.is_available() and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError("multi-process eval is not in the port yet "
+                                  "(ROADMAP item 11)")
+
+
+class Evaluator:
+    """Dataset-driven evaluation of one model on one device.
+
+    ``cfg``: a full config tree (see :func:`config_from_logdir`); the
+    ``eval.data`` tree names the dataset. Weights come from ``params`` (a
+    flax-layout tree of numpy arrays) or else from
+    ``<aux.logdir>/models/<aux.ckpt>.pth`` (its ``model_ema``).
+    ``device``: None for the CUDA card (raises without one), or explicit.
+    ``video_ms`` holds each video's wall time of the last :meth:`run`."""
+
+    def __init__(self, cfg, params=None, device=None):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dataset = make_dataset(cfg, is_training=False)
+        self.loader = DataLoader(self.dataset, batch_size=1, shuffle=False,
+                                 drop_last=False,
+                                 num_threads=cfg.train.num_workers)
+
+        model = make_model(cfg)
+        if params is not None:
+            load_params(model, params)
+        else:
+            load_pth(model, checkpoint_path(cfg.aux.logdir,
+                                            cfg.aux.get("ckpt", "last")))
+        self.model = model.to(self.device).eval()
+        self.decoder = Decoder(cfg, self.model, self.device)
+        self.meter = RecallMeter(tuple(cfg.eval.ranks), cfg.eval.iou_threshs)
+
+        self.tag = cfg.aux.get("ckpt", "eval")
+        root = cfg.aux.logdir
+        if root:
+            os.makedirs(root, exist_ok=True)
+        self.logger = Logger(os.path.join(root, f"eval_{self.tag}.txt")
+                             if root else None)
+        self.video_ms = []
+
+    def predict_video(self, sample):
+        """All detections + loss diagnostics for one video's queries."""
+        meta, items = self.decoder.video_items(sample)
+        results, losses = [], []
+        for item in items:
+            (r, l), = self.decoder.decode_group([item], losses=True)
+            results.extend(r)
+            losses.extend(l)
+        return meta, results, losses
+
+    def _finish_video(self, meta, results, losses, loss_list, dump):
+        targets_sec = np.asarray(meta["segment"], np.float64)
+        if len(results) != len(targets_sec):
+            raise RuntimeError(f"video {meta['clip_id']}: {len(results)} "
+                               f"results for {len(targets_sec)} queries")
+        for result, target in zip(results, targets_sec):
+            self.meter.update(result["segments"], result["scores"], target)
+        loss_list.extend(losses)
+        if dump is not None:
+            dump.add_video(meta["clip_id"], targets_sec, results, losses)
+
+    def run(self):
+        """Evaluate every video (the first only under ``aux.dryrun``);
+        returns the (ranks, iou_threshs) recall matrix."""
+        self.meter.reset()
+        self.decoder.time_dict.clear()
+        self.video_ms = []
+        self.logger.write("Evaluation started.")
+        start = time.time()
+        loss_list = []
+        dump = analysis.EvalResults(self.tag) if self.cfg.eval.get("save_results") else None
+
+        for samples in self.loader:
+            t_video = time.perf_counter()
+            meta, results, losses = self.predict_video(samples[0])
+            self.video_ms.append(1e3 * (time.perf_counter() - t_video))
+            self._finish_video(meta, results, losses, loss_list, dump)
+            if self.cfg.aux.dryrun:
+                break
+        if dump is not None and self.cfg.aux.logdir:
+            dump.save(os.path.join(self.cfg.aux.logdir, f"results_{self.tag}.pk"))
+
+        metrics, table = self.meter.table()
+        log_str = "\nFinal:\n" + table + "\n-----\n"
+        if loss_list:
+            loss_dict = easy_reduce(loss_list, "mean", skip_nan=True)
+            log_str += "; ".join(f"{k}: {v:.3f}" for k, v in loss_dict.items())
+        self.logger.write(log_str)
+        phase_summary = " | ".join(
+            f"{k}: {sum(v):.2f}s (n={len(v)})"
+            for k, v in self.decoder.time_dict.items())
+        self.logger.write(f"phase wall-times: {phase_summary}")
+        self.logger.write(
+            f"Evaluation completed in {time_str(time.time() - start)}.")
+        return metrics
+
+
+def config_from_logdir(logdir, ckpt="last", set_cfgs=None, dryrun=False):
+    """The eval config of an experiment directory, as ``eval.py`` builds it:
+    the frozen ``opt.yaml`` backfilled with the task's defaults, ``--set``
+    overrides, the dense sidekick stream (``shallow_ds = 1``), the derived
+    fields and ``eval.data``."""
+    cfg = CfgNode.load_file(os.path.join(logdir, "opt.yaml"))
+    cfg = update_from(cfg, get_cfg_defaults(cfg.get("task", "grounder")))
+    if set_cfgs:
+        cfg.merge_from_list(list(set_cfgs))
+    cfg.data.shallow_ds = 1
+    cfg.eval.data.shallow_ds = 1
+    update_opt(cfg)
+    update_eval_data(cfg)
+    cfg.aux.logdir = logdir
+    cfg.aux.ckpt = ckpt
+    cfg.aux.dryrun = dryrun
+    return cfg

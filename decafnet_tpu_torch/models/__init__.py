@@ -2,7 +2,7 @@
 
 from .decafnet import DeCafNetIterative, init_random, make_model
 from .import_torch import (load_params, load_pth, params_from_state_dict,
-                           state_dict_from_params)
+                           save_pth, state_dict_from_params)
 from .points import fpn_lengths, generate_points, select_points
 
 

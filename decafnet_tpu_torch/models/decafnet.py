@@ -170,7 +170,12 @@ class DeCafNetIterative(nn.Module):
 
 
 def make_model(cfg):
-    """Model factory; the port builds ``model.name: iter`` only."""
+    """Model factory; the port builds ``model.name: iter`` only, in f32
+    (``tpu.compute_dtype`` "auto" or "float32")."""
+    dtype = cfg.get("tpu", {}).get("compute_dtype", "auto")
+    if dtype not in ("auto", "float32"):
+        raise ValueError(f"tpu.compute_dtype={dtype!r}: the port computes in "
+                         f"f32; a bf16 mode is ROADMAP item 12")
     name = cfg.model["name"]
     if name != "iter":
         raise NotImplementedError(f"model.name={name!r}: the port builds 'iter'")

@@ -82,3 +82,12 @@ def load_pth(model, path, which="model_ema"):
     state_dict = ckpt[which] if which in ckpt else ckpt
     model.load_state_dict(state_dict, strict=True)
     return model
+
+
+def save_pth(path, params, ema_params=None):
+    """Write flax-layout params trees as a reference-layout checkpoint
+    ``{'model': ..., 'model_ema': ...}`` (``ema_params`` defaults to
+    ``params``), the layout :func:`load_pth` reads."""
+    ema = params if ema_params is None else ema_params
+    torch.save({"model": state_dict_from_params(params),
+                "model_ema": state_dict_from_params(ema)}, path)

@@ -1,34 +1,45 @@
 """Grounding service: weights resident on the device, requests answered one
 video (or one stacked batch of videos) at a time (port of
-decafnet_tpu/serve.py:27, ``GroundingService``).
+decafnet_tpu/serve.py, ``GroundingService`` and ``service_from_logdir``, and
+of the root ``serve.py``, the HTTP endpoint).
 
 A request is one video's expert/sidekick clip features plus Q tokenized
 queries; the answer is each query's top-k (start_sec, end_sec) segments and
 scores. Requests are split into shape buckets (decafnet_tpu_torch.data) so
 same-bucket videos can be stacked into one forward (:meth:`ground_many`).
+
+HTTP endpoint, on the CUDA card unless ``--device`` says otherwise::
+
+    python -m decafnet_tpu_torch.serve --name <experiment_dir> [--ckpt last]
+        [--host 127.0.0.1] [--port 8787] [--warmup T,Q,L ...]
+        [--set dotted.key value ...] [--device cuda|cpu]
+
+  GET  /healthz       -> {"status": "ok", "device": ..., "n_devices": ...}
+  POST /ground        -> {"detections": [{"segments": [[s, e], ...],
+                                          "scores": [...]}, ...]}
+  POST /ground_batch  -> {"detections_batch": [...]} for {"requests": [...]}
+
+Request body (JSON), feature arrays inline (nested lists) or as .npy paths
+the server can read: vid | vid_path (Cv, t); shallow_vid | shallow_vid_path
+(Cs, t); texts (list of Q (Ct, l_q)) | texts_path (.npz, sorted entries);
+text_cls | text_cls_path (Q, Cs); optional fps, clip_size, clip_stride,
+duration, and ext_scores | ext_scores_path (Q, t).
 """
 
 from __future__ import annotations
 
+import argparse
+import json
+import sys
 import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
 
-from .eval.evaluator import Decoder
+from .eval.evaluator import (Decoder, checkpoint_path, config_from_logdir,
+                             resolve_device)
 from .models import load_params, load_pth, make_model
-
-
-def resolve_device(device=None):
-    """``None`` means the CUDA card and raises where there is none; the CPU
-    is used only when asked for."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("GroundingService runs on a CUDA device by "
-                               "default and none is available; pass "
-                               "device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 class GroundingService:
@@ -104,7 +115,7 @@ class GroundingService:
                         v *= 2
                     items = [it for _, it in group]
                     items += [{**items[0], "n_q": 0}] * (v - len(items))
-                    for (req_i, item), results in zip(
+                    for (req_i, item), (results, _) in zip(
                             group, self._dec.decode_group(items)):
                         out[req_i].append((item["q_start"], results))
         final = []
@@ -147,9 +158,6 @@ class GroundingService:
             "text_cls": text_cls, "fps": float(fps),
             "duration": float(duration), "clip_size": float(clip_size),
             "clip_stride": float(clip_stride),
-            # ground-truth fields of the eval batching: inert here
-            "segment": np.zeros((q, 2), np.float64),
-            "target": np.zeros((q, 2), np.float32),
             "clip_id": "serve", "text_id": list(range(q)),
         }
         if ext_scores is not None:
@@ -165,10 +173,143 @@ class GroundingService:
         results = []
         with self._lock:
             for item in items:
-                results.extend(self._dec.decode_group([item])[0])
+                results.extend(self._dec.decode_group([item])[0][0])
         return _as_lists(results)
 
 
 def _as_lists(results):
     return [{"segments": np.asarray(r["segments"]).tolist(),
              "scores": np.asarray(r["scores"]).tolist()} for r in results]
+
+
+def service_from_logdir(logdir, ckpt="last", set_cfgs=None, device=None):
+    """A GroundingService of an experiment directory under the eval CLI's
+    config contract (frozen opt.yaml + defaults backfill + EMA weights of
+    ``models/<ckpt>.pth``)."""
+    cfg = config_from_logdir(logdir, ckpt, set_cfgs)
+    return GroundingService(cfg, checkpoint=checkpoint_path(logdir, ckpt),
+                            device=device)
+
+
+def _load_field(req, name, required=True):
+    """Inline nested lists or an .npy/.npz path."""
+    if name in req:
+        return np.asarray(req[name], np.float32)
+    path = req.get(f"{name}_path")
+    if path is not None:
+        if name == "texts":
+            with np.load(path) as z:
+                return [np.asarray(z[k], np.float32) for k in sorted(z.files)]
+        return np.load(path).astype(np.float32)
+    if required:
+        raise KeyError(f"request needs '{name}' or '{name}_path'")
+    return None
+
+
+def _request_kwargs(req):
+    """One JSON request object -> :meth:`GroundingService.ground` kwargs."""
+    if not isinstance(req, dict):
+        raise TypeError("a request is a JSON object")
+    texts = req.get("texts")
+    if texts is not None:
+        texts = [np.asarray(x, np.float32) for x in texts]
+    else:
+        texts = _load_field(req, "texts")
+    kwargs = dict(vid=_load_field(req, "vid"),
+                  shallow_vid=_load_field(req, "shallow_vid"),
+                  texts=texts, text_cls=_load_field(req, "text_cls"))
+    for k in ("fps", "duration", "clip_size", "clip_stride"):
+        if k in req:
+            kwargs[k] = float(req[k])
+    ext = _load_field(req, "ext_scores", required=False)
+    if ext is not None:
+        kwargs["ext_scores"] = ext
+    return kwargs
+
+
+def make_handler(service):
+    """The HTTP request handler class serving ``service``."""
+    device = service.device
+    device_name = (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else str(device))
+
+    class Handler(BaseHTTPRequestHandler):
+        def _send(self, code, payload):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, fmt, *args):  # quiet access log
+            pass
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._send(200, {"status": "ok", "device": str(device),
+                                 "device_name": device_name,
+                                 "n_devices": torch.cuda.device_count(),
+                                 "phase_stats": service.stats()})
+            else:
+                self._send(404, {"error": f"unknown path {self.path}"})
+
+        def do_POST(self):
+            if self.path not in ("/ground", "/ground_batch"):
+                self._send(404, {"error": f"unknown path {self.path}"})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n) or b"{}")
+                if self.path == "/ground":
+                    self._send(200, {"detections":
+                                     service.ground(**_request_kwargs(req))})
+                else:
+                    batch = [_request_kwargs(r) for r in req["requests"]]
+                    self._send(200, {"detections_batch":
+                                     service.ground_many(batch)})
+            except Exception as e:  # noqa: BLE001 -- reported to the client
+                self._send(400, {"error": f"{type(e).__name__}: {e}"})
+
+    return Handler
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="python -m decafnet_tpu_torch.serve",
+        description="Serve an experiment's grounder over HTTP.")
+    parser.add_argument("--name", required=True,
+                        help="experiment directory containing opt.yaml")
+    parser.add_argument("--ckpt", default="last")
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8787)
+    parser.add_argument("--warmup", nargs="*", default=(),
+                        help="shape buckets to run once before serving, each "
+                             "T,Q,L (e.g. --warmup 2304,8,24 512,1,8)")
+    parser.add_argument("--set", dest="set_cfgs", nargs="*", default=None)
+    parser.add_argument("--device", default=None,
+                        help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+
+    service = service_from_logdir(args.name, args.ckpt, args.set_cfgs,
+                                  device=args.device)
+    print(f"device: {service.device}", flush=True)
+    for spec in args.warmup:
+        t, q, l = (int(x) for x in spec.split(","))
+        print(f"warmup T={t} Q={q} L={l} ...", flush=True)
+        service.warmup(t, q, l)
+
+    server = ThreadingHTTPServer((args.host, args.port), make_handler(service))
+    print(f"serving {args.name} [{args.ckpt}] on "
+          f"http://{args.host}:{args.port}  (POST /ground)", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

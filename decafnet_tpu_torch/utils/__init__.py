@@ -1,0 +1,4 @@
+"""Host utilities of the port: logging, metering, result dumps."""
+
+from .analysis import EvalResults
+from .logging import AverageMeter, Logger, count_parameters, easy_reduce, time_str

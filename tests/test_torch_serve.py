@@ -148,10 +148,25 @@ def test_port_imports_no_jax():
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'decafnet_tpu')]\n"
         "assert not bad, bad\n"
+        "walked = [m for m in ('data.dataset', 'data.loader', 'eval.__main__', "
+        "'train.losses', 'utils.analysis', 'serve') "
+        "if 'decafnet_tpu_torch.' + m not in sys.modules]\n"
+        "assert not walked, walked\n"
         "print('ok', len([k for k in sys.modules "
         "if k.startswith('decafnet_tpu_torch')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.startswith("ok")
-    assert int(out.stdout.split()[1]) >= 20
+    # importing the CLIs' modules runs neither CLI
+    assert out.stdout.startswith("ok"), out.stdout
+    assert int(out.stdout.split()[1]) >= 30
+
+
+@pytest.mark.parametrize("first", ["utils", "utils.analysis", "eval.metrics",
+                                   "train"])
+def test_port_module_imports_first_in_a_fresh_process(first):
+    # no import cycle depends on which module of the port comes first
+    out = subprocess.run([sys.executable, "-c",
+                          f"import decafnet_tpu_torch.{first}"], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
