@@ -38,11 +38,27 @@ Phases, each printing one JSON line:
   http     serves the eval phase's experiment directory over HTTP
            (service_from_logdir, as ``python -m decafnet_tpu_torch.serve``
            does) on 127.0.0.1 (a free port, a thread): /healthz, /ground and
-           /ground_batch answer as the serve phase's service does.
-Then one {"kernels": [...]} line (launches summed over the serve, eval and
-http paths, with the breakdown), the nvidia-smi name/power-limit line, and
-last {"ok": true, "device": {...}}. Any failed check raises: the script
-exits non-zero and prints no result. Without CUDA it exits 2.
+           /ground_batch answer as the serve phase's service does;
+  train    writes a synthetic train split (32 videos x 2 queries, 1000-2304
+           clips) and val split (4 videos x 3 queries) and runs the train
+           CLI's entry point in-process on configs/ego4d_nlq.yaml: 16 videos
+           x 2 queries = 32 rows per step at T = 2304, dropout as configured,
+           two epochs (lr 0 on the first step, in warmup) with train-time eval
+           of the EMA after each. Checks the kernel launches (44 / 7 / 1 per
+           forward microbatch and per eval decode call, none from the
+           backward, which recomputes through the plain versions), finite
+           losses and weights, that the weights move from step 2 on, the
+           experiment through the eval CLI's entry point, the conv3 weight
+           operands after optimizer steps and load_state_dict, one
+           microbatch's loss and gradients against the plain versions with
+           the same dropout masks, and two microbatches of 8 against one of 16
+           with dropout off; times steps with kernels and plain versions and
+           profiles one (device busy share, top kernels), and reports the
+           peak memory.
+Then one {"kernels": [...]} line (launches summed over the serve, eval,
+http and train paths, with the breakdown), the nvidia-smi name/power-limit
+line, and last {"ok": true, "device": {...}}. Any failed check raises: the
+script exits non-zero and prints no result. Without CUDA it exits 2.
 """
 
 from __future__ import annotations
@@ -89,6 +105,22 @@ SEG_TOL_S, SCORE_TOL = 1e-3, 1e-4
 PER_DECODE = {"conv3_ln_act": 44, "band_attention": 7, "qkv_depthwise_ln": 1}
 # eval losses, kernels vs plain versions (sums over up to ~4600 points)
 LOSS_RTOL, LOSS_ATOL = 1e-3, 1e-4
+# one train microbatch (16 videos x 2 queries), kernels vs plain versions
+# with the same dropout masks: the loss at rtol 1e-4; the gradients at a
+# relative L2 distance of 1e-2 over all leaves together and 0.25 for each
+# leaf (leaves noise-sized on both sides skipped), with the elementwise
+# distance at rtol 1e-3 + 1e-4 of each leaf's largest |g| reported. The
+# kernels' forward differs from the plain versions' by up to ~5e-6 per op,
+# and the gradient is not continuous in the forward: a ReLU input near 0, a
+# near-tie in a masked max pool takes the other branch, and on leaves whose
+# 37k-term sums cancel one such position moves the result. Over 8 batches
+# (scripts/torch_train_grad_spread.py) that moved all leaves together by
+# 3.9e-7 to 4.5e-4 and single leaves by up to 3.5e-2, elements by up to 719
+# times the elementwise tolerance. A backward wired wrongly moves its leaves
+# by ~1; each op's backward is also held exactly against plain autograd at
+# the train shapes (OP_GRAD_RTOL), where no branch can differ
+LOSS_RTOL_TRAIN, GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-3, 1e-4
+GRAD_REL_L2_ALL, GRAD_REL_L2_LEAF, OP_GRAD_RTOL = 1e-2, 0.25, 1e-6
 # least distance of a scored IoU from an IoU threshold in the annotated
 # recall check: SEG_TOL_S moves the IoU of a segment of 0.5 s or more by
 # at most 4e-3
@@ -802,6 +834,395 @@ def run_http(logdir, serve_service, requests):
     return launches
 
 
+# -------------------------------------------------------------------- train
+
+def write_train_data(root):
+    """A synthetic train split (32 videos x 2 queries, 1000-2304 clips) and
+    a val split (4 videos x 3 queries) at the Ego4D-NLQ feature widths, and a
+    config file pointing the train and eval data trees at them."""
+    import yaml
+
+    from decafnet_tpu_torch.core import load_config
+    from decafnet_tpu_torch.data import make_synthetic_dataset
+
+    t0 = time.perf_counter()
+    cfg = load_config(os.path.join(REPO, "configs", "ego4d_nlq.yaml"))
+    dims = dict(vid_dim=cfg.model.vid_net.in_dim,
+                shallow_dim=cfg.model.vid_net.in_dim,
+                text_dim=cfg.model.text_net.in_dim)
+    train = make_synthetic_dataset(os.path.join(root, "train_data"),
+                                   num_videos=32, num_queries=2,
+                                   clip_range=(1000, 2305), splits=("train",),
+                                   seed=SEED + 1, **dims)
+    val = make_synthetic_dataset(os.path.join(root, "val_data"), num_videos=4,
+                                 num_queries=3, clip_range=(900, 2305),
+                                 splits=("val",), seed=SEED + 2, **dims)
+    keys = ("anno_file", "vid_feat_dir", "shallow_vid_feat_dir",
+            "clip_token_fname", "text_cls_fname")
+    # both streams of the synthetic data sit on one clip grid
+    data = {"data": {**{k: train[k] for k in keys}, "shallow_ds": 1},
+            "eval": {"data": {**{k: val[k] for k in keys}, "shallow_ds": 1}}}
+    path = os.path.join(root, "synthetic_data.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(data, f)
+    emit({"phase": "train", "data": "synthetic train split 32 videos x 2 "
+          "queries (1000-2304 clips), val split 4 videos x 3 queries",
+          "widths": dims, "setup_s": time.perf_counter() - t0})
+    return path
+
+
+class StepProbe:
+    """Wraps a Trainer's ``train_step`` to record, per step, the device-
+    synchronised wall time of the step (data loading excluded), its
+    metrics and how far the weights moved."""
+
+    def __init__(self, trainer):
+        self.trainer, self.step_fn = trainer, trainer.train_step
+        self.prev = [p.detach().clone() for p in trainer.model.parameters()]
+        self.records = []
+        trainer.train_step = self
+
+    def __call__(self, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = self.step_fn(batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        params = list(self.trainer.model.parameters())
+        moved = max(float((p - q).abs().max()) for p, q in zip(params, self.prev))
+        self.prev = [p.detach().clone() for p in params]
+        step = self.trainer.step
+        self.records.append({"step": step, "ms": ms,
+                             "lr": self.trainer.optimizer.schedule(step - 1),
+                             "max_weight_change": moved,
+                             **{k: float(v) for k, v in metrics.items()}})
+        return metrics
+
+
+def conv3_sites(model):
+    """(conv weight, bias, LN) of every conv3_ln_act call site of a model."""
+    vn = model.vid_net
+    sites = [(c.conv, n) for c, n in zip(vn.embd_convs, vn.embd_norms)
+             if c.conv.kernel_size == 3 and c.stride == 1]
+    for head in (model.cls_head, model.cls_head2, model.reg_head):
+        sites += [(c.conv, n) for c, n in zip(head.convs, head.norms)]
+    return [(c.weight, c.bias, n.weight, n.bias) for c, n in sites]
+
+
+def grads_close(got, want, top=4):
+    """Worst ratio of |a - b| to rtol 1e-3 * |b| + atol 1e-4 * max|b| over
+    the gradient leaves; leaves noise-sized on both sides (max |g| <= 1e-8,
+    tests/test_grouped_eval.py:181-187) are skipped. Returns (worst ratio,
+    leaves skipped, the ``top`` leaves by ratio with their max |a - b| and
+    max |b|)."""
+    rows, skipped = [], 0
+    for name, b in want.items():
+        a = got[name]
+        if max(float(a.abs().max()), float(b.abs().max())) <= 1e-8:
+            skipped += 1
+            continue
+        lim = GRAD_RTOL * b.abs() + GRAD_ATOL * float(b.abs().max())
+        rows.append((float(((a - b).abs() / lim).max()), name,
+                     float((a - b).abs().max()), float(b.abs().max())))
+    rows.sort(reverse=True)
+    return rows[0][0], skipped, [
+        {"leaf": n, "over_tol": r, "max_abs_diff": d, "max_abs": m}
+        for r, n, d, m in rows[:top]]
+
+
+def grads_rel_l2(got, want, top=4):
+    """Relative L2 distance ||a - b|| / ||b|| of all gradient leaves
+    together, and the ``top`` leaves by their own (leaves noise-sized on
+    both sides skipped, as in :func:`grads_close`)."""
+    num = sum(float((got[n] - b).square().sum()) for n, b in want.items())
+    den = sum(float(b.square().sum()) for b in want.values())
+    leaves = sorted(((float((got[n] - b).norm() / b.norm()), n)
+                     for n, b in want.items()
+                     if max(float(got[n].abs().max()),
+                            float(b.abs().max())) > 1e-8), reverse=True)
+    return (num / den) ** 0.5, [{"leaf": n, "rel_l2": r}
+                                for r, n in leaves[:top]]
+
+
+def op_backward_check(dev, rows=32):
+    """Each kernel op under autograd at the level-0 train shape (32 rows,
+    T = 2304): the forward launches the kernel once and the backward
+    launches nothing; its gradients, given the same output gradient, equal
+    those of autograd through the plain version (cuDNN's deterministic
+    algorithms), max |diff| within OP_GRAD_RTOL of the largest |g|."""
+    from decafnet_tpu_torch import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    lens = [VIDEO_LENS[i % len(VIDEO_LENS)] for i in range(rows)]
+    cases = {"conv3_ln_act": conv3_case(dev, g, rows, EMBD + RDIM, T0, lens),
+             "qkv_depthwise_ln": trio_case(dev, g, rows, EMBD, T0, lens),
+             "band_attention": band_case(dev, g, rows, T0, lens)}
+
+    def leaf(a):
+        if isinstance(a, list):
+            return [leaf(t) for t in a]
+        if torch.is_tensor(a) and a.is_floating_point():
+            return a.detach().requires_grad_()
+        return a
+
+    def grads(leaves):
+        flat = []
+        for a in leaves:
+            for t in (a if isinstance(a, list) else [a]):
+                if torch.is_tensor(t) and t.requires_grad:
+                    flat.append(t.grad)
+        return flat
+
+    report = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, (args, kw) in cases.items():
+            op, plain = getattr(ops, name), getattr(ops, name + "_torch")
+            runs = []
+            for fn in (op, plain):
+                leaves = [leaf(a) for a in args]
+                before = op.launches
+                outs = fn(*leaves, **kw)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                fwd = op.launches - before
+                gen = torch.Generator(device=dev).manual_seed(1)
+                torch.autograd.backward(outs, [torch.randn(
+                    o.shape, generator=gen, device=dev) for o in outs])
+                runs.append(((fwd, op.launches - before - fwd), grads(leaves)))
+            (launched, got), (plain_launched, want) = runs
+            err = max(float((a - b).abs().max()) / float(b.abs().max())
+                      for a, b in zip(got, want, strict=True))
+            report[name] = {"launches_forward_backward": launched,
+                            "max_rel_diff": err}
+            assert launched == (1, 0) and plain_launched == (0, 0), (
+                name, launched, plain_launched)
+            assert err <= OP_GRAD_RTOL, (name, err)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    emit({"phase": "train", "check": "each op's backward vs autograd of its "
+          "plain version, 32 rows at T=2304", "ops": report,
+          "tol_rel": OP_GRAD_RTOL})
+
+
+def profile_step(step_fn, batch, top=12):
+    """Device time by kernel over one train step (torch.profiler): the busy
+    share of the step's wall time and the kernels that take it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms,
+            "kernel_launches": sum(r[2] for r in rows),
+            "top_kernels": [{"name": n[:120], "ms": ms, "count": c}
+                            for n, ms, c in rows[:top]]}
+
+
+def run_train(root):
+    """The train CLI's entry point on the card (``build_trainer`` + ``train``,
+    what ``python -m decafnet_tpu_torch.train`` does) at the Ego4D-NLQ width:
+    16 videos x 2 queries per step, T = 2304, dropout as configured, two
+    epochs with train-time eval of the EMA. Then the checks: launches, losses
+    and weights, the eval CLI on the experiment, the conv3 operand cache,
+    kernels vs plain versions and one vs two microbatches on one batch, and
+    the timings. Returns the kernel launches of the train run."""
+    from decafnet_tpu_torch import ops
+    from decafnet_tpu_torch.eval.__main__ import build_evaluator
+    from decafnet_tpu_torch.ops import conv3_ln_act, cuda
+    from decafnet_tpu_torch.train.__main__ import build_trainer, train
+    from decafnet_tpu_torch.train.trainer import _to_device
+
+    cfg_file = write_train_data(root)
+    argv = ["--cfg", os.path.join(REPO, "configs", "ego4d_nlq.yaml"), cfg_file,
+            "--set", "log.root", os.path.join(root, "log"), "seed", str(SEED),
+            "train.epochs", "1", "train.warmup_epochs", "1",
+            "aux.eval_run", "1", "aux.log_interval", "1"]
+    t0 = time.perf_counter()
+    trainer = build_trainer(argv)
+    cfg, model = trainer.cfg, trainer.model
+    assert trainer.device.type == "cuda"
+    n_micro = max(cfg.train.batch_size // trainer.micro, 1)
+    m = cfg.model
+    emit({"phase": "train", "config": "configs/ego4d_nlq.yaml", "argv": argv,
+          "videos_per_step": cfg.train.batch_size,
+          "rows_per_step": cfg.train.batch_size * cfg.data.max_num_text,
+          "T": cfg.data.max_vid_len, "arch": list(m.vid_net.arch),
+          "embd": m.vid_net.embd_dim, "window": m.vid_net.mha_win_size,
+          "dropout": {"proj": m.vid_net.proj_pdrop, "path": m.vid_net.path_pdrop,
+                      "tcn": m.get("tcn_dropout", 0.5)},
+          "microbatches": n_micro, "itrs_per_epoch": trainer.itrs_per_epoch,
+          "epochs": trainer.num_epochs, "params": sum(
+              p.numel() for p in model.parameters()),
+          "setup_s": time.perf_counter() - t0})
+
+    # the main path: counts to 0 just before, read just after
+    probe = StepProbe(trainer)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    train(trainer)
+    run_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps, evals = trainer.step, trainer.evaluator.decoder.decode_calls
+    want = {n: c * (steps * n_micro + evals) for n, c in PER_DECODE.items()}
+    logdir = cfg.aux.logdir
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    emit({"phase": "train", "run_s": run_s, "steps": steps,
+          "forward_microbatches": steps * n_micro, "eval_decode_calls": evals,
+          "launches": launches, "expected": want, "per_step": probe.records,
+          "logged": logged, "peak_mem_gb": peak_gb})
+    assert steps == trainer.num_epochs * trainer.itrs_per_epoch >= 4, steps
+    assert launches == want, (launches, want)
+    assert all(np.isfinite([r[k] for k in ("cls", "reg", "total")]).all()
+               for r in probe.records)
+    assert all(np.isfinite(r[f"train/{k}"]) for r in logged
+               for k in ("cls", "reg", "total")) and len(logged) == steps
+    assert probe.records[0]["lr"] == 0.0 and probe.records[0]["max_weight_change"] == 0.0
+    assert probe.records[1]["max_weight_change"] > 0.0
+    for module in (model, trainer.ema):
+        assert all(torch.isfinite(p).all() for p in module.parameters())
+    for rel in ("opt.yaml", "finished", "models/last.pth", "states/last.pt"):
+        assert os.path.exists(os.path.join(logdir, rel)), rel
+    ema = {k: v.clone() for k, v in trainer.ema.state_dict().items()}
+
+    # the trained experiment through the eval CLI's entry point
+    ev = build_evaluator(["--name", logdir])
+    assert ev.device.type == "cuda"
+    metrics = ev.run()
+    for k, v in ev.model.state_dict().items():
+        assert torch.equal(v, ema[k]), k
+    assert np.isfinite(metrics).all()
+
+    # conv3 weight operands after optimizer steps (the trainer's weights)
+    # and after load_state_dict (the train-time evaluator, given the
+    # trained weights in place of the EMA it last ran)
+    trainer.evaluator.model.load_state_dict(model.state_dict())
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    mask = prefix_mask([2304, 2000, 1500, 700] * 4, 2304, "cuda")
+    op_err = 0.0
+    with torch.no_grad():
+        for net in (model, trainer.evaluator.model):
+            for w, b, lw, lb in conv3_sites(net):
+                x = torch.randn(16, w.shape[1], 2304, generator=g, device="cuda")
+                got = conv3_ln_act(x, mask, w, b, lw, lb)
+                with cuda.plain_versions():
+                    plain = conv3_ln_act(x, mask, w, b, lw, lb)
+                op_err = max(op_err, max_err(got, plain))
+    emit({"phase": "train", "check": "conv3 weight operands after optimizer "
+          "steps and load_state_dict", "sites": 2 * len(conv3_sites(model)),
+          "max_abs_err": op_err, "tol": TOL["conv3_ln_act"]})
+    assert op_err <= TOL["conv3_ln_act"], op_err
+
+    op_backward_check(trainer.device)
+
+    # one microbatch's loss and gradients, kernels vs plain versions, the
+    # same dropout masks (the generator reseeded), with cuDNN's
+    # deterministic algorithms: its default weight-gradient convolutions
+    # sum with atomics, which alone move the cancelling sums
+    trainer.loader.set_epoch(0)
+    batch = _to_device(trainer.loader.transform(
+        [trainer.dataset[i] for i in range(cfg.train.batch_size)]),
+        trainer.device)
+
+    def loss_and_grads(data, plain, micro=None):
+        trainer.generator.manual_seed(SEED)
+        if plain:
+            with cuda.plain_versions():
+                out = trainer.accumulate(data, micro)
+        else:
+            out = trainer.accumulate(data, micro)
+        return float(out["total"]), {n: p.grad.detach().clone() for n, p in
+                                     model.named_parameters()
+                                     if p.grad is not None}
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss_k, grads_k = loss_and_grads(batch, False)
+        _, grads_k2 = loss_and_grads(batch, False)
+        loss_p, grads_p = loss_and_grads(batch, True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    elem, skipped, elem_top = grads_close(grads_k, grads_p)
+    rel_all, rel_top = grads_rel_l2(grads_k, grads_p)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    emit({"phase": "train", "check": "one microbatch of 16 videos, kernels vs "
+          "plain versions, same dropout masks", "loss": [loss_k, loss_p],
+          "loss_rel": loss_rel, "grad_leaves": len(grads_p),
+          "noise_sized_skipped": skipped, "rel_l2_all": rel_all,
+          "rel_l2_worst_leaves": rel_top, "elementwise_worst_over_tol": elem,
+          "elementwise_worst_leaves": elem_top,
+          "kernels_twice_rel_l2_all": grads_rel_l2(grads_k2, grads_k)[0],
+          "tol": {"loss_rtol": LOSS_RTOL_TRAIN, "rel_l2_all": GRAD_REL_L2_ALL,
+                  "rel_l2_leaf": GRAD_REL_L2_LEAF, "elementwise_rtol":
+                  GRAD_RTOL, "elementwise_atol_of_max": GRAD_ATOL}})
+    assert loss_rel <= LOSS_RTOL_TRAIN, loss_rel
+    assert rel_all <= GRAD_REL_L2_ALL, rel_all
+    assert rel_top[0]["rel_l2"] <= GRAD_REL_L2_LEAF, rel_top
+
+    # timings: whole steps (forward + backward + optimizer, EMA, loss norm)
+    # on one batch, kernels and plain versions, then one profiled step
+    def step_ms(plain, n=3):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if plain:
+                with cuda.plain_versions():
+                    probe.step_fn(batch)
+            else:
+                probe.step_fn(batch)
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    kernel_ms, plain_ms = step_ms(False), step_ms(True)
+    prof = profile_step(probe.step_fn, batch)
+    emit({"phase": "train", "timing": "one step of 16 videos x 2 queries at "
+          "2304 clips", "run_step_ms": [r["ms"] for r in probe.records],
+          "median_run_step_ms": float(np.median([r["ms"] for r in probe.records])),
+          "kernels_step_ms": kernel_ms, "median_kernels_step_ms":
+          float(np.median(kernel_ms)), "plain_step_ms": plain_ms,
+          "median_plain_step_ms": float(np.median(plain_ms)),
+          "peak_mem_gb": peak_gb, "profile": prof})
+
+    # dropout off: two microbatches of 8 give the gradients of one of 16,
+    # elementwise at rtol 1e-3 + 1e-4 of each leaf's max. In f64 through
+    # the plain versions (the kernels are f32): in f32 the split reorders
+    # the cancelling sums (reported as f32_worst_over_tol), while a wrong
+    # split would move them by far more
+    model.eval()
+    _, grads_f32_1 = loss_and_grads(batch, False, micro=16)
+    _, grads_f32_2 = loss_and_grads(batch, False, micro=8)
+    batch64 = {k: v.double() if v.is_floating_point() else v
+               for k, v in batch.items()}
+    model.double()
+    try:
+        loss_1, grads_1 = loss_and_grads(batch64, True, micro=16)
+        loss_2, grads_2 = loss_and_grads(batch64, True, micro=8)
+    finally:
+        model.float().train()
+    worst, skipped, top = grads_close(grads_2, grads_1)
+    emit({"phase": "train", "check": "dropout off, 2 microbatches of 8 vs 1 "
+          "of 16, f64 plain versions", "loss": [loss_2, loss_1],
+          "grad_worst_over_tol": worst, "noise_sized_skipped": skipped,
+          "worst_leaves": top,
+          "f32_worst_over_tol": grads_close(grads_f32_2, grads_f32_1)[0]})
+    assert abs(loss_2 - loss_1) <= LOSS_RTOL_TRAIN * abs(loss_1) and worst <= 1.0
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -843,6 +1264,7 @@ def main():
     with tempfile.TemporaryDirectory() as root:
         by_path["eval"], logdir = run_eval(root)
         by_path["http"] = run_http(logdir, service, requests)
+        by_path["train"] = run_train(root)
     launches = {n: sum(p[n] for p in by_path.values()) for n in PER_DECODE}
 
     sources = {"conv3_ln_act": ("decafnet_tpu_torch/csrc/conv3_ln_act.cu",

@@ -1,4 +1,5 @@
 """Configuration of the port."""
 
-from .config import (CfgNode, file_task, get_cfg_defaults, load_config,
+from .config import (CfgNode, diff_dict, file_task, generate_expname,
+                     get_cfg_defaults, get_task, load_config, setup_cfg,
                      update_eval_data, update_from, update_opt)

@@ -10,12 +10,15 @@ the port reads only ``compute_dtype`` (``models.make_model``).
 ``update_opt`` derives the dependent fields, ``update_eval_data`` backfills
 ``eval.data`` from ``data``, ``update_from`` backfills a frozen snapshot
 with defaults introduced after it. ``load_config(path)`` is defaults of the
-file's task <- the file, then ``update_opt``.
+file's task <- the file, then ``update_opt``. ``setup_cfg`` builds the train
+CLI's config with the experiment name (``generate_expname``) and log dir.
 """
 
 from __future__ import annotations
 
 import copy
+import os
+import random
 
 import yaml
 
@@ -418,3 +421,97 @@ def load_config(path):
     cfg = get_cfg_defaults(file_task(path))
     cfg.merge_from_file(path)
     return update_opt(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Experiment naming and the train CLI's config (decafnet_tpu/core/config.py:
+# 489-586)
+# ---------------------------------------------------------------------------
+
+
+def _flatten(cfg, prefix=""):
+    out = {}
+    for k, v in cfg.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, key + "."))
+        else:
+            out[key] = v
+    return out
+
+
+def diff_dict(default, cfg, skip_prefixes=("aux.", "log.", "tpu.")):
+    """Flat {dotted.key: value} of the entries of ``cfg`` that differ from
+    ``default``; keys only ``cfg`` has count as differences."""
+    fd, fc = _flatten(default), _flatten(cfg)
+    return {k: v for k, v in fc.items()
+            if not any(k.startswith(p) for p in skip_prefixes)
+            and (k not in fd or fd[k] != v)}
+
+
+def _capitalize_key(key):
+    # "model.vid_net.embd_dim" -> "Model.VidNet.EmbdDim"
+    def cap(part):
+        return "".join(s[:1].upper() + s[1:] for s in part.split("_"))
+    return ".".join(cap(p) for p in key.split("."))
+
+
+def generate_expname(cfg, default, cfg_files=()):
+    """Experiment name: the config files' stems, then the diff against
+    defaults <- files, then ``aux.mark``."""
+    parts = []
+    ref = default.clone()
+    for f in cfg_files:
+        ref.merge_from_file(f)
+        parts.append(os.path.splitext(os.path.basename(f))[0])
+    diff = diff_dict(ref, cfg)
+    if diff:
+        parts.append("-".join(f"{_capitalize_key(k)}:{v}"
+                              for k, v in sorted(diff.items())))
+    if cfg.aux.mark:
+        parts.append(cfg.aux.mark)
+    return "_".join(parts) if parts else "default"
+
+
+def get_task(cfg_files=(), set_cfgs=None):
+    """The task of the last file that names one, unless ``--set task``."""
+    task = "grounder"
+    for fname in cfg_files:
+        with open(fname, "r") as f:
+            task = (yaml.safe_load(f) or {}).get("task", task)
+    if set_cfgs:
+        for k, v in zip(set_cfgs[0::2], set_cfgs[1::2]):
+            if k == "task":
+                task = v
+    return task
+
+
+def setup_cfg(cfg_files=(), set_cfgs=None):
+    """The train CLI's config: defaults <- files <- ``--set`` overrides;
+    the experiment name and log dir
+    (``<log.root>/<aux.log>/<aux.exp>/<aux.runid>``); the seed of an
+    existing ``opt.yaml`` of the same experiment when none is set, else a
+    fresh random one; then the derived fields and ``eval.data``."""
+    task = get_task(cfg_files, set_cfgs)
+    cfg = get_cfg_defaults(task)
+    for f in cfg_files:
+        cfg.merge_from_file(f)
+    if set_cfgs:
+        cfg.merge_from_list(list(set_cfgs))
+
+    cfg.aux.cfg_file = tuple(cfg_files)
+    cfg.aux.set_cfgs = list(set_cfgs) if set_cfgs else None
+    cfg.aux.exp = generate_expname(cfg, get_cfg_defaults(task), cfg_files)
+
+    root = "log/test" if cfg.aux.debug else (cfg.log.root or "log")
+    logdir = os.path.join(root, cfg.aux.log, cfg.aux.exp, str(cfg.aux.runid))
+    prev = os.path.join(logdir, "opt.yaml")
+    if cfg.seed is None and os.path.exists(prev):
+        cfg.seed = CfgNode.load_file(prev).get("seed")
+    if cfg.seed is None:
+        cfg.seed = random.SystemRandom().randrange(10 ** 9)
+
+    update_opt(cfg)
+    update_eval_data(cfg)
+    cfg.aux.logdir = logdir
+    return cfg

@@ -1,7 +1,7 @@
 """Host-side data pipeline of the port (numpy): datasets, loader,
-tokenizer, synthetic data and eval batching."""
+tokenizer, synthetic data and train / eval batching."""
 
-from .batching import (batchify_eval, bucket_length, bucket_pow2,
+from .batching import (batchify_eval, batchify_train, bucket_length, bucket_pow2,
                        bucket_queries, min_chunk_size, pad_axis,
                        pe_interp_arrays, reference_padded_len)
 from .dataset import (DATASETS, BaseDataset, VideoCentricCLIPDataset,

@@ -1,5 +1,6 @@
-"""Static-shape eval batch assembly, numpy only (port of
-decafnet_tpu/data/batching.py, serving part).
+"""Static-shape batch assembly, numpy only (port of
+decafnet_tpu/data/batching.py): ``batchify_train`` for the trainer, and the
+eval batching below.
 
 Eval videos are padded to a small geometric set of bucket lengths
 (multiples of the chunkable unit, then powers of two of the configured input
@@ -104,6 +105,55 @@ def pe_interp_arrays(ref_len, bucket_len, base_len, vid_stride=1):
     # the clamped edge value; clip keeps the arithmetic benign
     w = np.clip(pos - lo, 0.0, 1.0).astype(np.float32)
     return lo, hi, w
+
+
+def batchify_train(samples, input_vid_len, max_text_len, max_num_text):
+    """Assemble a static train batch from dataset sample dicts.
+
+    Returns a dict of numpy arrays, video-major (row r belongs to video
+    r // max_num_text):
+      vid (B, Cv, T), shallow_vid (B, Cs, T), vid_masks (B, T),
+      text (R, Ct, L), text_masks (R, L), text_cls (R, Ccls),
+      targets (R, 2), row_valid (R,)        with R = B * max_num_text.
+    Rows past a video's queries are padding: target [0, 1], row_valid
+    False.
+    """
+    B = len(samples)
+    R = B * max_num_text
+    T, L = input_vid_len, max_text_len
+    cv = samples[0]["vid"].shape[0]
+    cs = samples[0]["shallow_vid"].shape[0]
+    ct = samples[0]["text"][0].shape[0]
+    ccls = samples[0]["text_cls"].shape[1]
+
+    vid = np.zeros((B, cv, T), np.float32)
+    shallow = np.zeros((B, cs, T), np.float32)
+    vid_masks = np.zeros((B, T), bool)
+    text = np.zeros((R, ct, L), np.float32)
+    text_masks = np.zeros((R, L), bool)
+    text_cls = np.zeros((R, ccls), np.float32)
+    targets = np.tile(np.asarray([[0.0, 1.0]], np.float32), (R, 1))
+    row_valid = np.zeros((R,), bool)
+
+    for b, s in enumerate(samples):
+        t = s["vid"].shape[1]
+        if t > T:
+            raise ValueError(f"video length {t} exceeds input_vid_len {T}")
+        vid[b, :, :t] = s["vid"]
+        shallow[b, :, :t] = s["shallow_vid"]
+        vid_masks[b, :t] = True
+        for qi, tok in enumerate(s["text"][:max_num_text]):
+            r = b * max_num_text + qi
+            n = min(tok.shape[1], L)
+            text[r, :, :n] = tok[:, :n]
+            text_masks[r, :n] = True
+            text_cls[r] = s["text_cls"][qi]
+            targets[r] = s["target"][qi]
+            row_valid[r] = True
+
+    return {"vid": vid, "shallow_vid": shallow, "vid_masks": vid_masks,
+            "text": text, "text_masks": text_masks, "text_cls": text_cls,
+            "targets": targets, "row_valid": row_valid}
 
 
 def batchify_eval(sample, chunk, base_len, vid_stride=1, query_cap=32,

@@ -16,13 +16,17 @@ import numpy as np
 
 
 class DataLoader:
-    """Iterates batches of raw sample dicts (batch assembly is the caller's
-    job)."""
+    """Iterates batches of raw sample dicts, or of what ``transform`` makes
+    of each list of samples."""
 
     def __init__(self, dataset, batch_size, shuffle, seed=2022,
-                 drop_last=True, rank=0, world_size=1, num_threads=4):
+                 drop_last=True, rank=0, world_size=1, num_threads=4,
+                 transform=None):
         """For ``world_size > 1`` each rank iterates its own rank-strided
-        subset (``batch_size`` is per rank)."""
+        subset (``batch_size`` is per rank). ``transform`` (optional) maps
+        a batch's list of samples to the batch inside the prefetch thread,
+        so batch assembly overlaps the device step (the trainer passes
+        ``batchify_train``)."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -31,6 +35,7 @@ class DataLoader:
         self.rank = rank
         self.world_size = world_size
         self.num_threads = max(1, num_threads)
+        self.transform = transform
         self.epoch = 0
 
     def set_epoch(self, epoch):
@@ -61,7 +66,8 @@ class DataLoader:
                    for i in range(len(self))]
 
         def build(b):
-            return [self.dataset[int(i)] for i in b]
+            samples = [self.dataset[int(i)] for i in b]
+            return self.transform(samples) if self.transform else samples
 
         if self.num_threads <= 1:
             for b in batches:

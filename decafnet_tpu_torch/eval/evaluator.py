@@ -320,11 +320,14 @@ class Evaluator:
     ``cfg``: a full config tree (see :func:`config_from_logdir`); the
     ``eval.data`` tree names the dataset. Weights come from ``params`` (a
     flax-layout tree of numpy arrays) or else from
-    ``<aux.logdir>/models/<aux.ckpt>.pth`` (its ``model_ema``).
-    ``device``: None for the CUDA card (raises without one), or explicit.
-    ``video_ms`` holds each video's wall time of the last :meth:`run`."""
+    ``<aux.logdir>/models/<aux.ckpt>.pth`` (its ``model_ema``); with
+    ``train_time`` (the trainer's evaluator) from the ``ema`` handed to
+    each :meth:`run` instead, and the log goes to stdout until the trainer
+    sets one. ``device``: None for the CUDA card (raises without one), or
+    explicit. ``video_ms`` holds each video's wall time of the last
+    :meth:`run`."""
 
-    def __init__(self, cfg, params=None, device=None):
+    def __init__(self, cfg, params=None, device=None, train_time=False):
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -336,7 +339,7 @@ class Evaluator:
         model = make_model(cfg)
         if params is not None:
             load_params(model, params)
-        else:
+        elif not train_time:
             load_pth(model, checkpoint_path(cfg.aux.logdir,
                                             cfg.aux.get("ckpt", "last")))
         self.model = model.to(self.device).eval()
@@ -345,10 +348,11 @@ class Evaluator:
 
         self.tag = cfg.aux.get("ckpt", "eval")
         root = cfg.aux.logdir
-        if root:
+        if root and not train_time:
             os.makedirs(root, exist_ok=True)
-        self.logger = Logger(os.path.join(root, f"eval_{self.tag}.txt")
-                             if root else None)
+            self.logger = Logger(os.path.join(root, f"eval_{self.tag}.txt"))
+        else:
+            self.logger = Logger()
         self.video_ms = []
 
     def predict_video(self, sample):
@@ -372,9 +376,16 @@ class Evaluator:
         if dump is not None:
             dump.add_video(meta["clip_id"], targets_sec, results, losses)
 
-    def run(self):
+    def run(self, ema=None, tag=None):
         """Evaluate every video (the first only under ``aux.dryrun``);
-        returns the (ranks, iou_threshs) recall matrix."""
+        returns the (ranks, iou_threshs) recall matrix. ``ema`` (a state
+        dict or a module, e.g. the trainer's EMA model) is copied into the
+        evaluated model first; ``tag`` names the results dump."""
+        if ema is not None:
+            self.model.load_state_dict(
+                ema.state_dict() if isinstance(ema, torch.nn.Module) else ema)
+        if tag is not None:
+            self.tag = tag
         self.meter.reset()
         self.decoder.time_dict.clear()
         self.video_ms = []

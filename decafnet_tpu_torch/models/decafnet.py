@@ -1,5 +1,5 @@
-"""The DeCafNet grounder, evaluation forward (port of
-decafnet_tpu/models/decafnet.py:50-252, DeCafNetIterative).
+"""The DeCafNet grounder (port of decafnet_tpu/models/decafnet.py:50-252,
+DeCafNetIterative).
 
 delegation -> vid_map -> text transformer -> cross-attention fusion ->
 video FPN -> cls_head -> TCN refinement -> cls_head2 + reg_head.
@@ -8,6 +8,11 @@ A (video, query) pair is a batch row. With ``queries_per_video`` Q > 1 the
 video inputs carry V videos and the text inputs V*Q rows (row r belongs to
 video r // Q), and the vid_map projection runs once per video
 (:meth:`DeCafNetIterative._delegate_project_grouped`).
+
+``model.train()`` turns on the configured dropouts (the blocks', the TCN's
+``model.tcn_dropout`` and the channel dropout ``vid_net.cdrop``), drawn from
+the ``generator`` passed to :meth:`DeCafNetIterative.forward`; in eval mode
+the forward is the serving forward.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..nn.blocks import MaskedConv1D, reset_parameters
+from ..nn.blocks import MaskedConv1D, dropout, reset_parameters
 from ..ops.delegation import delegate, delegation_weights
 from ..ops.masked import interpolate_nearest_1d, masked_max_pool1d
 from .fusion import XAttNFusion
@@ -36,8 +41,8 @@ def _delegated_in_dim(m):
 
 
 class DeCafNetIterative(nn.Module):
-    """Live DeCafNet model, eval mode, f32. ``cfg`` is the ``model`` config
-    subtree (after ``core.update_opt``)."""
+    """Live DeCafNet model, f32. ``cfg`` is the ``model`` config subtree
+    (after ``core.update_opt``)."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -55,29 +60,39 @@ class DeCafNetIterative(nn.Module):
         if vn.get("pool_only"):
             raise NotImplementedError("model.vid_net.pool_only")
 
+        def drops(sub):
+            return {k: sub.get(k, 0.0)
+                    for k in ("attn_pdrop", "proj_pdrop", "path_pdrop")}
+
+        self.cdrop = vn.get("cdrop", 0.0)
         self.text_net = TextTransformer(
             tn["in_dim"], tn["embd_dim"], tn["n_heads"], tn["max_seq_len"],
             n_layers=tn.get("n_layers", 5), use_abs_pe=tn.get("use_abs_pe", True),
-            use_bkgd_token=tn.get("use_bkgd_token", True))
+            use_bkgd_token=tn.get("use_bkgd_token", True), **drops(tn))
         self.vid_map = MaskedConv1D(_delegated_in_dim(m), vid_embd, 1)
         self.vid_net = VideoTransformer(
             vid_embd, vid_embd, vn["max_seq_len"], vn["n_heads"],
             vn["mha_win_size"], stride=vn.get("stride", 1),
-            arch=tuple(vn["arch"]), use_abs_pe=vn.get("use_abs_pe", False))
+            arch=tuple(vn["arch"]), use_abs_pe=vn.get("use_abs_pe", False),
+            **drops(vn))
         self.fusion = XAttNFusion(vid_embd, fu.get("text_dim", tn["embd_dim"]),
                                   n_layers=fu.get("n_layers", 2),
                                   n_heads=fu.get("n_heads", 4),
-                                  xattn_mode=fu.get("xattn_mode", "adaln"))
+                                  xattn_mode=fu.get("xattn_mode", "adaln"),
+                                  **drops(fu))
         ch, rh = m["cls_head"], m["reg_head"]
         self.cls_head = ClsHead(vid_embd, ch.get("n_layers", 2),
                                 ch.get("prior_prob", 0.0))
-        self.refine = TCN(num_levels, rdim, rdim, num_layers=num_levels)
+        # 0.5 is the reference TCN's dropout; tcn_dropout is the JAX
+        # package's ablation knob (decafnet_tpu/models/decafnet.py:75-77)
+        self.refine = TCN(num_levels, rdim, rdim, num_layers=num_levels,
+                          pdrop=m.get("tcn_dropout", 0.5))
         self.cls_head2 = ClsHead(vid_embd + rdim, ch.get("n_layers", 2),
                                  ch.get("prior_prob", 0.0))
         self.reg_head = RegHead(vid_embd + rdim, num_levels,
                                 rh.get("n_layers", 2))
 
-    def fuse_and_predict(self, fpn, fpn_masks):
+    def fuse_and_predict(self, fpn, fpn_masks, generator=None):
         """Heads with TCN refinement."""
         fpn_logits, _ = self.cls_head(fpn, fpn_masks)
         # nearest-expand every level to the level-0 grid and stack (bs, L, T)
@@ -87,7 +102,8 @@ class DeCafNetIterative(nn.Module):
         for logits in fpn_logits[1:]:
             up = interpolate_nearest_1d(logits[:, None, :], ref_len)[:, 0]
             expanded.append(up * mask0)
-        refined = self.refine(torch.stack(expanded, dim=1), fpn_masks[0])
+        refined = self.refine(torch.stack(expanded, dim=1), fpn_masks[0],
+                              generator=generator)
 
         # per-level concat, downsampling the refined map by masked max pool
         new_fpn = []
@@ -143,12 +159,20 @@ class DeCafNetIterative(nn.Module):
         return rows, mask_rows[:, None, :]
 
     def forward(self, vid, shallow_vid, vid_masks, text, text_cls, text_masks,
-                pe_interp=None, queries_per_video=1):
+                pe_interp=None, queries_per_video=1, generator=None):
         """Returns (cls_head logits, cls_head2 logits, offsets, masks), each
-        a list over FPN levels."""
+        a list over FPN levels. ``generator`` feeds the dropouts in training
+        mode.
+
+        In training with channel dropout (``cdrop`` > 0) a video-major batch
+        is expanded to rows first: the dropout acts per query row on the
+        delegated input, which does not commute with the per-video
+        projection. ``sfonly`` (the sidekick stream alone) applies at eval
+        only, as in the JAX model."""
         m = self.cfg
         Q = queries_per_video
-        if Q > 1 and not m.get("sfonly", False):
+        grouped_ok = not self.training or self.cdrop == 0.0
+        if Q > 1 and grouped_ok and not m.get("sfonly", False):
             vid, vm = self._delegate_project_grouped(
                 vid, shallow_vid, vid_masks, text_cls, Q)
         else:
@@ -160,13 +184,18 @@ class DeCafNetIterative(nn.Module):
                 vid, shallow_vid, vid_masks, text_cls, sn=m.get("sn", 60),
                 ratio=m.get("sratio", 0.0), normalize=m.get("norm", False),
                 msf=m.get("msf", False), scat=m.get("scat", False),
-                sfonly=m.get("sfonly", False))
+                sfonly=m.get("sfonly", False) and not self.training)
+            vid = dropout(vid, self.cdrop, generator, self.training,
+                          shape=vid.shape[:2] + (1,))
             vid, vm = self.vid_map(vid, vid_masks[:, None, :])
 
-        text_enc, text_mask_enc = self.text_net(text, text_masks)
-        vid, vm = self.fusion(vid, vm, text_enc, text_mask_enc)
-        fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp)
-        return self.fuse_and_predict(fpn, fpn_masks)
+        text_enc, text_mask_enc = self.text_net(text, text_masks,
+                                                generator=generator)
+        vid, vm = self.fusion(vid, vm, text_enc, text_mask_enc,
+                              generator=generator)
+        fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp,
+                                      generator=generator)
+        return self.fuse_and_predict(fpn, fpn_masks, generator=generator)
 
 
 def make_model(cfg):

@@ -1,5 +1,5 @@
 """Video FPN backbone (port of decafnet_tpu/models/video_net.py:
-VideoTransformer, eval mode)."""
+VideoTransformer)."""
 
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ class VideoTransformer(nn.Module):
     branch)."""
 
     def __init__(self, in_dim, embd_dim, max_seq_len, n_heads, mha_win_size,
-                 stride=1, arch=(2, 1, 6), use_abs_pe=False):
+                 stride=1, arch=(2, 1, 6), use_abs_pe=False, attn_pdrop=0.0,
+                 proj_pdrop=0.0, path_pdrop=0.0):
         super().__init__()
         assert len(arch) == 3
         assert stride & (stride - 1) == 0
@@ -36,21 +37,25 @@ class VideoTransformer(nn.Module):
             stride = max(stride // 2, 1)
         self.embd_convs = nn.ModuleList(convs)
         self.embd_norms = nn.ModuleList(norms)
+        drops = dict(attn_pdrop=attn_pdrop, proj_pdrop=proj_pdrop,
+                     path_pdrop=path_pdrop)
         self.stem = nn.ModuleList(
             TransformerEncoder(embd_dim, stride=1, n_heads=n_heads,
-                               window_size=mha_win_size)
+                               window_size=mha_win_size, **drops)
             for _ in range(arch[1]))
         self.branch = nn.ModuleList(
             TransformerEncoder(embd_dim, stride=2 if idx > 0 else 1,
-                               n_heads=n_heads, window_size=mha_win_size)
+                               n_heads=n_heads, window_size=mha_win_size,
+                               **drops)
             for idx in range(arch[2]))
         pe = torch.from_numpy(sinusoid_encoding(max_seq_len, embd_dim // 2))
         self.register_buffer("pe", pe / (embd_dim ** 0.5), persistent=False)
 
-    def forward(self, x, mask, pe_interp=None):
+    def forward(self, x, mask, pe_interp=None, generator=None):
         """``pe_interp``: optional (lo, hi, w) tensors of shape (t,) or
         (B, t): linear-interpolation plans of the PE table onto the
-        reference's padded length (data/batching.py:pe_interp_arrays)."""
+        reference's padded length (data/batching.py:pe_interp_arrays).
+        In training an input longer than the PE table raises."""
         if mask.ndim == 2:
             mask = mask[:, None, :]
         x, _ = self.embd_fc(x, mask)
@@ -73,15 +78,18 @@ class VideoTransformer(nn.Module):
                           + pe[:, hi].permute(1, 0, 2) * w[:, None, :])
                 else:
                     pe = pe[:, lo] * (1.0 - w[None, :]) + pe[:, hi] * w[None, :]
+            elif self.training and t > self.max_seq_len:
+                raise ValueError(f"training video of {t} steps is longer than "
+                                 f"the PE table ({self.max_seq_len})")
             elif t > self.max_seq_len:
                 pe = interpolate_linear_1d(pe, t, align_corners=True)
             x = x + pe[..., :t].to(x.dtype) * mask.to(x.dtype)
 
         for block in self.stem:
-            x, mask = block(x, mask)
+            x, mask = block(x, mask, generator=generator)
         fpn, fpn_masks = [], []
         for block in self.branch:
-            x, mask = block(x, mask)
+            x, mask = block(x, mask, generator=generator)
             fpn.append(x)
             fpn_masks.append(mask)
         return fpn, fpn_masks

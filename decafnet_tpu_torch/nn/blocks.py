@@ -1,4 +1,4 @@
-"""Primitive NN blocks, channel-first (bs, c, t), eval mode (port of
+"""Primitive NN blocks, channel-first (bs, c, t) (port of
 decafnet_tpu/nn/blocks.py).
 
 Module and parameter names follow the reference's torch module tree and
@@ -6,7 +6,12 @@ conv kernels keep the (out, in, k) layout, so a flax params tree of the JAX
 package and a released ``.pth`` load through one key mapping
 (models/import_torch.py). Parameters are created empty and filled by a
 loaded state dict or by :func:`reset_parameters` from a ``torch.Generator``.
-Dropout and stochastic depth are identities at eval and are left out.
+
+Dropout and stochastic depth act in training mode (``module.train()``) only,
+and draw their masks from the ``torch.Generator`` passed down each forward
+as ``generator`` (never from the global RNG), as the JAX modules draw from
+the ``dropout`` rng stream; in eval mode, or at rate 0, they are the
+identity.
 """
 
 from __future__ import annotations
@@ -27,6 +32,37 @@ from ..ops.masked import (channel_layer_norm, interpolate_nearest_1d,
 def _uniform_(t, bound, generator):
     with torch.no_grad():
         t.copy_(torch.rand(t.shape, generator=generator) * (2 * bound) - bound)
+
+
+def _uniform_like(x, shape, generator):
+    if generator is None:
+        raise ValueError("dropout in training mode draws from a "
+                         "torch.Generator: pass generator=")
+    return torch.rand(shape, generator=generator, device=x.device,
+                      dtype=x.dtype)
+
+
+def dropout(x, p, generator, training, shape=None):
+    """Inverted dropout as flax's ``nn.Dropout``: in training each entry of
+    a uniform draw of ``shape`` (default ``x.shape``; a shape with 1s
+    broadcasts the mask, as ``broadcast_dims`` does) keeps ``x`` scaled by
+    1 / (1 - p) where it is below 1 - p, and zeroes it elsewhere."""
+    if not training or p == 0.0:
+        return x
+    keep = 1.0 - p
+    kept = _uniform_like(x, shape or x.shape, generator) < keep
+    return torch.where(kept, x / keep, torch.zeros_like(x))
+
+
+def drop_path(x, p, generator, training):
+    """Stochastic depth as the JAX ``LayerScale`` (nn/blocks.py:242-247): in
+    training one gate per sample, ``floor(keep + U)`` with keep = 1 - p, and
+    ``x / keep * gate``."""
+    if not training or p == 0.0:
+        return x
+    keep = 1.0 - p
+    u = _uniform_like(x, (x.shape[0],) + (1,) * (x.ndim - 1), generator)
+    return x / keep * torch.floor(keep + u)
 
 
 class Conv1d(nn.Module):
@@ -134,39 +170,44 @@ class Scale(nn.Module):
 
 
 class LayerScale(nn.Module):
-    """Per-channel residual scaling (1, c, 1), init 1e-4."""
+    """Per-channel residual scaling (1, c, 1), init 1e-4, then stochastic
+    depth at rate ``pdrop`` in training."""
 
-    def __init__(self, n_channels, init_scale=1e-4):
+    def __init__(self, n_channels, pdrop=0.0, init_scale=1e-4):
         super().__init__()
-        self.init_scale = init_scale
+        self.pdrop, self.init_scale = pdrop, init_scale
         self.scale = nn.Parameter(torch.full((1, n_channels, 1), init_scale))
 
     def reset_parameters(self, generator):
         nn.init.constant_(self.scale, self.init_scale)
 
-    def forward(self, x):
-        return self.scale * x
+    def forward(self, x, generator=None):
+        return drop_path(self.scale * x, self.pdrop, generator, self.training)
 
 
 class MaskedMHA(nn.Module):
     """Multi-head attention with masking; global, or banded local when
     ``window_size`` > 0. q and k are both scaled by 1/sqrt(sqrt(d)); the
-    global softmax gives zeros, not NaN, for fully masked rows."""
+    global softmax gives zeros, not NaN, for fully masked rows. In training,
+    dropout at ``attn_pdrop`` on the global attention weights (the banded
+    path has none, as in the JAX module) and at ``proj_pdrop`` on the
+    output projection."""
 
     def __init__(self, embd_dim, q_dim=None, kv_dim=None, out_dim=None,
-                 n_heads=4, window_size=0):
+                 n_heads=4, window_size=0, attn_pdrop=0.0, proj_pdrop=0.0):
         super().__init__()
         assert embd_dim % n_heads == 0
         q_dim = q_dim or embd_dim
         kv_dim = kv_dim or embd_dim
         out_dim = out_dim or q_dim
         self.embd_dim, self.n_heads, self.window_size = embd_dim, n_heads, window_size
+        self.attn_pdrop, self.proj_pdrop = attn_pdrop, proj_pdrop
         self.query = Conv1d(q_dim, embd_dim, 1)
         self.key = Conv1d(kv_dim, embd_dim, 1)
         self.value = Conv1d(kv_dim, embd_dim, 1)
         self.proj = Conv1d(embd_dim, out_dim, 1)
 
-    def forward(self, q, k=None, v=None, kv_mask=None):
+    def forward(self, q, k=None, v=None, kv_mask=None, generator=None):
         if k is None:
             k = q
         if v is None:
@@ -197,10 +238,12 @@ class MaskedMHA(nn.Module):
             attn = torch.where(kv_valid, attn, torch.zeros_like(attn))
             denom = torch.sum(attn, dim=-1, keepdim=True)
             attn = attn / torch.clamp_min(denom, torch.finfo(attn.dtype).tiny)
+            attn = dropout(attn, self.attn_pdrop, generator, self.training)
             out = torch.einsum("bhij,bhjd->bhid", attn, vh)
 
         out = out.transpose(2, 3).reshape(bs, h * d, -1)
-        return self.proj(out)
+        return dropout(self.proj(out), self.proj_pdrop, generator,
+                       self.training)
 
 
 class ConvAttNLayer(nn.Module):
@@ -209,7 +252,7 @@ class ConvAttNLayer(nn.Module):
     downsamples queries and the mask through plain depthwise convs."""
 
     def __init__(self, embd_dim, out_dim=None, stride=1, n_heads=4,
-                 window_size=0):
+                 window_size=0, attn_pdrop=0.0, proj_pdrop=0.0):
         super().__init__()
         self.stride = stride
         if stride > 0:
@@ -223,9 +266,10 @@ class ConvAttNLayer(nn.Module):
             self.k_norm = LayerNorm(embd_dim)
             self.v_norm = LayerNorm(embd_dim)
         self.attn = MaskedMHA(embd_dim, out_dim=out_dim or embd_dim,
-                              n_heads=n_heads, window_size=window_size)
+                              n_heads=n_heads, window_size=window_size,
+                              attn_pdrop=attn_pdrop, proj_pdrop=proj_pdrop)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, generator=None):
         if self.stride == 1:
             q, k, v = qkv_depthwise_ln(
                 x, mask[:, 0, :],
@@ -240,13 +284,14 @@ class ConvAttNLayer(nn.Module):
             q, k, v = self.q_norm(q), self.k_norm(k), self.v_norm(v)
         else:
             q = k = v = x
-        return self.attn(q, k, v, mask), mask
+        return self.attn(q, k, v, mask, generator=generator), mask
 
 
 class ConvXAttNLayer(nn.Module):
     """Optional depthwise query conv feeding cross-attention."""
 
-    def __init__(self, embd_dim, kv_dim, out_dim=None, stride=1, n_heads=4):
+    def __init__(self, embd_dim, kv_dim, out_dim=None, stride=1, n_heads=4,
+                 attn_pdrop=0.0, proj_pdrop=0.0):
         super().__init__()
         self.use_conv = stride > 0
         if self.use_conv:
@@ -255,25 +300,29 @@ class ConvXAttNLayer(nn.Module):
                                        groups=embd_dim, bias=False)
             self.q_norm = LayerNorm(embd_dim)
         self.xattn = MaskedMHA(embd_dim, kv_dim=kv_dim,
-                               out_dim=out_dim or embd_dim, n_heads=n_heads)
+                               out_dim=out_dim or embd_dim, n_heads=n_heads,
+                               attn_pdrop=attn_pdrop, proj_pdrop=proj_pdrop)
 
-    def forward(self, q, q_mask, kv, kv_mask):
+    def forward(self, q, q_mask, kv, kv_mask, generator=None):
         if self.use_conv:
             q, q_mask = self.q_conv(q, q_mask)
             q = self.q_norm(q)
-        return self.xattn(q, kv, None, kv_mask), q_mask
+        return self.xattn(q, kv, None, kv_mask, generator=generator), q_mask
 
 
 class FFN(nn.Module):
-    """Conv1x1 -> exact GELU -> Conv1x1."""
+    """Conv1x1 -> exact GELU -> Conv1x1, in training with dropout at
+    ``pdrop`` after the GELU and after the projection."""
 
-    def __init__(self, channels, expansion=4):
+    def __init__(self, channels, expansion=4, pdrop=0.0):
         super().__init__()
+        self.pdrop = pdrop
         self.fc = Conv1d(channels, channels * expansion, 1)
         self.proj = Conv1d(channels * expansion, channels, 1)
 
-    def forward(self, x):
-        return self.proj(F.gelu(self.fc(x)))
+    def forward(self, x, generator=None):
+        x = dropout(F.gelu(self.fc(x)), self.pdrop, generator, self.training)
+        return dropout(self.proj(x), self.pdrop, generator, self.training)
 
 
 class TransformerEncoder(nn.Module):
@@ -282,27 +331,28 @@ class TransformerEncoder(nn.Module):
     downsampling."""
 
     def __init__(self, embd_dim, stride=1, n_heads=4, window_size=0,
-                 expansion=4):
+                 expansion=4, attn_pdrop=0.0, proj_pdrop=0.0, path_pdrop=0.0):
         super().__init__()
         self.stride = stride
         self.attn = ConvAttNLayer(embd_dim, stride=stride, n_heads=n_heads,
-                                  window_size=window_size)
+                                  window_size=window_size,
+                                  attn_pdrop=attn_pdrop, proj_pdrop=proj_pdrop)
         self.ln_attn = LayerNorm(embd_dim)
-        self.drop_path_attn = LayerScale(embd_dim)
-        self.ffn = FFN(embd_dim, expansion)
+        self.drop_path_attn = LayerScale(embd_dim, path_pdrop)
+        self.ffn = FFN(embd_dim, expansion, proj_pdrop)
         self.ln_ffn = LayerNorm(embd_dim)
-        self.drop_path_ffn = LayerScale(embd_dim)
+        self.drop_path_ffn = LayerScale(embd_dim, path_pdrop)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, generator=None):
         x = x * mask.to(x.dtype)
         if self.stride > 1:
             skip = masked_max_pool1d(x, mask, 3, self.stride)[0]
         else:
             skip = x
-        h, mask = self.attn(self.ln_attn(x), mask)
-        x = skip * mask.to(x.dtype) + self.drop_path_attn(h)
-        h = self.ffn(self.ln_ffn(x)) * mask.to(x.dtype)
-        return x + self.drop_path_ffn(h), mask
+        h, mask = self.attn(self.ln_attn(x), mask, generator=generator)
+        x = skip * mask.to(x.dtype) + self.drop_path_attn(h, generator)
+        h = self.ffn(self.ln_ffn(x), generator) * mask.to(x.dtype)
+        return x + self.drop_path_ffn(h, generator), mask
 
 
 class TransformerDecoder(nn.Module):
@@ -311,31 +361,34 @@ class TransformerDecoder(nn.Module):
     the query as (scale, shift)."""
 
     def __init__(self, embd_dim, kv_dim, n_heads=4, expansion=4,
-                 xattn_mode="adaln"):
+                 xattn_mode="adaln", attn_pdrop=0.0, proj_pdrop=0.0,
+                 path_pdrop=0.0):
         super().__init__()
         assert xattn_mode in ("affine", "adaln")
         self.xattn_mode = xattn_mode
         self.xattn = ConvXAttNLayer(embd_dim, kv_dim, embd_dim * 2, stride=1,
-                                    n_heads=n_heads)
+                                    n_heads=n_heads, attn_pdrop=attn_pdrop,
+                                    proj_pdrop=proj_pdrop)
         self.ln_xattn_q = LayerNorm(embd_dim)
         self.ln_xattn_kv = LayerNorm(kv_dim)
         if xattn_mode == "adaln":
             self.adaln = LayerNorm(embd_dim, affine=False)
-        self.ffn = FFN(embd_dim, expansion)
+        self.ffn = FFN(embd_dim, expansion, proj_pdrop)
         self.ln_ffn = LayerNorm(embd_dim)
-        self.drop_path_ffn = LayerScale(embd_dim)
+        self.drop_path_ffn = LayerScale(embd_dim, path_pdrop)
 
-    def forward(self, q, q_mask, kv, kv_mask):
+    def forward(self, q, q_mask, kv, kv_mask, generator=None):
         q = q * q_mask.to(q.dtype)
         h, q_mask = self.xattn(self.ln_xattn_q(q), q_mask,
-                               self.ln_xattn_kv(kv), kv_mask)
+                               self.ln_xattn_kv(kv), kv_mask,
+                               generator=generator)
         q = q * q_mask.to(q.dtype)
         if self.xattn_mode == "adaln":
             q = self.adaln(q)
         scale, shift = torch.chunk(h, 2, dim=1)
         q = q * scale + shift
-        h = self.ffn(self.ln_ffn(q)) * q_mask.to(q.dtype)
-        return q + self.drop_path_ffn(h), q_mask
+        h = self.ffn(self.ln_ffn(q), generator) * q_mask.to(q.dtype)
+        return q + self.drop_path_ffn(h, generator), q_mask
 
 
 def reset_parameters(module, generator):

@@ -12,6 +12,16 @@ Routing rule shared by every kernel wrapper (:func:`use_kernel`): a tensor on
 the CPU takes the op's plain PyTorch version; a CUDA tensor launches the
 kernel or raises. The one exception is :func:`plain_versions`, a test hook
 that lets a caller hold the kernels against their plain versions on the card.
+
+Autograd rule shared by the kernel ops: when grad mode is on and an input
+requires grad (:func:`recording`), the op runs as a
+``torch.autograd.Function`` whose forward is the op's own (the kernel on the
+card) and whose backward recomputes the forward through the plain version and
+differentiates that (:func:`recompute_vjp`), as the JAX package's
+``custom_vjp`` rules recompute through the XLA compositions. This is that
+VJP's counterpart, not a fallback: on the card the forward is always the
+kernel, and the backward is PyTorch because the JAX backward is XLA. The
+kernels are forward-only; no backward launches one.
 """
 
 from __future__ import annotations
@@ -176,6 +186,30 @@ def use_kernel(x):
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     return not _ROUTE.plain
+
+
+def recording(*tensors):
+    """True when autograd must record a kernel op: grad mode is on and one of
+    ``tensors`` (None entries allowed) requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def recompute_vjp(plain, args, needs, grad_outputs):
+    """Gradients of ``plain(*args)`` for ``grad_outputs``: ``plain`` runs again
+    under autograd on detached copies of the arguments whose ``needs`` flag
+    is set and is differentiated by ``torch.autograd.grad``. Returns one
+    entry per argument, None where ``needs`` is False (masks, absent
+    parameters, options)."""
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_() if need else a
+                  for a, need in zip(args, needs)]
+        outs = plain(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        wrt = [leaf for leaf, need in zip(leaves, needs) if need]
+        grads = iter(torch.autograd.grad(outs, wrt, grad_outputs,
+                                         allow_unused=True))
+    return tuple(next(grads) if need else None for need in needs)
 
 
 def require(cond, name, what):

@@ -4,7 +4,9 @@ q/k/v trio (port of decafnet_tpu/ops/fused_conv.py).
 Each op has a plain PyTorch version (``*_torch``) and a hand-written CUDA
 kernel (csrc/conv3_ln_act.cu, csrc/qkv_depthwise_ln.cu). The public op
 takes the plain version for a tensor on the CPU and launches the kernel for
-a CUDA tensor; ``.launches`` on the op counts kernel launches.
+a CUDA tensor; ``.launches`` on the op counts kernel launches. Under
+autograd each op's backward recomputes through its plain version (the rule
+in ops/cuda.py).
 """
 
 from __future__ import annotations
@@ -82,7 +84,39 @@ def conv3_ln_act(x, mask, w, bias=None, ln_w=None, ln_b=None, act="relu",
     On CUDA this launches csrc/conv3_ln_act.cu, the counterpart of the TPU
     kernel decafnet_tpu/ops/fused_conv.py:_conv3_ln_act_pallas_impl: the
     products run on the tensor cores in three TF32 passes (f32 accuracy),
-    on weight operands built once per weight (:func:`conv3_weight_operands`)."""
+    on weight operands built once per weight (:func:`conv3_weight_operands`).
+
+    Under autograd (:func:`cuda.recording`) the same forward runs inside
+    :class:`_Conv3LnAct`, whose backward recomputes the forward through
+    :func:`conv3_ln_act_torch` and differentiates it: the counterpart of the
+    JAX ``custom_vjp``, which recomputes through ``conv3_ln_act_xla``
+    (decafnet_tpu/ops/fused_conv.py:209-234). The mask gets no gradient,
+    nor does an absent bias or LN affine."""
+    if cuda.recording(x, w, bias, ln_w, ln_b):
+        return _Conv3LnAct.apply(x, mask, w, bias, ln_w, ln_b, act, eps)
+    return _conv3_ln_act(x, mask, w, bias, ln_w, ln_b, act, eps)
+
+
+class _Conv3LnAct(torch.autograd.Function):
+    """:func:`conv3_ln_act` with its backward by recompute."""
+
+    @staticmethod
+    def forward(ctx, x, mask, w, bias, ln_w, ln_b, act, eps):
+        ctx.save_for_backward(x, mask, w, bias, ln_w, ln_b)
+        ctx.options = (act, eps)
+        return _conv3_ln_act(x, mask, w, bias, ln_w, ln_b, act, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        act, eps = ctx.options
+        return cuda.recompute_vjp(
+            lambda *a: conv3_ln_act_torch(*a, act=act, eps=eps),
+            ctx.saved_tensors, ctx.needs_input_grad[:6], (grad,)) + (None, None)
+
+
+def _conv3_ln_act(x, mask, w, bias, ln_w, ln_b, act, eps):
+    """The forward: the plain version for CPU tensors, the kernel for CUDA
+    tensors."""
     if not cuda.use_kernel(x):
         return conv3_ln_act_torch(x, mask, w, bias, ln_w, ln_b, act=act, eps=eps)
     name = "conv3_ln_act"
@@ -147,7 +181,42 @@ def qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps=1e-5):
     outputs (see :func:`qkv_depthwise_ln_torch` for the arguments).
 
     On CUDA this launches csrc/qkv_depthwise_ln.cu, the counterpart of the
-    TPU kernel decafnet_tpu/ops/fused_conv.py:_qkv_depthwise_ln_pallas_impl."""
+    TPU kernel decafnet_tpu/ops/fused_conv.py:_qkv_depthwise_ln_pallas_impl.
+    Under autograd the same forward runs inside :class:`_QkvDepthwiseLn`,
+    whose backward recomputes through :func:`qkv_depthwise_ln_torch`, as the
+    JAX ``custom_vjp`` recomputes through ``qkv_depthwise_ln_xla``
+    (decafnet_tpu/ops/fused_conv.py:396-407)."""
+    params = (*ws, *ln_ws, *ln_bs)
+    if cuda.recording(x, *params):
+        return _QkvDepthwiseLn.apply(x, mask, eps, *params)
+    return _qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps)
+
+
+class _QkvDepthwiseLn(torch.autograd.Function):
+    """:func:`qkv_depthwise_ln` with its backward by recompute; the nine
+    parameters come flat (``*ws, *ln_ws, *ln_bs``) so autograd tracks each."""
+
+    @staticmethod
+    def forward(ctx, x, mask, eps, *params):
+        ctx.save_for_backward(x, mask, *params)
+        ctx.eps = eps
+        return _qkv_depthwise_ln(x, mask, params[0:3], params[3:6],
+                                 params[6:9], eps)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, mask, *params = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        gx, *gp = cuda.recompute_vjp(
+            lambda x_, *p: qkv_depthwise_ln_torch(
+                x_, mask, p[0:3], p[3:6], p[6:9], eps=ctx.eps),
+            (x, *params), (needs[0], *needs[3:]), grads)
+        return (gx, None, None, *gp)
+
+
+def _qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps):
+    """The forward: the plain version for CPU tensors, the kernel for CUDA
+    tensors."""
     if not cuda.use_kernel(x):
         return qkv_depthwise_ln_torch(x, mask, ws, ln_ws, ln_bs, eps=eps)
     return launch_qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps,

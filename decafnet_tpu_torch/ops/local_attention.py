@@ -48,9 +48,10 @@ def band_attention_torch(q, k, v, kv_mask, window_size):
     denom = torch.sum(p, dim=-1, keepdim=True)
     p = p / torch.clamp_min(denom, torch.finfo(p.dtype).tiny)
 
-    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    acc = torch.promote_types(q.dtype, torch.float32)   # f32, or f64 in f64
+    out = torch.zeros(q.shape, dtype=acc, device=q.device)
     for i, r in enumerate(range(-halo, halo + 1)):
-        out = out + p[..., i:i + 1] * _shift_time(v, r).float()
+        out = out + p[..., i:i + 1] * _shift_time(v, r).to(acc)
     return (out * mask_f).to(q.dtype)
 
 
@@ -79,7 +80,40 @@ def band_attention(q, k, v, kv_mask, window_size):
     kernel decafnet_tpu/ops/local_attention.py:_band_attention_pallas_impl.
     q, k and v may be any strided (B, H, T, D) views that share their
     strides (the head view of a (B, C, T) projection is read in place); the
-    result is a (B, H, T, D) view of a (B, H, D, T) contiguous buffer."""
+    result is a (B, H, T, D) view of a (B, H, D, T) contiguous buffer.
+
+    Under autograd (:func:`cuda.recording`) the same forward runs inside
+    :class:`_BandAttention`, which saves q, k, v (not the result) and whose
+    backward recomputes through :func:`band_attention_torch` and
+    differentiates it: the counterpart of the JAX ``custom_vjp``, which
+    recomputes through ``band_attention_xla``
+    (decafnet_tpu/ops/local_attention.py:382-394). The mask gets no
+    gradient."""
+    if cuda.recording(q, k, v):
+        return _BandAttention.apply(q, k, v, kv_mask, window_size)
+    return _band_attention(q, k, v, kv_mask, window_size)
+
+
+class _BandAttention(torch.autograd.Function):
+    """:func:`band_attention` with its backward by recompute."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, window_size):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        ctx.window_size = window_size
+        return _band_attention(q, k, v, kv_mask, window_size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, kv_mask = ctx.saved_tensors
+        return cuda.recompute_vjp(
+            lambda *qkv: band_attention_torch(*qkv, kv_mask, ctx.window_size),
+            (q, k, v), ctx.needs_input_grad[:3], (grad,)) + (None, None)
+
+
+def _band_attention(q, k, v, kv_mask, window_size):
+    """The forward: the plain version for CPU tensors, the kernel for CUDA
+    tensors."""
     if not cuda.use_kernel(q):
         return band_attention_torch(q, k, v, kv_mask, window_size)
     B, H, T, _ = q.shape

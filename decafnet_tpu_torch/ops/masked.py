@@ -29,9 +29,10 @@ def max_pool1d(x, kernel_size=3, stride=2, padding=None):
 
 def masked_max_pool1d(x, mask, kernel_size=3, stride=2):
     """Masked strided max pooling: invalid positions take the per-row
-    minimum before pooling and the pooled mask gates the output.
-    Returns (pooled_x, pooled_mask_bool)."""
-    x_min = torch.amin(x, dim=-1, keepdim=True)
+    minimum before pooling and the pooled mask gates the output; the
+    minimum is a constant to autograd, as the JAX ``stop_gradient`` makes
+    it. Returns (pooled_x, pooled_mask_bool)."""
+    x_min = torch.amin(x.detach(), dim=-1, keepdim=True)
     mask_f = mask.to(x.dtype)
     x = x * mask_f + (1.0 - mask_f) * x_min
     x = max_pool1d(x, kernel_size, stride)
@@ -93,15 +94,16 @@ def sinusoid_encoding(seq_len, n_freqs, dtype=np.float32):
 
 def channel_layer_norm(x, weight=None, bias=None, eps=1e-5):
     """LayerNorm over the channel axis of (..., c, t): centred, divided by
-    sqrt(biased variance + eps), statistics in f32. ``weight``/``bias``
-    are (c, 1) or (c,)."""
+    sqrt(biased variance + eps), statistics in f32 (in f64 for f64 input).
+    ``weight``/``bias`` are (c, 1) or (c,)."""
     in_dtype = x.dtype
-    x = x.float()
+    stat = torch.promote_types(in_dtype, torch.float32)
+    x = x.to(stat)
     x = x - torch.mean(x, dim=-2, keepdim=True)
     sigma = torch.mean(torch.square(x), dim=-2, keepdim=True)
     x = x * torch.rsqrt(sigma + eps)
     if weight is not None:
         w = weight.reshape(weight.shape[0], 1)
         b = bias.reshape(bias.shape[0], 1)
-        x = x * w.float() + b.float()
+        x = x * w.to(stat) + b.to(stat)
     return x.to(in_dtype)

@@ -157,6 +157,112 @@ def test_conv3_weight_operands_follow_updates_on_card(card):
     assert float((second - first).abs().max()) > 1e-2
 
 
+def _grad_leaves(name, args):
+    """Detached copies of ``args`` with every float tensor requiring grad;
+    band attention's q/k/v stay head views of their own (B, C, T) bases."""
+    def leaf(t):
+        if not torch.is_tensor(t) or not t.is_floating_point():
+            return t
+        if t.dim() == 4:     # a (B, H, T, D) head view
+            B, H, T, D = t.shape
+            base = t.transpose(2, 3).reshape(B, H * D, T).detach().clone()
+            return _HeadView(base.requires_grad_(), H)
+        return t.detach().clone().requires_grad_()
+    out = [[leaf(x) for x in a] if isinstance(a, list) else leaf(a)
+           for a in args]
+    return out
+
+
+class _HeadView:
+    def __init__(self, base, H):
+        self.base, self.H = base, H
+
+    def view(self):
+        B, C, T = self.base.shape
+        return self.base.reshape(B, self.H, C // self.H, T).transpose(2, 3)
+
+
+def _call_args(args):
+    return [[x.view() if isinstance(x, _HeadView) else x for x in a]
+            if isinstance(a, list) else a.view() if isinstance(a, _HeadView)
+            else a for a in args]
+
+
+def _grads(args):
+    flat = []
+    for a in args:
+        for x in (a if isinstance(a, list) else [a]):
+            x = x.base if isinstance(x, _HeadView) else x
+            if torch.is_tensor(x) and x.requires_grad:
+                flat.append(x.grad)
+    return flat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [2304, 301, 9])
+@pytest.mark.parametrize("name", KERNELS)
+def test_kernel_backward_matches_plain_autograd(card, name, T):
+    """Under autograd the forward launches the kernel once and the backward
+    launches nothing: it recomputes through the plain version, so its
+    gradients are those of plain autograd for the same output gradient."""
+    C = 160 if name == "conv3_ln_act" else 128
+    args = _case(name, T, card, C=C, B=8)
+    op, plain = getattr(ops, name), getattr(ops, name + "_torch")
+    runs = []
+    for fn in (op, plain):
+        leaves = _grad_leaves(name, args)
+        before = op.launches
+        outs = _flat(fn(*_call_args(leaves)))
+        launched = op.launches - before
+        g = torch.Generator(device=card).manual_seed(1)
+        torch.autograd.backward(outs, [torch.randn(o.shape, generator=g,
+                                                   device=card) for o in outs])
+        runs.append((launched, op.launches - before, _grads(leaves)))
+    (k_fwd, k_all, k_grads), (p_fwd, p_all, p_grads) = runs
+    assert (k_fwd, k_all, p_fwd, p_all) == (1, 1, 0, 0)
+    assert len(k_grads) == len(p_grads) > 0
+    for a, b in zip(k_grads, p_grads):
+        assert torch.isfinite(a).all()
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-5 * max(scale, 1.0)
+
+
+@pytest.mark.cuda
+def test_conv3_weight_operands_refresh_after_optimizer_step(card):
+    """The operand cache is keyed on the weight's version: the port's
+    optimizer step and a load_state_dict both update the weight in place,
+    and the next launch must build fresh operands."""
+    from decafnet_tpu_torch.train import Optimizer
+
+    class Layer(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.weight = torch.nn.Parameter(torch.randn(128, 128, 3) / 20)
+            self.bias = torch.nn.Parameter(torch.zeros(128))
+
+    layer = Layer().to(card)
+    x = torch.randn(4, 128, 300, device=card)
+    mask = _mask([300, 200, 100, 0], 300, card)
+    opt = Optimizer(layer, {"name": "adamw", "lr": 0.1, "weight_decay": 0.05,
+                            "clip_grad_norm": None}, lambda t: 0.1)
+
+    def check():
+        got = ops.conv3_ln_act(x, mask, layer.weight, layer.bias)
+        with cuda.plain_versions():
+            want = ops.conv3_ln_act(x, mask, layer.weight, layer.bias)
+        assert float((got - want).abs().max()) <= TOL["conv3_ln_act"]
+        return got
+
+    first = check()
+    check().sum().backward()
+    opt.step()
+    assert float((check() - first).abs().max()) > 1e-2
+    saved = {k: v.clone() for k, v in layer.state_dict().items()}
+    opt.step()
+    layer.load_state_dict(saved)
+    check()
+
+
 @pytest.mark.cuda
 def test_band_attention_contiguous_heads(card):
     args = _case("band_attention", 300, card, C=128, contiguous_heads=True)

@@ -149,7 +149,8 @@ def test_port_imports_no_jax():
         "('jax', 'jaxlib', 'flax', 'decafnet_tpu')]\n"
         "assert not bad, bad\n"
         "walked = [m for m in ('data.dataset', 'data.loader', 'eval.__main__', "
-        "'train.losses', 'utils.analysis', 'serve') "
+        "'train.losses', 'train.optim', 'train.trainer', 'train.__main__', "
+        "'utils.analysis', 'utils.tracking', 'serve') "
         "if 'decafnet_tpu_torch.' + m not in sys.modules]\n"
         "assert not walked, walked\n"
         "print('ok', len([k for k in sys.modules "
