@@ -54,10 +54,27 @@ Phases, each printing one JSON line:
            the same dropout masks, and two microbatches of 8 against one of 16
            with dropout off; times steps with kernels and plain versions and
            profiles one (device busy share, top kernels), and reports the
-           peak memory.
+           peak memory;
+  encode   the on-device front end at full width: 1024 clips of 4 raw uint8
+           frames (270 x 360, from the seed) copied to the card and put
+           through the EgoVLP eval transform there (short side 256, center
+           crop, 224^2 and 112^2, normalize); the factorized sidekick
+           (dim 192, depth 2, 112^2) over every clip; salient-clip selection
+           (sn 64, ratio 0.3: k = 256); the EgoVLP ViT-B SpaceTimeViT (224^2,
+           patch 16, dim 768, depth 12, 4 frames, out 256) over the k clips
+           only, scattered and gated; then the serve phase's GroundingService
+           grounds 8 queries on the two streams. Checks the card's features
+           against the CPU's on 2 clips, delegated encoding against
+           encode-all-then-gate at T = 128, the detections, the launches per
+           decode call and the ground step against the plain versions; times
+           the H2D copy, the transform, each stage, the encode+ground wall
+           (video-seconds per second) and the reference's offline structure
+           (the expert over all clips), and reports the peak memory. Then
+           the encode CLI over two synthetic frame files (~100 clips at
+           224^2) and the port's Evaluator over the features it wrote.
 Then one {"kernels": [...]} line (launches summed over the serve, eval,
-http and train paths, with the breakdown), the nvidia-smi name/power-limit
-line, and last {"ok": true, "device": {...}}. Any failed check raises: the
+http, train and encode paths, with the breakdown), the nvidia-smi
+name/power-limit line, and last {"ok": true, "device": {...}}. Any failed check raises: the
 script exits non-zero and prints no result. Without CUDA it exits 2.
 """
 
@@ -1223,6 +1240,259 @@ def run_train(root):
     return launches
 
 
+# ------------------------------------------------------------------- encode
+
+# the encode phase: T clips of raw uint8 frames made from the seed, the
+# factorized sidekick at scripts/encode_ground_bench.py's width (at 112^2)
+# over every clip, the salient bins picked as bench.py's encode leg picks
+# them (sn 64, ratio 0.3: k = 256 at T = 1024), and the EgoVLP ViT-B
+# (Frozen-in-Time SpaceTimeTransformer + vid_proj) over those k clips only
+ENC_T, ENC_FRAMES, RAW_HW, ENC_QUERIES = 1024, 4, (270, 360), 8
+ENC_SN, ENC_RATIO = 64, 0.3
+SIDEKICK = dict(patch_size=16, dim=192, depth=2, heads=4, out_dim=256,
+                frames=ENC_FRAMES, img_size=112)
+EXPERT = dict(img_size=224, patch_size=16, dim=768, depth=12, heads=12,
+              frames=ENC_FRAMES, out_dim=256)
+# transforms on the card, clips at a time (f32 copies of the raw frames)
+TRANSFORM_CLIPS = 128
+# card vs CPU features of the same clips and weights (TF32 would be ~1e-3
+# off), and delegated encoding vs encoding all clips then gating (the bound
+# of tests/test_encode.py), at T = 128 with bins of 16 clips so that a
+# strict subset is selected (sn 64 keeps every bin of a 2-bin video)
+FEAT_RTOL, FEAT_ATOL, FEAT_CLIPS = 1e-4, 1e-5, 2
+DELEGATE_TOL, DELEGATE_T, DELEGATE_SN = 2e-5, 128, 16
+CLIP_STRIDE_S = 16 / 30.0      # video-seconds per clip on the NLQ grid
+
+
+def walls_ms(fn, n):
+    """Host-clock wall times (ms) of ``n`` calls of ``fn``, each between
+    device syncs; the last call's result."""
+    out, ms = None, []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms, out
+
+
+def run_encode_cli(dev, root, smi):
+    """``python -m decafnet_tpu_torch.encode``'s entry point on the card over
+    two synthetic frame files (~100 clips of 4 frames at 224^2 each): the
+    EgoVLP ViT-B expert and the sidekick, seeded synthetic weights. Then the
+    port's Evaluator at the configs/ego4d_nlq.yaml width reads the written
+    features as its dataset. Returns the Evaluator's kernel launches."""
+    from decafnet_tpu_torch import ops
+    from decafnet_tpu_torch.core import load_config, update_eval_data, update_opt
+    from decafnet_tpu_torch.data import apply_synthetic_cfg, make_synthetic_dataset
+    from decafnet_tpu_torch.encode.__main__ import main as encode_main
+    from decafnet_tpu_torch.eval import Evaluator
+    from decafnet_tpu_torch.models import random_params
+
+    cfg = load_config(os.path.join(REPO, "configs", "ego4d_nlq.yaml"))
+    paths = make_synthetic_dataset(
+        os.path.join(root, "encode_data"), num_videos=2, num_queries=2,
+        clip_range=(90, 110), vid_dim=EXPERT["out_dim"],
+        shallow_dim=SIDEKICK["out_dim"], text_dim=cfg.model.text_net.in_dim,
+        splits=("val",), seed=SEED)
+    with open(paths["anno_file"]) as f:
+        clips = {v: i["num_clips"] for v, i in json.load(f)["val"].items()}
+    frames_dir = os.path.join(root, "encode_frames")
+    os.makedirs(frames_dir)
+    rng = np.random.default_rng(SEED)
+    for vid, n in clips.items():
+        np.save(os.path.join(frames_dir, vid + ".npy"), rng.integers(
+            0, 256, (n, ENC_FRAMES, 224, 224, 3), dtype=np.uint8))
+    out_e, out_s = (os.path.join(root, "encode_out", s) for s in ("expert", "sidekick"))
+    sk_opt = {k: v for k, v in SIDEKICK.items() if k not in ("img_size", "frames")}
+    t0 = time.perf_counter()
+    assert encode_main(["--frames_dir", frames_dir, "--out_expert_dir", out_e,
+                        "--out_sidekick_dir", out_s, "--expert", "spacetime",
+                        "--sidekick", "factorized", "--sidekick_opt",
+                        json.dumps(sk_opt), "--frames", str(ENC_FRAMES),
+                        "--sidekick_res", str(SIDEKICK["img_size"]),
+                        "--seed", str(SEED)]) == 0
+    cli_s = time.perf_counter() - t0
+    for vid, n in clips.items():
+        for d in (out_e, out_s):
+            feat = np.load(os.path.join(d, vid + ".npy"))
+            assert feat.shape == (n, 256) and feat.dtype == np.float32, feat.shape
+            assert np.isfinite(feat).all() and feat.std() > 0
+
+    apply_synthetic_cfg(cfg, paths)
+    for tree in (cfg.data, cfg.eval.data):
+        tree.vid_feat_dir, tree.shallow_vid_feat_dir = out_e, out_s
+    cfg.train.num_workers = 0
+    update_eval_data(update_opt(cfg))
+    ev = Evaluator(cfg, params=random_params(cfg, SEED))
+    assert ev.device.type == dev.type
+    calls0 = ev.decoder.decode_calls
+    ops.reset_launch_counts()
+    metrics = ev.run()
+    launches = ops.launch_counts()
+    calls = ev.decoder.decode_calls - calls0
+    want = {n: c * calls for n, c in PER_DECODE.items()}
+    emit({"phase": "encode", "cli": "python -m decafnet_tpu_torch.encode, then "
+          "the port's Evaluator over its features", "clips": clips,
+          "frames": [ENC_FRAMES, 224, 224], "cli_s": cli_s,
+          "eval_queries": ev.meter.text_cnt, "eval_video_ms": ev.video_ms,
+          "recall_finite": bool(np.isfinite(metrics).all()), "decode_calls": calls,
+          "launches": launches, "expected": want, "card": smi})
+    assert ev.meter.text_cnt == 2 * len(clips) and np.isfinite(metrics).all()
+    assert launches == want and calls == len(clips), (launches, want)
+    return launches
+
+
+def run_encode(dev, service, smi, root):
+    """The on-device front end at full width: raw frames through the eval
+    transform on the card, the sidekick over every clip, salient-clip
+    selection, the EgoVLP ViT-B over the k selected clips only, then
+    GroundingService (the serve phase's) over the two streams for 8
+    queries. Checks the card's features against the CPU's, delegated
+    against encode-all-then-gate, the detections and the kernel launches;
+    times the stages, the encode+ground wall and the reference's offline
+    structure (the expert over every clip). Returns the kernel launches of
+    the counted encode+ground run and of the CLI run."""
+    import copy
+
+    from decafnet_tpu_torch import ops
+    from decafnet_tpu_torch.ops import cuda
+    from decafnet_tpu_torch.encode import (ClipEncoder, ClipEncoderRunner, SpaceTimeViT,
+                                           encode_delegate_ground, eval_transform,
+                                           expert_budget, gather_clips,
+                                           select_salient_clips)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seed = torch.Generator().manual_seed
+    expert_cpu = SpaceTimeViT(**EXPERT).reset_parameters(seed(SEED)).eval()
+    sidekick_cpu = ClipEncoder(**SIDEKICK).reset_parameters(seed(SEED + 1)).eval()
+    run_e = ClipEncoderRunner(copy.deepcopy(expert_cpu).to(dev))
+    run_s = ClipEncoderRunner(copy.deepcopy(sidekick_cpu).to(dev))
+    k = expert_budget(ENC_T, ENC_SN, ENC_RATIO)
+    emit({"phase": "encode", "T": ENC_T, "frames_per_clip": ENC_FRAMES,
+          "raw_hw": list(RAW_HW), "sn": ENC_SN, "ratio": ENC_RATIO, "k": k,
+          "expert": {"model": "SpaceTimeViT (EgoVLP layout)", **EXPERT,
+                     "params": sum(p.numel() for p in expert_cpu.parameters())},
+          "sidekick": {"model": "ClipEncoder", **SIDEKICK,
+                       "params": sum(p.numel() for p in sidekick_cpu.parameters())},
+          "max_clips_per_forward": run_e.max_clips,
+          "weights": f"random, seeds {SEED} / {SEED + 1}",
+          "setup_s": time.perf_counter() - t0})
+
+    rng = np.random.default_rng(SEED)
+    raw = rng.integers(0, 256, (ENC_T, ENC_FRAMES, *RAW_HW, 3), dtype=np.uint8)
+    h2d_ms, raw_dev = walls_ms(lambda: torch.from_numpy(raw).to(dev), 1)
+
+    def transform(res):
+        return torch.cat([eval_transform(raw_dev[i:i + TRANSFORM_CLIPS].float() / 255.0,
+                                         center=256, input_res=res)
+                          for i in range(0, ENC_T, TRANSFORM_CLIPS)])
+
+    # twice: a process's first call may also pay for allocations and loading
+    transform_ms, (frames_e, frames_s) = walls_ms(
+        lambda: (transform(EXPERT["img_size"]), transform(SIDEKICK["img_size"])), 2)
+    del raw_dev
+    text_cls = torch.from_numpy(rng.standard_normal((ENC_QUERIES, 256), np.float32))
+    request = dict(texts=[rng.standard_normal((service.decoder.cfg.model.text_net.in_dim,
+                                               int(n)), np.float32)
+                          for n in rng.integers(5, 21, ENC_QUERIES)],
+                   text_cls=text_cls.numpy(), fps=30.0, clip_size=32, clip_stride=16)
+    emit({"phase": "encode", "raw_frames_gb": raw.nbytes / 1e9,
+          "h2d_pageable_ms": h2d_ms[0], "transform_ms_first_second": transform_ms,
+          "frames": {"expert": list(frames_e.shape), "sidekick": list(frames_s.shape)},
+          "card": smi})
+
+    # the card's features against the CPU's, same weights and clips
+    with torch.no_grad():
+        errs = {}
+        for name, model_cpu, runner, frames in (("expert", expert_cpu, run_e, frames_e),
+                                                ("sidekick", sidekick_cpu, run_s, frames_s)):
+            want = model_cpu(frames[:FEAT_CLIPS].cpu())
+            got = runner.encode(frames[:FEAT_CLIPS]).T.cpu()
+            errs[name] = {"max_abs": float((got - want).abs().max()),
+                          "max_over_tol": float(((got - want).abs() / (
+                              FEAT_ATOL + FEAT_RTOL * want.abs())).max())}
+    emit({"phase": "encode", "check": "card vs CPU features", "clips": FEAT_CLIPS,
+          "errors": errs, "tol": {"rtol": FEAT_RTOL, "atol": FEAT_ATOL}})
+    assert all(e["max_over_tol"] <= 1.0 for e in errs.values()), errs
+
+    # delegated encoding == encoding every clip, then gating
+    sub_e, sub_s = frames_e[:DELEGATE_T], frames_s[:DELEGATE_T]
+    dense, _, w_sub = encode_delegate_ground(run_e, run_s, sub_e, sub_s, text_cls[0],
+                                             DELEGATE_SN, ENC_RATIO)
+    gated = run_e.encode(sub_e) * w_sub[None]
+    over = float(((dense - gated).abs() / (DELEGATE_TOL + DELEGATE_TOL * gated.abs())).max())
+    emit({"phase": "encode", "check": "delegated vs encode-all-then-gate",
+          "T": DELEGATE_T, "sn": DELEGATE_SN, "selected": int(w_sub.sum()),
+          "max_abs": float((dense - gated).abs().max()), "max_over_tol": over,
+          "tol": {"rtol": DELEGATE_TOL, "atol": DELEGATE_TOL}})
+    assert 0 < int(w_sub.sum()) < DELEGATE_T and over <= 1.0
+
+    def encode_and_ground():
+        expert, sidekick, weight = encode_delegate_ground(
+            run_e, run_s, frames_e, frames_s, text_cls[0], ENC_SN, ENC_RATIO)
+        streams = dict(vid=expert.cpu().numpy(), shallow_vid=sidekick.cpu().numpy(),
+                       **request)
+        return service.ground(**streams), streams, weight
+
+    def offline():
+        expert, sidekick = run_e.encode(frames_e), run_s.encode(frames_s)
+        return service.ground(vid=expert.cpu().numpy(),
+                              shallow_vid=sidekick.cpu().numpy(), **request)
+
+    encode_and_ground()      # warm-up outside the count (handles, allocator)
+    # the main path: counts to 0 just before, read just after
+    dec = service.decoder
+    calls0 = dec.decode_calls
+    ops.reset_launch_counts()
+    walls, (answers, streams, weight) = walls_ms(encode_and_ground, 3)
+    launches = ops.launch_counts()
+    calls = dec.decode_calls - calls0
+    want = {n: c * calls for n, c in PER_DECODE.items()}
+    emit({"phase": "encode", "decode_calls": calls, "launches": launches,
+          "expected": want, "selected_clips": int(weight.sum())})
+    assert launches == want and calls > 0, (launches, want)
+    assert 0 < int(weight.sum()) <= k
+    check_detections(answers, dict(request, vid=np.zeros((256, ENC_T))),
+                     service.decoder.cfg.nms.max_num_segs)
+
+    # the stages, each between syncs
+    sk_ms, sidekick = walls_ms(lambda: run_s.encode(frames_s), 3)
+    sel_ms, (idx, _) = walls_ms(lambda: select_salient_clips(
+        sidekick, text_cls[0].to(dev), ENC_SN, ENC_RATIO, k), 3)
+    gather_ms, clips = walls_ms(lambda: gather_clips(frames_e, idx), 3)
+    ex_ms, _ = walls_ms(lambda: run_e.encode(clips), 3)
+    ground_ms, grounded = walls_ms(lambda: service.ground(**streams), 3)
+    # the ground step's kernels against their plain versions at this path's shapes
+    with cuda.plain_versions():
+        plain = service.ground(**streams)
+    seg_p, sc_p = same_detections([grounded], [plain])
+    emit({"phase": "encode", "check": "ground, kernels vs plain versions",
+          "seg_s": seg_p, "score": sc_p, "tol": {"seg_s": SEG_TOL_S, "score": SCORE_TOL}})
+    assert seg_p <= SEG_TOL_S and sc_p <= SCORE_TOL, (seg_p, sc_p)
+    offline_ms, offline_answers = walls_ms(offline, 2)
+    check_detections(offline_answers, dict(request, vid=np.zeros((256, ENC_T))),
+                     service.decoder.cfg.nms.max_num_segs)
+    med = float(np.median(walls))
+    video_s = ENC_T * CLIP_STRIDE_S
+    emit({"phase": "encode", "encode_ground_wall_ms": walls,
+          "video_seconds_per_s": video_s / (med / 1e3),
+          "video_seconds": video_s,
+          "stages_ms": {"sidekick_all_clips": sk_ms, "select": sel_ms,
+                        "gather_k_clips": gather_ms, "expert_k_clips": ex_ms,
+                        "ground_8_queries": ground_ms},
+          "ms_per_clip": {"sidekick": float(np.median(sk_ms)) / ENC_T,
+                          "expert": float(np.median(ex_ms)) / k},
+          "offline_expert_all_clips_wall_ms": offline_ms,
+          "offline_over_delegated": float(np.median(offline_ms)) / med,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "card": smi})
+    del frames_e, frames_s, clips
+    return launches, run_encode_cli(dev, root, smi)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1265,6 +1535,7 @@ def main():
         by_path["eval"], logdir = run_eval(root)
         by_path["http"] = run_http(logdir, service, requests)
         by_path["train"] = run_train(root)
+        by_path["encode"], by_path["encode_cli"] = run_encode(dev, service, smi, root)
     launches = {n: sum(p[n] for p in by_path.values()) for n in PER_DECODE}
 
     sources = {"conv3_ln_act": ("decafnet_tpu_torch/csrc/conv3_ln_act.cu",

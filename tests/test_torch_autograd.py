@@ -26,6 +26,11 @@ from decafnet_tpu_torch.ops import (band_attention, band_attention_torch,
                                     conv3_ln_act, conv3_ln_act_torch,
                                     qkv_depthwise_ln, qkv_depthwise_ln_torch)
 
+# one intra-op thread per test process: the suite runs several processes
+# side by side, and torch's default (one thread per core) in each of them
+# oversubscribes the CPU
+torch.set_num_threads(1)
+
 F64 = torch.float64
 
 

@@ -39,6 +39,11 @@ from decafnet_tpu_torch.train import annotate_points, losses
 from decafnet_tpu_torch.utils import analysis
 from decafnet_tpu_torch.utils import logging as tlogging
 
+# one intra-op thread per test process: the suite runs several processes
+# side by side, and torch's default (one thread per core) in each of them
+# oversubscribes the CPU
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml")))
 TASKS = ("grounder", "mad", "charades")

@@ -7,6 +7,7 @@ agree to 1e-3 s / 1e-4 score and the eval losses at rtol 1e-4 / atol 1e-5.
 Also the eval CLI (in process and as ``python -m``) on an experiment
 directory, the checkpoint errors, and the settings the port refuses."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -32,6 +33,11 @@ from decafnet_tpu_torch.eval import Evaluator, checkpoint_path
 from decafnet_tpu_torch.eval.__main__ import main as eval_main
 from decafnet_tpu_torch.models import save_pth
 from decafnet_tpu_torch.utils import EvalResults
+
+# one intra-op thread per test process: the suite runs several processes
+# side by side, and torch's default (one thread per core) in each of them
+# oversubscribes the CPU
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CV, CS, CT = 32, 32, 24
@@ -104,12 +110,13 @@ def setup(tmp_path_factory):
 
     jcfg, _ = _configs(paths, str(root / "init"), "device")
     V, T, L = 1, 64, 8
-    params = jax_make_model(jcfg).init(
+    # one compiled init: eager init compiles every primitive on its own
+    init = jax.jit(functools.partial(jax_make_model(jcfg).init, deterministic=True))
+    params = init(
         jax.random.PRNGKey(1), rng.randn(V, CV, T).astype(np.float32),
         rng.randn(V, CS, T).astype(np.float32), np.ones((V, T), bool),
         rng.randn(V, CT, L).astype(np.float32),
-        rng.randn(V, CS).astype(np.float32), np.ones((V, L), bool),
-        deterministic=True)["params"]
+        rng.randn(V, CS).astype(np.float32), np.ones((V, L), bool))["params"]
     return root, paths, jax.tree.map(np.asarray, params)
 
 

@@ -26,6 +26,11 @@ from decafnet_tpu_torch.models import save_pth
 from decafnet_tpu_torch.serve import (GroundingService, main, make_handler,
                                       service_from_logdir)
 
+# one intra-op thread per test process: the suite runs several processes
+# side by side, and torch's default (one thread per core) in each of them
+# oversubscribes the CPU
+torch.set_num_threads(1)
+
 CV, CS, CT = 32, 32, 24
 
 

@@ -27,6 +27,11 @@ from decafnet_tpu_torch.ops import cuda
 from decafnet_tpu_torch.ops import fused_conv as tfc
 from decafnet_tpu_torch.ops import local_attention as tla
 
+# one intra-op thread per test process: the suite runs several processes
+# side by side, and torch's default (one thread per core) in each of them
+# oversubscribes the CPU
+torch.set_num_threads(1)
+
 # the served lengths (T=2304 and its 6 halvings) and edge lengths
 SERVED_T = [2304 // 2 ** lvl for lvl in range(7)]
 EDGE_T = [1000, 301, 17, 9, 4, 3, 1]

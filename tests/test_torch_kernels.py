@@ -19,6 +19,11 @@ from chip_smoke import moved
 from decafnet_tpu_torch import ops
 from decafnet_tpu_torch.ops import cuda, fused_conv, local_attention
 
+# one intra-op thread per test process: the suite runs several processes
+# side by side, and torch's default (one thread per core) in each of them
+# oversubscribes the CPU
+torch.set_num_threads(1)
+
 KERNELS = ("conv3_ln_act", "qkv_depthwise_ln", "band_attention")
 # max |diff| kernel vs plain: conv3 sums 3*C_in f32 products in another order
 # than cuDNN before a LayerNorm; the trio and band attention sum few terms

@@ -22,6 +22,11 @@ from decafnet_tpu_torch.models import (load_params, make_model,
                                        params_from_state_dict, random_params,
                                        state_dict_from_params)
 
+# one intra-op thread per test process: the suite runs several processes
+# side by side, and torch's default (one thread per core) in each of them
+# oversubscribes the CPU
+torch.set_num_threads(1)
+
 SMALL = {
     "name": "iter", "sratio": 0.5, "sn": 8,
     "vid_net": {"in_dim": 24, "embd_dim": 16, "max_seq_len": 64,
@@ -66,8 +71,9 @@ def flax_params(jcfg, V=2, T=64, Q=1):
     cv, ct = jcfg.model.vid_net.in_dim, jcfg.model.text_net.in_dim
     vid, shallow, vm, text, tcls, tm = _inputs(V, Q, T, cv, ct)
     model = jax_make_model(jcfg)
-    params = model.init(jax.random.PRNGKey(0), vid, shallow, vm, text, tcls,
-                        tm, deterministic=True)["params"]
+    # one compiled init: eager init compiles every primitive on its own
+    init = jax.jit(functools.partial(model.init, deterministic=True))
+    params = init(jax.random.PRNGKey(0), vid, shallow, vm, text, tcls, tm)["params"]
     return model, jax.tree.map(np.asarray, params)
 
 
@@ -113,8 +119,8 @@ def test_forward_matches_flax(msf, scat, norm, Q):
     V, T = 3, 64
     args = _inputs(V, Q, T, jcfg.model.vid_net.in_dim,
                    jcfg.model.text_net.in_dim, seed=Q)
-    want = jmodel.apply({"params": params}, *args, deterministic=True,
-                        queries_per_video=Q)
+    want = jax.jit(functools.partial(jmodel.apply, deterministic=True,
+                                     queries_per_video=Q))({"params": params}, *args)
     with torch.inference_mode():
         got = tmodel(*map(torch.from_numpy, args), queries_per_video=Q)
     assert len(got) == len(want) == 4

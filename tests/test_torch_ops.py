@@ -24,6 +24,11 @@ from decafnet_tpu_torch.ops import local_attention as tla
 from decafnet_tpu_torch.ops import masked as tm
 from decafnet_tpu_torch.ops import nms as tnms
 
+# one intra-op thread per test process: the suite runs several processes
+# side by side, and torch's default (one thread per core) in each of them
+# oversubscribes the CPU
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

@@ -5,6 +5,7 @@ the PE interpolation plans), and a ground_many batch that stacks same-bucket
 videos. Detections must match: segments to 1e-3 s, scores to 1e-4. Also: the
 default device is the CUDA card, and the port imports nothing of JAX."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -24,6 +25,11 @@ from decafnet_tpu_torch.core import get_cfg_defaults, update_opt
 from decafnet_tpu_torch.models import make_model, params_from_state_dict
 from decafnet_tpu_torch.models import load_params
 from decafnet_tpu_torch.serve import GroundingService
+
+# one intra-op thread per test process: the suite runs several processes
+# side by side, and torch's default (one thread per core) in each of them
+# oversubscribes the CPU
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CV, CS, CT = 32, 32, 24
@@ -55,12 +61,13 @@ def services():
 
     V, T, L = 2, 64, 8
     rng = np.random.RandomState(0)
-    params = jax_make_model(jcfg).init(
+    # one compiled init: eager init compiles every primitive on its own
+    init = jax.jit(functools.partial(jax_make_model(jcfg).init, deterministic=True))
+    params = init(
         jax.random.PRNGKey(0), rng.randn(V, CV, T).astype(np.float32),
         rng.randn(V, CS, T).astype(np.float32), np.ones((V, T), bool),
         rng.randn(V, CT, L).astype(np.float32),
-        rng.randn(V, CS).astype(np.float32), np.ones((V, L), bool),
-        deterministic=True)["params"]
+        rng.randn(V, CS).astype(np.float32), np.ones((V, L), bool))["params"]
     params = jax.tree.map(np.asarray, params)
     return (JaxService(jcfg, params=params),
             GroundingService(tcfg, params=params, device="cpu"), tcfg, params)
@@ -150,7 +157,8 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "walked = [m for m in ('data.dataset', 'data.loader', 'eval.__main__', "
         "'train.losses', 'train.optim', 'train.trainer', 'train.__main__', "
-        "'utils.analysis', 'utils.tracking', 'serve') "
+        "'utils.analysis', 'utils.tracking', 'serve', 'encode.pipeline', "
+        "'encode.__main__') "
         "if 'decafnet_tpu_torch.' + m not in sys.modules]\n"
         "assert not walked, walked\n"
         "print('ok', len([k for k in sys.modules "
@@ -164,7 +172,7 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("first", ["utils", "utils.analysis", "eval.metrics",
-                                   "train"])
+                                   "train", "encode"])
 def test_port_module_imports_first_in_a_fresh_process(first):
     # no import cycle depends on which module of the port comes first
     out = subprocess.run([sys.executable, "-c",

@@ -20,6 +20,11 @@ from decafnet_tpu.ops import fused_conv as jfc
 from decafnet_tpu_torch.ops import fused_conv as tfc
 from decafnet_tpu_torch.ops.masked import channel_layer_norm
 
+# one intra-op thread per test process: the suite runs several processes
+# side by side, and torch's default (one thread per core) in each of them
+# oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 def _bits(a):
     return a.contiguous().view(torch.int32)

@@ -48,6 +48,11 @@ from decafnet_tpu_torch.train import (build_microbatch_loss, decay_mask,
                                       make_schedule)
 from decafnet_tpu_torch.train.trainer import train_points
 
+# one intra-op thread per test process: the suite runs several processes
+# side by side, and torch's default (one thread per core) in each of them
+# oversubscribes the CPU
+torch.set_num_threads(1)
+
 CV, CT = 24, 20
 MODEL = {"name": "iter", "sratio": 0.5, "sn": 8, "tcn_dropout": 0.0,
          "vid_net": {"in_dim": CV, "embd_dim": 16, "max_seq_len": 64,
@@ -150,9 +155,11 @@ def _flax_params(msf, scat, norm):
     mb = _inputs(2, 2, 64)
     rep = {k: np.repeat(mb[k], 2, 0) for k in ("vid", "shallow_vid", "vid_masks")}
     model = jax_make_model(jc)
-    params = model.init(jax.random.PRNGKey(0), rep["vid"], rep["shallow_vid"],
-                        rep["vid_masks"], mb["text"], mb["text_cls"],
-                        mb["text_masks"], deterministic=True)["params"]
+    # one compiled init: eager init compiles every primitive on its own
+    init = jax.jit(functools.partial(model.init, deterministic=True))
+    params = init(jax.random.PRNGKey(0), rep["vid"], rep["shallow_vid"],
+                  rep["vid_masks"], mb["text"], mb["text_cls"],
+                  mb["text_masks"])["params"]
     return jax.tree.map(np.asarray, params)
 
 

@@ -27,6 +27,11 @@ from decafnet_tpu_torch.train import Optimizer, Trainer, make_schedule
 from test_torch_train import (CT, CV, _flax_params, assert_grads_close,
                               cfg_pair, flat_jax, flat_port, jax_points)
 
+# one intra-op thread per test process: the suite runs several processes
+# side by side, and torch's default (one thread per core) in each of them
+# oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 OPTIMIZERS = {
     "adamw + clip": {"name": "adamw", "lr": 1e-3, "weight_decay": 0.05,
@@ -49,6 +54,12 @@ def test_ten_optimizer_steps_match_optax(name):
     jparams = jax.tree.map(jnp.asarray, params)
     jstate = jopt.init(jparams)
 
+    # one compiled optax step: eager, every leaf shape compiles its own ops
+    @jax.jit
+    def jax_step(jgrads, jstate, jparams):
+        updates, jstate = jopt.update(jgrads, jstate, jparams)
+        return jax.tree.map(lambda p, u: p + u, jparams, updates), jstate
+
     rng = np.random.RandomState(3)
     n_clipped = 0
     for step in range(10):
@@ -63,8 +74,7 @@ def test_ten_optimizer_steps_match_optax(name):
         opt.step()
         jgrads = jax.tree.map(jnp.asarray, params_from_state_dict(
             {n: torch.from_numpy(g) for n, g in grads.items()}))
-        updates, jstate = jopt.update(jgrads, jstate, jparams)
-        jparams = jax.tree.map(lambda p, u: p + u, jparams, updates)
+        jparams, jstate = jax_step(jgrads, jstate, jparams)
 
         got = flat_port(dict(model.named_parameters()))
         for path, want in flat_jax(jparams).items():

@@ -43,6 +43,11 @@ from decafnet_tpu_torch.train.__main__ import main as train_main
 from decafnet_tpu_torch.utils import MetricsSink
 from test_torch_train import CT, CV, cfg_pair, flat_jax
 
+# one intra-op thread per test process: the suite runs several processes
+# side by side, and torch's default (one thread per core) in each of them
+# oversubscribes the CPU
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -247,7 +252,10 @@ WORKER = textwrap.dedent("""
 
     if __name__ == "__main__":
         sys.path.insert(0, sys.argv[3])
+        import torch
         from decafnet_tpu_torch.train import Trainer
+
+        torch.set_num_threads(1)    # as the test modules: the suite shares the CPU
 
         paths, logdir = json.loads(sys.argv[1]), sys.argv[2]
         trainer = Trainer(cfg_for(paths, logdir), device="cpu")
