@@ -54,7 +54,30 @@ Phases, each printing one JSON line:
            the same dropout masks, and two microbatches of 8 against one of 16
            with dropout off; times steps with kernels and plain versions and
            profiles one (device busy share, top kernels), and reports the
-           peak memory;
+           peak memory. Its remat leg (lines with "leg": "remat") builds
+           three Trainers through the CLI's build_trainer from the same seed,
+           tpu.remat off, "nothing" and "dots", and on one batch of the same
+           shape (dropout on) checks the losses equal, the gradients within
+           the relative-L2 rule of the unwrapped step, and the launches per
+           forward microbatch (44 / 7 / 1 off, 44 / 14 / 2 with remat: the
+           recompute runs the encoders' kernels again), and reports each
+           policy's peak memory and step wall times; then ("leg":
+           "remat_mad") one step of the mad task (configs/mad.yaml) at
+           T = 32768, 4 synthetic movies x 2 queries = 8 rows in one
+           microbatch, remat off and "nothing", with the peak memory of each;
+  variants every other architecture of make_model at the Ego4D-NLQ width,
+           full depth, seeded random weights: iter2 (second fusion), early
+           and early2 (early fusion, one classification head), default (late
+           fusion over every FPN level) and iter with the identity text net
+           and pool_only branches. Each runs forwards of 8 videos x 8
+           queries at T = 2304 through the kernels and through the plain
+           versions; one line per variant gives the launches per forward
+           (44 / 7 / 1 for iter2, 30 / 7 / 1 for the one-head variants,
+           44 / 0 / 0 for pool_only), the max |diff| of each output list
+           (bound 1e-4) and the wall times. iter2 is also served
+           (ground_many, detections checked, kernels vs plain versions), once
+           under utils.profiling.trace with an annotate region that the
+           trace file must name;
   encode   the on-device front end at full width: 1024 clips of 4 raw uint8
            frames (270 x 360, from the seed) copied to the card and put
            through the EgoVLP eval transform there (short side 256, center
@@ -73,7 +96,8 @@ Phases, each printing one JSON line:
            the encode CLI over two synthetic frame files (~100 clips at
            224^2) and the port's Evaluator over the features it wrote.
 Then one {"kernels": [...]} line (launches summed over the serve, eval,
-http, train and encode paths, with the breakdown), the nvidia-smi
+http, train, remat, variants, encode and encode CLI paths, with the
+breakdown), the nvidia-smi
 name/power-limit line, and last {"ok": true, "device": {...}}. Any failed check raises: the
 script exits non-zero and prints no result. Without CUDA it exits 2.
 """
@@ -118,8 +142,24 @@ TOL = {"conv3_ln_act": 1e-4, "qkv_depthwise_ln": 1e-5, "band_attention": 1e-5}
 TOL_F64 = 1e-5
 # served detections, kernels vs plain versions and ground vs ground_many
 SEG_TOL_S, SCORE_TOL = 1e-3, 1e-4
-# launches of each kernel per decode call of the 2-layer-head arch (2, 0, 7)
-PER_DECODE = {"conv3_ln_act": 44, "band_attention": 7, "qkv_depthwise_ln": 1}
+# launches of each kernel per forward of the 2-layer-head arch (2, 0, 7),
+# by model: conv3 runs in the 2 embedding convs and every trunk layer of the
+# heads (the live model's 3 heads, the one-head variants' 2, x 2 layers x 7
+# levels), band attention once per FPN encoder, the trio in the stride-1
+# encoder; pool_only has no encoders. A remat train microbatch (forward and
+# backward) runs the encoders' kernels again in the recompute
+PER_FORWARD = {
+    "iter": {"conv3_ln_act": 44, "band_attention": 7, "qkv_depthwise_ln": 1},
+    "iter2": {"conv3_ln_act": 44, "band_attention": 7, "qkv_depthwise_ln": 1},
+    "early": {"conv3_ln_act": 30, "band_attention": 7, "qkv_depthwise_ln": 1},
+    "early2": {"conv3_ln_act": 30, "band_attention": 7, "qkv_depthwise_ln": 1},
+    "default": {"conv3_ln_act": 30, "band_attention": 7, "qkv_depthwise_ln": 1},
+    "identity_pool_only": {"conv3_ln_act": 44, "band_attention": 0,
+                           "qkv_depthwise_ln": 0},
+    "remat": {"conv3_ln_act": 44, "band_attention": 14, "qkv_depthwise_ln": 2},
+}
+# the serve, eval, http, train and encode paths run the live model
+PER_DECODE = PER_FORWARD["iter"]
 # eval losses, kernels vs plain versions (sums over up to ~4600 points)
 LOSS_RTOL, LOSS_ATOL = 1e-3, 1e-4
 # one train microbatch (16 videos x 2 queries), kernels vs plain versions
@@ -851,6 +891,183 @@ def run_http(logdir, serve_service, requests):
     return launches
 
 
+# ----------------------------------------------------------------- variants
+
+# make_model's other architectures at the Ego4D-NLQ width: model-tree
+# overrides of configs/ego4d_nlq.yaml (the same random weights as the serve
+# phase where the tree is the same)
+VARIANTS = {
+    "iter2": {"name": "iter2"},
+    "early": {"name": "early"},
+    "early2": {"name": "early2"},
+    "default": {"name": "default"},
+    "identity_pool_only": {"name": "iter", "text_net.name": "identity",
+                           "vid_net.pool_only": True},
+}
+# each output list of a variant's forward, kernels vs plain versions
+VARIANT_TOL = 1e-4
+VARIANT_RUNS = 3
+
+
+def variant_cfg(overrides):
+    from decafnet_tpu_torch.core import load_config, update_opt
+
+    cfg = load_config(os.path.join(REPO, "configs", "ego4d_nlq.yaml"))
+    for key, value in overrides.items():
+        node, *path = [cfg.model] + key.split(".")
+        for k in path[:-1]:
+            node = node[k]
+        node[path[-1]] = value
+    return update_opt(cfg)
+
+
+def variant_inputs(cfg, dev, V=8, Q=8, L=16):
+    """One video-major batch: V videos at T0 (VIDEO_LENS valid) and V*Q
+    queries of 9-16 tokens, from the seed, on the card."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cv, ct = cfg.model.vid_net.in_dim, cfg.model.text_net.in_dim
+    n_tokens = torch.randint(9, L + 1, (V * Q,), generator=g, device=dev)
+    return (torch.randn(V, cv, T0, generator=g, device=dev),
+            torch.randn(V, cv, T0, generator=g, device=dev),
+            prefix_mask(VIDEO_LENS, T0, dev),
+            torch.randn(V * Q, ct, L, generator=g, device=dev),
+            torch.randn(V * Q, cv, generator=g, device=dev),
+            torch.arange(L, device=dev)[None, :] < n_tokens[:, None])
+
+
+def synced_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def run_variants(dev, root):
+    """Every other architecture of make_model at the Ego4D-NLQ width and full
+    depth, seeded random weights: iter2, early, early2, default and iter with
+    the identity text net and pool_only branches. Each runs a forward of 8
+    videos x 8 queries at T = 2304 through the kernels (VARIANT_RUNS times,
+    counted) and through the plain versions, output lists held within
+    VARIANT_TOL. iter2 is also served: ground_many of the same shape with the
+    detections checked, once more under utils.profiling.trace with an
+    annotate region, whose trace file must name the region, and through the
+    plain versions. Returns the kernel launches of the counted runs."""
+    from decafnet_tpu_torch import ops
+    from decafnet_tpu_torch.models import init_random, make_model, random_params
+    from decafnet_tpu_torch.ops import cuda
+    from decafnet_tpu_torch.serve import GroundingService
+    from decafnet_tpu_torch.utils import annotate, trace
+
+    models = {}
+    for name, overrides in VARIANTS.items():
+        cfg = variant_cfg(overrides)
+        model = init_random(make_model(cfg), SEED).to(dev).eval()
+        models[name] = (cfg, model)
+    inputs = variant_inputs(models["iter2"][0], dev)
+    cfg2 = models["iter2"][0]
+    service = GroundingService(cfg2, params=random_params(cfg2, SEED))
+    rng = np.random.default_rng(SEED + 3)
+    batch = [make_request(rng, cfg2, T0, 8, tokens=(9, 16)) for _ in range(8)]
+    k = cfg2.nms.max_num_segs
+
+    def forward(model):
+        with torch.inference_mode():
+            return model(*inputs, queries_per_video=8)
+
+    # warm-up outside the counted run
+    for _, model in models.values():
+        forward(model)
+    service.ground_many(batch)
+    torch.cuda.synchronize()
+
+    # the main path: counts to 0 just before, read just after
+    ops.reset_launch_counts()
+    outs, walls, counted = {}, {}, {}
+    for name, (_, model) in models.items():
+        before = ops.launch_counts()
+        runs = [synced_ms(lambda: forward(model)) for _ in range(VARIANT_RUNS)]
+        after = ops.launch_counts()
+        counted[name] = {n: after[n] - before[n] for n in after}
+        walls[name] = [ms for ms, _ in runs]
+        outs[name] = runs[0][1]
+    dec = service.decoder
+    calls0 = dec.decode_calls
+    ground_ms, answers = synced_ms(lambda: service.ground_many(batch))
+    trace_dir = os.path.join(root, "variants_trace")
+    region = "variants/iter2_ground_many"
+    with trace(trace_dir):
+        with annotate(region):
+            traced_ms, traced = synced_ms(lambda: service.ground_many(batch))
+    calls = dec.decode_calls - calls0
+    launches = ops.launch_counts()
+
+    want = {n: VARIANT_RUNS * sum(PER_FORWARD[v][n] for v in VARIANTS)
+            + calls * PER_FORWARD["iter2"][n] for n in PER_DECODE}
+    for name, count in counted.items():
+        per = {n: c / VARIANT_RUNS for n, c in count.items()}
+        assert per == PER_FORWARD[name], (name, per, PER_FORWARD[name])
+    assert calls == 2 and launches == want, (calls, launches, want)
+    for req, ans in zip(batch, answers):
+        check_detections(ans, req, k)
+    seg_t, sc_t = same_detections(answers, traced)
+    assert seg_t <= SEG_TOL_S and sc_t <= SCORE_TOL, (seg_t, sc_t)
+    files = [os.path.join(dp, f) for dp, _, fs in os.walk(trace_dir) for f in fs]
+    assert len(files) == 1 and files[0].endswith(".json"), files
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    named = sum(e.get("name") == region for e in events)
+    device_events = sum(e.get("cat") == "kernel" for e in events)
+    assert named >= 1 and device_events > 0, (named, device_events)
+
+    # the same forwards and requests through the plain versions
+    with cuda.plain_versions():
+        plain = {}
+        for name, (_, model) in models.items():
+            plain[name] = [synced_ms(lambda: forward(model))
+                           for _ in range(VARIANT_RUNS)]
+        plain_answers = service.ground_many(batch)
+    assert ops.launch_counts() == launches
+    seg_p, sc_p = same_detections(answers, plain_answers)
+    for name, (cfg, model) in models.items():
+        got, ref = outs[name], plain[name][0][1]
+        lists = ("cls_logits", "cls2_logits", "offsets", "masks")
+        if len(got) == 3:
+            lists = ("cls_logits", "offsets", "masks")
+        diff, masks_equal = {}, True
+        for label, a, b in zip(lists, got, ref, strict=True):
+            if a[0].dtype == torch.bool:
+                masks_equal &= all(torch.equal(x, y) for x, y in zip(a, b))
+            else:
+                diff[label] = max(float((x - y).abs().max()) for x, y in zip(a, b))
+                assert all(torch.isfinite(x).all() for x in a), (name, label)
+        emit({"phase": "variants", "variant": name, "model": type(model).__name__,
+              "overrides": VARIANTS[name], "params": sum(
+                  p.numel() for p in model.parameters()),
+              "outputs": len(got), "levels": len(got[0]),
+              "shape": "8 videos x 8 queries at T=2304",
+              "launches_per_forward": {n: c / VARIANT_RUNS
+                                       for n, c in counted[name].items()},
+              "expected": PER_FORWARD[name], "max_abs_diff": diff,
+              "masks_equal": masks_equal, "tol": VARIANT_TOL,
+              "wall_ms": walls[name],
+              "plain_wall_ms": [ms for ms, _ in plain[name]]})
+        assert masks_equal and max(diff.values()) <= VARIANT_TOL, (name, diff)
+    emit({"phase": "variants", "served": "iter2", "decode_calls": calls,
+          "launches": launches, "expected": want,
+          "ground_many_8x8_ms": ground_ms, "traced_ms": traced_ms,
+          "trace": {"file": os.path.basename(files[0]),
+                    "bytes": os.path.getsize(files[0]), "region": region,
+                    "region_events": named, "kernel_events": device_events},
+          "kernels_vs_plain": {"seg_s": seg_p, "score": sc_p},
+          "traced_vs_untraced": {"seg_s": seg_t, "score": sc_t},
+          "tol": {"seg_s": SEG_TOL_S, "score": SCORE_TOL}})
+    assert seg_p <= SEG_TOL_S and sc_p <= SCORE_TOL, (seg_p, sc_p)
+    del models, service
+    torch.cuda.empty_cache()
+    return launches
+
+
 # -------------------------------------------------------------------- train
 
 def write_train_data(root):
@@ -1045,7 +1262,7 @@ def profile_step(step_fn, batch, top=12):
                             for n, ms, c in rows[:top]]}
 
 
-def run_train(root):
+def run_train(root, cfg_file):
     """The train CLI's entry point on the card (``build_trainer`` + ``train``,
     what ``python -m decafnet_tpu_torch.train`` does) at the Ego4D-NLQ width:
     16 videos x 2 queries per step, T = 2304, dropout as configured, two
@@ -1059,7 +1276,6 @@ def run_train(root):
     from decafnet_tpu_torch.train.__main__ import build_trainer, train
     from decafnet_tpu_torch.train.trainer import _to_device
 
-    cfg_file = write_train_data(root)
     argv = ["--cfg", os.path.join(REPO, "configs", "ego4d_nlq.yaml"), cfg_file,
             "--set", "log.root", os.path.join(root, "log"), "seed", str(SEED),
             "train.epochs", "1", "train.warmup_epochs", "1",
@@ -1238,6 +1454,161 @@ def run_train(root):
           "f32_worst_over_tol": grads_close(grads_f32_2, grads_f32_1)[0]})
     assert abs(loss_2 - loss_1) <= LOSS_RTOL_TRAIN * abs(loss_1) and worst <= 1.0
     return launches
+
+
+# -------------------------------------------------------------------- remat
+
+REMAT_POLICIES = (None, "nothing", "dots")
+# the MAD leg: one step of the mad task at its full eval length
+MAD_T, MAD_VIDEOS = 32768, 4
+
+
+def write_mad_data(root):
+    """A synthetic MAD-scale train split: 4 movies of 24576-32768 clips x 2
+    queries at the configs/mad.yaml feature widths (512, clip size and
+    stride 5), and a config file pointing the train data tree at it."""
+    import yaml
+
+    from decafnet_tpu_torch.core import load_config
+    from decafnet_tpu_torch.data import make_synthetic_dataset
+
+    t0 = time.perf_counter()
+    cfg = load_config(os.path.join(REPO, "configs", "mad.yaml"))
+    d = cfg.data
+    paths = make_synthetic_dataset(
+        os.path.join(root, "mad_data"), num_videos=MAD_VIDEOS, num_queries=2,
+        clip_range=(3 * MAD_T // 4, MAD_T + 1), vid_dim=cfg.model.vid_net.in_dim,
+        shallow_dim=cfg.model.vid_net.in_dim, text_dim=cfg.model.text_net.in_dim,
+        clip_size=d.clip_size, clip_stride=d.clip_stride, splits=("train",),
+        seed=SEED + 4)
+    keys = ("anno_file", "vid_feat_dir", "shallow_vid_feat_dir",
+            "clip_token_fname", "text_cls_fname")
+    path = os.path.join(root, "mad_data.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({"data": {k: paths[k] for k in keys}}, f)
+    emit({"phase": "train", "leg": "remat_mad", "data": f"synthetic train "
+          f"split {MAD_VIDEOS} movies x 2 queries ({3 * MAD_T // 4}-{MAD_T} "
+          f"clips)",
+          "setup_s": time.perf_counter() - t0})
+    return path
+
+
+def remat_runs(argv, tag, policies, compare):
+    """For each remat policy (None: off), a Trainer from the train CLI's
+    ``build_trainer(argv + remat settings)`` (the same seeded weights), one
+    batch of the first Trainer's data, and: the microbatch losses and
+    gradients of ``accumulate`` with the generator at the seed (cuDNN's
+    deterministic algorithms), its peak memory above what was allocated
+    before it and the kernel launches per forward microbatch; then
+    ``train_step`` three times, timed. Returns ({policy: record}, the
+    launches of every run, the gradients of each policy when ``compare``)."""
+    import gc
+
+    from decafnet_tpu_torch import ops
+    from decafnet_tpu_torch.train.__main__ import build_trainer
+    from decafnet_tpu_torch.train.trainer import _to_device
+
+    records, grads, batch = {}, {}, None
+    launches = {n: 0 for n in PER_DECODE}
+    for policy in policies:
+        label = policy or "off"
+        trainer = build_trainer(argv + [
+            "log.root", os.path.join(tag, label), "tpu.remat", str(policy is not None),
+            "tpu.remat_policy", policy or "nothing"])
+        assert trainer.model.vid_net.remat == (policy is not None)
+        cfg = trainer.cfg
+        n_micro = max(cfg.train.batch_size // trainer.micro, 1)
+        if batch is None:
+            trainer.loader.set_epoch(0)
+            batch = _to_device(trainer.loader.transform(
+                [trainer.dataset[i] for i in range(cfg.train.batch_size)]),
+                trainer.device)
+        trainer.generator.manual_seed(SEED)
+        torch.cuda.synchronize()
+        base_gb = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        torch.backends.cudnn.deterministic = True
+        try:
+            acc_ms, metrics = synced_ms(lambda: trainer.accumulate(batch))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = ops.launch_counts()
+        if compare:
+            grads[label] = {n: p.grad.detach().clone() for n, p in
+                            trainer.model.named_parameters() if p.grad is not None}
+        torch.cuda.reset_peak_memory_stats()
+        before = ops.launch_counts()
+        step_ms = [synced_ms(lambda: trainer.train_step(batch))[0]
+                   for _ in range(3)]
+        step_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        after = ops.launch_counts()
+        per = PER_FORWARD["remat" if policy else "iter"]
+        assert counts == {n: n_micro * c for n, c in per.items()}, (label, counts)
+        assert {n: after[n] - before[n] for n in after} == {
+            n: 3 * n_micro * c for n, c in per.items()}, (label, before, after)
+        launches = {n: launches[n] + after[n] for n in launches}
+        records[label] = {
+            "loss": float(metrics["total"]), "cls": float(metrics["cls"]),
+            "reg": float(metrics["reg"]), "rows": int(batch["text"].shape[0]),
+            "T": int(batch["vid"].shape[-1]), "microbatches": n_micro,
+            "launches_per_forward_microbatch": {n: c / n_micro
+                                                for n, c in counts.items()},
+            "accumulate_ms": acc_ms, "peak_gb": peak_gb,
+            "peak_above_start_gb": peak_gb - base_gb, "step_ms": step_ms,
+            "median_step_ms": float(np.median(step_ms)),
+            "step_peak_gb": step_peak_gb}
+        assert all(np.isfinite([records[label][k] for k in ("loss", "cls", "reg")]))
+        del trainer, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+    return records, launches, grads
+
+
+def run_remat(root, cfg_file):
+    """The train phase's remat leg. At the train phase's shape (16 videos x
+    2 queries = 32 rows, T = 2304, configs/ego4d_nlq.yaml, dropout on): a
+    step with tpu.remat off, "nothing" and "dots" from the same weights and
+    generator seed; losses equal, gradients within the train phase's
+    relative L2 rule of the unwrapped step, peak memory and step wall time
+    of each, launches 44 / 14 / 2 per forward microbatch with remat. Then
+    one step of the mad task at T = 32768 (8 rows in one microbatch), remat
+    off and "nothing": peak memory of each. Returns the kernel launches of
+    both legs."""
+    argv = ["--cfg", os.path.join(REPO, "configs", "ego4d_nlq.yaml"), cfg_file,
+            "--set", "seed", str(SEED), "aux.eval_run", "0"]
+    records, launches, grads = remat_runs(argv, os.path.join(root, "remat"),
+                                          REMAT_POLICIES, compare=True)
+    off = records["off"]
+    for label in ("nothing", "dots"):
+        rel, top = grads_rel_l2(grads[label], grads["off"])
+        loss_rel = abs(records[label]["loss"] - off["loss"]) / abs(off["loss"])
+        records[label].update(grad_rel_l2_vs_off=rel, worst_leaves=top,
+                              loss_rel_vs_off=loss_rel,
+                              peak_vs_off=records[label]["peak_gb"] / off["peak_gb"],
+                              step_vs_off=(records[label]["median_step_ms"]
+                                           / off["median_step_ms"]))
+        assert grads[label].keys() == grads["off"].keys()
+        assert loss_rel <= 1e-6 and rel <= GRAD_REL_L2_ALL, (label, loss_rel, rel)
+    emit({"phase": "train", "leg": "remat", "shape": "16 videos x 2 queries "
+          "= 32 rows at T=2304, one microbatch, dropout on", "runs": records,
+          "tol": {"loss_rel": 1e-6, "grad_rel_l2": GRAD_REL_L2_ALL}})
+
+    mad_file = write_mad_data(root)
+    argv = ["--cfg", os.path.join(REPO, "configs", "mad.yaml"), mad_file,
+            "--set", "seed", str(SEED), "aux.eval_run", "0",
+            "model.vid_net.max_seq_len", str(MAD_T),
+            "train.batch_size", str(MAD_VIDEOS),
+            "train.microbatch_size", str(MAD_VIDEOS)]
+    mad, mad_launches, _ = remat_runs(argv, os.path.join(root, "remat_mad"),
+                                      (None, "nothing"), compare=False)
+    mad["nothing"]["peak_vs_off"] = mad["nothing"]["peak_gb"] / mad["off"]["peak_gb"]
+    emit({"phase": "train", "leg": "remat_mad", "shape": f"{MAD_VIDEOS} movies "
+          f"x 2 queries = 8 rows at T={MAD_T}, one microbatch, configs/mad.yaml",
+          "runs": mad})
+    assert mad["off"]["T"] == MAD_T and mad["off"]["rows"] == 2 * MAD_VIDEOS
+    return {n: launches[n] + mad_launches[n] for n in launches}
 
 
 # ------------------------------------------------------------------- encode
@@ -1534,7 +1905,10 @@ def main():
     with tempfile.TemporaryDirectory() as root:
         by_path["eval"], logdir = run_eval(root)
         by_path["http"] = run_http(logdir, service, requests)
-        by_path["train"] = run_train(root)
+        cfg_file = write_train_data(root)
+        by_path["train"] = run_train(root, cfg_file)
+        by_path["remat"] = run_remat(root, cfg_file)
+        by_path["variants"] = run_variants(dev, root)
         by_path["encode"], by_path["encode_cli"] = run_encode(dev, service, smi, root)
     launches = {n: sum(p[n] for p in by_path.values()) for n in PER_DECODE}
 
@@ -1556,6 +1930,7 @@ def main():
             "bound_by": "bytes" if r["byte_ms"] >= r["flop_ms"] else "operations",
             "library_ms": r["library_ms"],
             "per": "one served decode call (64 rows, T=2304, all levels)",
+            "launches_per_forward": {m: c[n] for m, c in PER_FORWARD.items()},
             **{k: r[k] for k in ("bound_f32_ms", "max_abs_err_f64",
                                  "plain_max_abs_err_f64") if k in r},
             "levels": r["levels"]})

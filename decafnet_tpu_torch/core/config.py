@@ -5,7 +5,9 @@ dotted-key overrides (``merge_from_list``: unknown keys raise ``KeyError``).
 ``get_cfg_defaults(task)`` builds the task's default tree key for key as the
 JAX package does, ``tpu`` section included, so an ``opt.yaml`` written by
 the JAX trainer loads and takes ``--set`` overrides. Of the ``tpu`` section
-the port reads only ``compute_dtype`` (``models.make_model``).
+the port reads ``compute_dtype``, ``remat`` and ``remat_policy``
+(``models.make_model``), and ``shard_time`` and ``video_major_train``
+(the Trainer).
 
 ``update_opt`` derives the dependent fields, ``update_eval_data`` backfills
 ``eval.data`` from ``data``, ``update_from`` backfills a frozen snapshot
@@ -276,9 +278,11 @@ def _base_nms():
 
 
 def _base_tpu():
-    """The JAX package's runtime knobs, kept so its snapshots parse. The
-    port reads ``compute_dtype`` only: "auto" and "float32" run f32,
-    "bfloat16" raises (ROADMAP item 12)."""
+    """The JAX package's runtime knobs, kept so its snapshots parse. Of
+    these the port reads ``compute_dtype`` ("auto" and "float32" run f32,
+    "bfloat16" raises: ROADMAP item 12), ``remat`` / ``remat_policy``
+    (activation checkpointing of the video encoders in training),
+    ``shard_time`` (raises: ROADMAP item 11) and ``video_major_train``."""
     tpu = CfgNode()
     tpu.mesh_shape = None
     tpu.compute_dtype = "auto"

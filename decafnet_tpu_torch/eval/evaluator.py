@@ -31,7 +31,7 @@ import torch
 from ..core import (CfgNode, get_cfg_defaults, update_eval_data, update_from,
                     update_opt)
 from ..data import DataLoader, batchify_eval, make_dataset, min_chunk_size
-from ..models import load_params, load_pth, make_model
+from ..models import load_params, load_pth, make_model, require_two_heads
 from ..models.points import fpn_lengths, generate_points, select_points
 from ..ops.masked import max_pool1d
 from ..ops.nms import batched_nms_device, batched_nms_host
@@ -328,6 +328,7 @@ class Evaluator:
     :meth:`run`."""
 
     def __init__(self, cfg, params=None, device=None, train_time=False):
+        require_two_heads(cfg, "Evaluator")
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)

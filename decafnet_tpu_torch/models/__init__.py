@@ -1,6 +1,9 @@
-"""The live DeCafNet grounder and its parts (port of decafnet_tpu.models)."""
+"""The DeCafNet grounder, its variants and their parts (port of
+decafnet_tpu.models)."""
 
-from .decafnet import DeCafNetIterative, init_random, make_model
+from .decafnet import (TWO_HEAD_NAMES, DeCafNetEarlyFusion, DeCafNetIterative,
+                       DeCafNetLateFusion, init_random, make_model,
+                       require_two_heads)
 from .import_torch import (load_params, load_pth, params_from_state_dict,
                            save_pth, state_dict_from_params)
 from .points import fpn_lengths, generate_points, select_points

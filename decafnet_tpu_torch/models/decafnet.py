@@ -1,18 +1,23 @@
-"""The DeCafNet grounder (port of decafnet_tpu/models/decafnet.py:50-252,
-DeCafNetIterative).
+"""The DeCafNet grounder and its variants (port of
+decafnet_tpu/models/decafnet.py: DeCafNetIterative, DeCafNetEarlyFusion,
+DeCafNetLateFusion).
 
-delegation -> vid_map -> text transformer -> cross-attention fusion ->
-video FPN -> cls_head -> TCN refinement -> cls_head2 + reg_head.
+The live model (``model.name: iter``, ``iter2`` with a second fusion):
+delegation -> vid_map -> text net -> cross-attention fusion -> video FPN ->
+cls_head -> TCN refinement -> cls_head2 + reg_head; it returns four lists
+over FPN levels. The early-fusion (``early``, ``early2``) and late-fusion
+(``default``) variants have one classification head and return three.
 
 A (video, query) pair is a batch row. With ``queries_per_video`` Q > 1 the
 video inputs carry V videos and the text inputs V*Q rows (row r belongs to
-video r // Q), and the vid_map projection runs once per video
-(:meth:`DeCafNetIterative._delegate_project_grouped`).
+video r // Q); the live model runs the vid_map projection once per video
+(:meth:`DeCafNetIterative._delegate_project_grouped`), the variants expand
+the videos to rows first.
 
 ``model.train()`` turns on the configured dropouts (the blocks', the TCN's
 ``model.tcn_dropout`` and the channel dropout ``vid_net.cdrop``), drawn from
-the ``generator`` passed to :meth:`DeCafNetIterative.forward`; in eval mode
-the forward is the serving forward.
+the ``generator`` passed to ``forward``; in eval mode the forward is the
+serving forward.
 """
 
 from __future__ import annotations
@@ -27,8 +32,12 @@ from ..ops.masked import interpolate_nearest_1d, masked_max_pool1d
 from .fusion import XAttNFusion
 from .heads import ClsHead, RegHead
 from .tcn import TCN
-from .text_net import TextTransformer
+from .text_net import make_text_net
 from .video_net import VideoTransformer
+
+# the model names whose forward returns the two classification heads that
+# the decode and the training losses read
+TWO_HEAD_NAMES = ("iter", "iter2")
 
 
 def _delegated_in_dim(m):
@@ -40,46 +49,62 @@ def _delegated_in_dim(m):
     return in_dim
 
 
+def _drops(sub):
+    return {k: sub.get(k, 0.0) for k in ("attn_pdrop", "proj_pdrop", "path_pdrop")}
+
+
+def _check_names(m):
+    for key, want in (("vid_net", "transformer"), ("fusion", "xattn"),
+                      ("cls_head", "cls"), ("reg_head", "reg")):
+        if m[key]["name"] != want:
+            raise NotImplementedError(f"model.{key}.name={m[key]['name']!r}")
+
+
+def _video_net(m, in_dim):
+    vn = m["vid_net"]
+    return VideoTransformer(
+        in_dim, vn["embd_dim"], vn["max_seq_len"], vn["n_heads"],
+        vn["mha_win_size"], stride=vn.get("stride", 1), arch=tuple(vn["arch"]),
+        use_abs_pe=vn.get("use_abs_pe", False),
+        pool_only=vn.get("pool_only", False), remat=vn.get("remat", False),
+        remat_policy=vn.get("remat_policy", "nothing"), **_drops(vn))
+
+
+def _fusion(m, text_dim):
+    """The fusion over the text net's output width (``text_dim``: the text
+    net's ``embd_dim``, or its ``in_dim`` for an identity net without one)."""
+    fu = m["fusion"]
+    return XAttNFusion(m["vid_net"]["embd_dim"], text_dim,
+                       n_layers=fu.get("n_layers", 2), n_heads=fu.get("n_heads", 4),
+                       xattn_mode=fu.get("xattn_mode", "adaln"), **_drops(fu))
+
+
+def _expand_videos(Q, *videos):
+    """Video-major inputs -> one row per query (each video repeated Q
+    times)."""
+    if Q == 1:
+        return videos
+    return tuple(torch.repeat_interleave(v, Q, dim=0) for v in videos)
+
+
 class DeCafNetIterative(nn.Module):
     """Live DeCafNet model, f32. ``cfg`` is the ``model`` config subtree
-    (after ``core.update_opt``)."""
+    (after ``core.update_opt``). With ``second_fusion`` (``iter2``) the
+    fusion runs again over every FPN level before the heads."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, second_fusion=False):
         super().__init__()
         m = cfg
-        self.cfg = m
-        vn, tn, fu = m["vid_net"], m["text_net"], m["fusion"]
-        vid_embd = vn["embd_dim"]
-        num_levels = vn["arch"][-1]
+        self.cfg, self.second_fusion = m, second_fusion
+        _check_names(m)
+        vid_embd = m["vid_net"]["embd_dim"]
+        num_levels = m["vid_net"]["arch"][-1]
         rdim = m.get("rdim") or 32
-        for key, want in (("vid_net", "transformer"), ("text_net", "transformer"),
-                          ("fusion", "xattn"), ("cls_head", "cls"),
-                          ("reg_head", "reg")):
-            if m[key]["name"] != want:
-                raise NotImplementedError(f"model.{key}.name={m[key]['name']!r}")
-        if vn.get("pool_only"):
-            raise NotImplementedError("model.vid_net.pool_only")
-
-        def drops(sub):
-            return {k: sub.get(k, 0.0)
-                    for k in ("attn_pdrop", "proj_pdrop", "path_pdrop")}
-
-        self.cdrop = vn.get("cdrop", 0.0)
-        self.text_net = TextTransformer(
-            tn["in_dim"], tn["embd_dim"], tn["n_heads"], tn["max_seq_len"],
-            n_layers=tn.get("n_layers", 5), use_abs_pe=tn.get("use_abs_pe", True),
-            use_bkgd_token=tn.get("use_bkgd_token", True), **drops(tn))
+        self.cdrop = m["vid_net"].get("cdrop", 0.0)
+        self.text_net = make_text_net(m["text_net"])
         self.vid_map = MaskedConv1D(_delegated_in_dim(m), vid_embd, 1)
-        self.vid_net = VideoTransformer(
-            vid_embd, vid_embd, vn["max_seq_len"], vn["n_heads"],
-            vn["mha_win_size"], stride=vn.get("stride", 1),
-            arch=tuple(vn["arch"]), use_abs_pe=vn.get("use_abs_pe", False),
-            **drops(vn))
-        self.fusion = XAttNFusion(vid_embd, fu.get("text_dim", tn["embd_dim"]),
-                                  n_layers=fu.get("n_layers", 2),
-                                  n_heads=fu.get("n_heads", 4),
-                                  xattn_mode=fu.get("xattn_mode", "adaln"),
-                                  **drops(fu))
+        self.vid_net = _video_net(m, vid_embd)
+        self.fusion = _fusion(m, self.text_net.out_dim)
         ch, rh = m["cls_head"], m["reg_head"]
         self.cls_head = ClsHead(vid_embd, ch.get("n_layers", 2),
                                 ch.get("prior_prob", 0.0))
@@ -92,8 +117,13 @@ class DeCafNetIterative(nn.Module):
         self.reg_head = RegHead(vid_embd + rdim, num_levels,
                                 rh.get("n_layers", 2))
 
-    def fuse_and_predict(self, fpn, fpn_masks, generator=None):
-        """Heads with TCN refinement."""
+    def fuse_and_predict(self, fpn, fpn_masks, text, text_masks,
+                         generator=None):
+        """(Second fusion with the encoded text, then) heads with TCN
+        refinement."""
+        if self.second_fusion:
+            fpn, fpn_masks = self.fusion(fpn, fpn_masks, text, text_masks,
+                                         generator=generator)
         fpn_logits, _ = self.cls_head(fpn, fpn_masks)
         # nearest-expand every level to the level-0 grid and stack (bs, L, T)
         ref_len = fpn_logits[0].shape[1]
@@ -176,10 +206,8 @@ class DeCafNetIterative(nn.Module):
             vid, vm = self._delegate_project_grouped(
                 vid, shallow_vid, vid_masks, text_cls, Q)
         else:
-            if Q > 1:
-                vid = torch.repeat_interleave(vid, Q, dim=0)
-                shallow_vid = torch.repeat_interleave(shallow_vid, Q, dim=0)
-                vid_masks = torch.repeat_interleave(vid_masks, Q, dim=0)
+            vid, shallow_vid, vid_masks = _expand_videos(Q, vid, shallow_vid,
+                                                         vid_masks)
             vid, vid_masks, _ = delegate(
                 vid, shallow_vid, vid_masks, text_cls, sn=m.get("sn", 60),
                 ratio=m.get("sratio", 0.0), normalize=m.get("norm", False),
@@ -195,20 +223,139 @@ class DeCafNetIterative(nn.Module):
                               generator=generator)
         fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp,
                                       generator=generator)
-        return self.fuse_and_predict(fpn, fpn_masks, generator=generator)
+        return self.fuse_and_predict(fpn, fpn_masks, text_enc, text_mask_enc,
+                                     generator=generator)
+
+
+class _OneHeadModel(nn.Module):
+    """What the early- and late-fusion variants share: delegation per row
+    (video-major batches expanded to rows first), the text net, the fusion
+    and the two heads at the video width."""
+
+    def __init__(self, m, vid_in_dim):
+        super().__init__()
+        self.cfg = m
+        _check_names(m)
+        vid_embd = m["vid_net"]["embd_dim"]
+        self.cdrop = m["vid_net"].get("cdrop", 0.0)
+        self.text_net = make_text_net(m["text_net"])
+        self.vid_net = _video_net(m, vid_in_dim)
+        self.fusion = _fusion(m, self.text_net.out_dim)
+        ch, rh = m["cls_head"], m["reg_head"]
+        self.cls_head = ClsHead(vid_embd, ch.get("n_layers", 2),
+                                ch.get("prior_prob", 0.0))
+        self.reg_head = RegHead(vid_embd, m["vid_net"]["arch"][-1],
+                                rh.get("n_layers", 2))
+
+    def _delegate(self, vid, shallow_vid, vid_masks, text_cls, Q, sfonly,
+                  generator):
+        m = self.cfg
+        vid, shallow_vid, vid_masks = _expand_videos(Q, vid, shallow_vid,
+                                                     vid_masks)
+        vid, vid_masks, _ = delegate(
+            vid, shallow_vid, vid_masks, text_cls, sn=m.get("sn", 60),
+            ratio=m.get("sratio", 0.0), normalize=m.get("norm", False),
+            msf=m.get("msf", False), scat=m.get("scat", False), sfonly=sfonly)
+        vid = dropout(vid, self.cdrop, generator, self.training,
+                      shape=vid.shape[:2] + (1,))
+        return vid, vid_masks[:, None, :]
+
+    def _heads(self, fpn, fpn_masks):
+        fpn_logits, _ = self.cls_head(fpn, fpn_masks)
+        fpn_offsets, out_masks = self.reg_head(fpn, fpn_masks)
+        return fpn_logits, fpn_offsets, out_masks
+
+
+class DeCafNetEarlyFusion(_OneHeadModel):
+    """Early-fusion variant with one classification head: delegation ->
+    vid_map -> text net -> fusion -> video FPN -> (with ``second_fusion``,
+    ``early2``: the fusion again over every level) -> cls_head + reg_head.
+    Returns (logits, offsets, masks), each a list over FPN levels."""
+
+    def __init__(self, cfg, second_fusion=True):
+        vid_embd = cfg["vid_net"]["embd_dim"]
+        super().__init__(cfg, vid_embd)
+        self.second_fusion = second_fusion
+        self.vid_map = MaskedConv1D(_delegated_in_dim(cfg), vid_embd, 1)
+
+    def forward(self, vid, shallow_vid, vid_masks, text, text_cls, text_masks,
+                pe_interp=None, queries_per_video=1, generator=None):
+        sfonly = self.cfg.get("sfonly", False) and not self.training
+        vid, vm = self._delegate(vid, shallow_vid, vid_masks, text_cls,
+                                 queries_per_video, sfonly, generator)
+        vid, vm = self.vid_map(vid, vm)
+        text_enc, text_mask_enc = self.text_net(text, text_masks,
+                                                generator=generator)
+        vid, vm = self.fusion(vid, vm, text_enc, text_mask_enc,
+                              generator=generator)
+        fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp,
+                                      generator=generator)
+        if self.second_fusion:
+            fpn, fpn_masks = self.fusion(fpn, fpn_masks, text_enc,
+                                         text_mask_enc, generator=generator)
+        return self._heads(fpn, fpn_masks)
+
+
+class DeCafNetLateFusion(_OneHeadModel):
+    """Late-fusion variant (``default``): delegation -> video FPN over the
+    delegated width (no vid_map) -> text net -> fusion on every level ->
+    cls_head + reg_head. Returns (logits, offsets, masks), each a list over
+    FPN levels."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg, _delegated_in_dim(cfg))
+
+    def forward(self, vid, shallow_vid, vid_masks, text, text_cls, text_masks,
+                pe_interp=None, queries_per_video=1, generator=None):
+        # no sfonly here, as in the JAX model
+        vid, vm = self._delegate(vid, shallow_vid, vid_masks, text_cls,
+                                 queries_per_video, False, generator)
+        fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp,
+                                      generator=generator)
+        text_enc, text_mask_enc = self.text_net(text, text_masks,
+                                                generator=generator)
+        fpn, fpn_masks = self.fusion(fpn, fpn_masks, text_enc, text_mask_enc,
+                                     generator=generator)
+        return self._heads(fpn, fpn_masks)
 
 
 def make_model(cfg):
-    """Model factory; the port builds ``model.name: iter`` only, in f32
-    (``tpu.compute_dtype`` "auto" or "float32")."""
-    dtype = cfg.get("tpu", {}).get("compute_dtype", "auto")
+    """Model factory of the JAX ``make_model`` names, in f32
+    (``tpu.compute_dtype`` "auto" or "float32"): ``iter`` / ``iter2``
+    (:class:`DeCafNetIterative` without / with the second fusion),
+    ``early`` / ``early2`` (:class:`DeCafNetEarlyFusion` without / with it)
+    and ``default`` (:class:`DeCafNetLateFusion`). ``tpu.remat`` wraps the
+    video net's encoders in activation checkpointing for training, with
+    ``tpu.remat_policy`` "nothing" or "dots"."""
+    tpu = cfg.get("tpu", {})
+    dtype = tpu.get("compute_dtype", "auto")
     if dtype not in ("auto", "float32"):
         raise ValueError(f"tpu.compute_dtype={dtype!r}: the port computes in "
                          f"f32; a bf16 mode is ROADMAP item 12")
+    m = cfg.model
+    if tpu.get("remat"):
+        m = {**m, "vid_net": {**m["vid_net"], "remat": True,
+                              "remat_policy": tpu.get("remat_policy", "nothing")}}
+    name = m["name"]
+    if name in ("iter", "iter2"):
+        return DeCafNetIterative(m, second_fusion=name == "iter2")
+    if name in ("early", "early2"):
+        return DeCafNetEarlyFusion(m, second_fusion=name == "early2")
+    if name == "default":
+        return DeCafNetLateFusion(m)
+    raise ValueError(f"unknown model: {name!r}")
+
+
+def require_two_heads(cfg, who):
+    """Raise unless ``cfg.model.name`` returns the two classification heads
+    that ``who`` (the decode, the losses) reads."""
     name = cfg.model["name"]
-    if name != "iter":
-        raise NotImplementedError(f"model.name={name!r}: the port builds 'iter'")
-    return DeCafNetIterative(cfg.model)
+    if name not in TWO_HEAD_NAMES:
+        raise ValueError(
+            f"{who}: model.name={name!r} returns (logits, offsets, masks) with "
+            f"one classification head, but the decode and the training losses "
+            f"read two (cls_head and cls_head2): only {TWO_HEAD_NAMES} run "
+            f"here; {name!r} is a forward-only model")
 
 
 def init_random(model, seed):

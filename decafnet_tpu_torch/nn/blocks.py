@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from ..ops.fused_conv import qkv_depthwise_ln
 from ..ops.local_attention import band_attention
 from ..ops.masked import (channel_layer_norm, interpolate_nearest_1d,
-                          masked_max_pool1d)
+                          masked_avg_pool1d, masked_max_pool1d)
 
 
 def _uniform_(t, bound, generator):
@@ -244,6 +244,22 @@ class MaskedMHA(nn.Module):
         out = out.transpose(2, 3).reshape(bs, h * d, -1)
         return dropout(self.proj(out), self.proj_pdrop, generator,
                        self.training)
+
+
+class AttNPool1D(nn.Module):
+    """Attention pooling: the masked mean token is prepended to the
+    sequence, one global attention over it pools the pooled token, and that
+    token is prepended to ``x`` (the mask extended by its first column)."""
+
+    def __init__(self, embd_dim, n_heads=4):
+        super().__init__()
+        self.attn = MaskedMHA(embd_dim, n_heads=n_heads)
+
+    def forward(self, x, mask, generator=None):
+        h = torch.cat([masked_avg_pool1d(x, mask), x], dim=-1)
+        mask = torch.cat([mask[..., :1], mask], dim=-1)
+        pool = self.attn(h, kv_mask=mask, generator=generator)[..., :1]
+        return torch.cat([pool, x], dim=-1), mask
 
 
 class ConvAttNLayer(nn.Module):

@@ -39,7 +39,7 @@ import torch
 
 from .eval.evaluator import (Decoder, checkpoint_path, config_from_logdir,
                              resolve_device)
-from .models import load_params, load_pth, make_model
+from .models import load_params, load_pth, make_model, require_two_heads
 
 
 class GroundingService:
@@ -51,6 +51,7 @@ class GroundingService:
     ``device``: None for the CUDA card, or an explicit device."""
 
     def __init__(self, cfg, params=None, checkpoint=None, device=None):
+        require_two_heads(cfg, "GroundingService")
         if (params is None) == (checkpoint is None):
             raise ValueError("pass exactly one of params / checkpoint")
         self.device = resolve_device(device)

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..data import DataLoader, batchify_train, make_dataset
-from ..models import init_random, load_pth, make_model
+from ..models import init_random, load_pth, make_model, require_two_heads
 from ..models.points import fpn_lengths, generate_points, select_points
 from ..utils.logging import AverageMeter, Logger, time_str
 from ..utils.tracking import MetricsSink
@@ -42,15 +42,13 @@ TASKS = ("grounder", "mad", "charades")
 
 def check_supported(cfg):
     """Raise for training settings the port does not have, naming their
-    ROADMAP item, instead of running something else."""
+    ROADMAP item, instead of running something else; and for the
+    forward-only model variants."""
+    require_two_heads(cfg, "Trainer")
     if cfg.tpu.get("shard_time"):
         raise NotImplementedError(
             "tpu.shard_time: sequence-parallel training is not in the port "
             "yet (ROADMAP item 11)")
-    if cfg.tpu.get("remat"):
-        raise NotImplementedError(
-            "tpu.remat: activation checkpointing (torch.utils.checkpoint) is "
-            "not in the port yet (ROADMAP item 13)")
     if (torch.distributed.is_available() and torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):
         raise NotImplementedError("multi-process (DDP) training is not in the "

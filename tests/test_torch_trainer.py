@@ -177,7 +177,7 @@ def test_train_time_eval_reads_the_ema(synth, tmp_path):
 
 @pytest.mark.parametrize("setting,value,match", [
     ("tpu.shard_time", True, "ROADMAP item 11"),
-    ("tpu.remat", True, "ROADMAP item 13"),
+    ("model.name", "default", "forward-only"),
     ("train.version", 1, "train.version=2"),
     ("task", "other", "training knows"),
 ])
