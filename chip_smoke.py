@@ -94,9 +94,29 @@ Phases, each printing one JSON line:
            (video-seconds per second) and the reference's offline structure
            (the expert over all clips), and reports the peak memory. Then
            the encode CLI over two synthetic frame files (~100 clips at
-           224^2) and the port's Evaluator over the features it wrote.
+           224^2) and the port's Evaluator over the features it wrote;
+  multi    data parallelism, each leg launched by ``python -m
+           torch.distributed.run --standalone --nproc_per_node N`` in a
+           subprocess, killed with its ranks at a timeout; every rank runs
+           what the train or eval CLI's ``main`` runs and writes a report
+           of its launches and peak memory: ddp1, training as one NCCL rank
+           at the train phase's shape (16 videos x 2 queries per step,
+           T = 2304, 2 steps, dropout off, SGD), against the one-process
+           Trainer of the same argv (losses; the update of the weights and
+           of the EMA from the common start by the train phase's
+           relative-L2 rule, max |diff| printed, beside two one-process
+           runs' distance); ddp2, the same as two ranks sharing the card
+           over gloo with CUDA tensors (losses rtol 1e-5, the same update
+           rule, 44 / 7 / 1 launches per forward microbatch on each rank,
+           peak memory and step walls per rank);
+           eval2, the eval CLI over the eval phase's experiment as two gloo
+           ranks (eval.shard_processes: every rank's table, the merged
+           dumps' detections and annotated-recall table equal the eval
+           phase's); stack, eval.shard_videos 4 in this process against
+           V = 1 (the same checks, launches per stacked decode call, wall
+           per video).
 Then one {"kernels": [...]} line (launches summed over the serve, eval,
-http, train, remat, variants, encode and encode CLI paths, with the
+http, train, remat, variants, encode, encode CLI and multi paths, with the
 breakdown), the nvidia-smi
 name/power-limit line, and last {"ok": true, "device": {...}}. Any failed check raises: the
 script exits non-zero and prints no result. Without CUDA it exits 2.
@@ -740,8 +760,9 @@ def annotated_recall(runs, ranks, threshs):
 def run_eval(root):
     """The eval CLI's entry point on the card: device SoftNMS, reference_exact
     and the plain versions, over an experiment directory written under
-    ``root``. Returns the kernel launches of the first two and the
-    experiment directory."""
+    ``root``. Returns the kernel launches of the first two, the
+    experiment directory and the device-NMS run (metrics, results,
+    losses)."""
     from decafnet_tpu_torch import ops
     from decafnet_tpu_torch.eval.__main__ import build_evaluator
     from decafnet_tpu_torch.ops import cuda
@@ -817,7 +838,7 @@ def run_eval(root):
                                          "loss_rel": LOSS_RTOL}})
         assert seg_d <= SEG_TOL_S and sc_d <= SCORE_TOL, (mode, seg_d, sc_d)
         assert loss_d <= LOSS_RTOL, (mode, loss_d)
-    return launches, logdir
+    return launches, logdir, runs["device_nms"]
 
 
 # --------------------------------------------------------------------- http
@@ -1864,6 +1885,328 @@ def run_encode(dev, service, smi, root):
     return launches, run_encode_cli(dev, root, smi)
 
 
+# -------------------------------------------------------------------- multi
+
+# the DDP legs' config file: dropout off (each rank draws its own masks),
+# and SGD with momentum: under AdamW the attention key biases, whose exact
+# gradient is 0 (softmax ignores a bias shared by every key), take lr-sized
+# steps out of rounding noise, so their weights cannot be held against
+# another run
+MULTI_CFG = {"model": {"tcn_dropout": 0.0,
+                       "vid_net": {"proj_pdrop": 0.0, "path_pdrop": 0.0},
+                       "fusion": {"proj_pdrop": 0.0, "path_pdrop": 0.0}},
+             "optimizer": {"name": "sgd", "lr": 0.01, "momentum": 0.9}}
+MULTI_TIMEOUT_S = 300
+# DDP losses against the one-process Trainer on the same batches (the
+# updates of the weights and EMA by the train phase's relative-L2 rule)
+MULTI_LOSS_RTOL = 1e-5
+
+
+def torchrun(nproc, kind, args, report):
+    """``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc chip_smoke.py --rank-worker kind report args`` in its own session,
+    killed with all its ranks at MULTI_TIMEOUT_S: every rank runs the
+    ``kind`` CLI's own functions on ``args`` (:func:`rank_worker`). Returns
+    each rank's report, the output and the wall seconds."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), os.path.abspath(__file__),
+           "--rank-worker", kind, report, *args]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=MULTI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise RuntimeError(f"{' '.join(cmd)} exited {proc.returncode}:\n"
+                           f"{out[-6000:]}")
+    reports = []
+    for r in range(nproc):
+        with open(f"{report}.r{r}.json") as f:
+            reports.append(json.load(f))
+    return reports, out, wall
+
+
+def rank_worker(kind, report, argv):
+    """One rank of a multi-phase leg, started by ``torchrun``: what the
+    ``kind`` (train or eval) CLI's ``main`` runs on ``argv`` (its
+    ``build_trainer`` + ``train``, or ``build_evaluator`` + ``run``), then
+    this rank's ``{report}.r<rank>.json`` (rank, world size, backend, kernel
+    launches, peak memory, wall, and the run's steps or decode calls,
+    videos, queries and table) before it leaves the group."""
+    sys.path.insert(0, REPO)
+    from decafnet_tpu_torch import ops, parallel
+
+    t0 = time.perf_counter()
+    try:
+        if kind == "train":
+            from decafnet_tpu_torch.train.__main__ import build_trainer, train
+
+            trainer = train(build_trainer(argv))
+            fields = {"steps": trainer.step, "device": str(trainer.device)}
+        else:
+            from decafnet_tpu_torch.eval.__main__ import build_evaluator
+
+            ev = build_evaluator(argv)
+            metrics = ev.run()
+            fields = {"device": str(ev.device),
+                      "decode_calls": ev.decoder.decode_calls,
+                      "videos": len(ev.loader), "recall": metrics.tolist(),
+                      "queries": ev.meter.text_cnt}
+        rep = {"rank": parallel.rank(), "world_size": parallel.world_size(),
+               "backend": parallel.backend(), "launches": ops.launch_counts(),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "run_s": time.perf_counter() - t0, **fields}
+        with open(f"{report}.r{parallel.rank()}.json", "w") as f:
+            json.dump(rep, f)
+    finally:
+        parallel.destroy()
+    return 0
+
+
+def update_rel_l2(got, want, start):
+    """Two runs from the same ``start`` (state dicts): the relative L2
+    distance of their updates ``got - start`` and ``want - start``, in
+    float64 (all leaves together, the worst leaves), and the max |diff| of
+    the end states. A run whose gradients were halved, or never summed over
+    the ranks, lands about 0.5 or more apart."""
+    start = {k: v.detach().double().cpu() for k, v in start.items()}
+    rel, top = grads_rel_l2(
+        {k: got[k].detach().double().cpu() - b for k, b in start.items()},
+        {k: want[k].detach().double().cpu() - b for k, b in start.items()})
+    return {"update_rel_l2_all": rel, "worst_leaves": top, "max_abs_diff": max(
+        float((got[k].detach().cpu() - want[k].detach().cpu()).abs().max())
+        for k in start)}
+
+
+def merged_results(shards, order):
+    """The ranks' result dumps as one, videos in ``order`` (vid ids)."""
+    from decafnet_tpu_torch.utils import EvalResults
+
+    by_id = {v["vid_id"]: v for s in shards for v in s.videos}
+    assert sorted(by_id) == sorted(order), (sorted(by_id), sorted(order))
+    out = EvalResults("merged")
+    out.videos = [by_id[v] for v in order]
+    return out
+
+
+def run_multi(root, cfg_file, eval_logdir, eval_base, smi):
+    """Data parallelism on the card, each leg launched by ``python -m
+    torch.distributed.run``, its ranks running the CLI's own functions
+    (:func:`rank_worker`):
+
+    ddp1   training as one NCCL rank at the train phase's shape (16 videos
+           x 2 queries per step, T = 2304, one epoch = 2 steps, dropout
+           off, SGD), against the one-process Trainer of the same argv:
+           losses at rtol 1e-5, and the updates of the weights and of the
+           EMA from the common start by the train phase's relative-L2 rule
+           (1e-2 over all leaves, 0.25 per leaf; a run with halved or
+           unsummed gradients lands ~0.5 apart). Expected: the difference
+           of two one-process runs, which is printed beside it, as is the
+           weights' max |diff|;
+    ddp2   the same as two ranks on the one card over gloo (8 videos per
+           rank, CUDA tensors), with 44 / 7 / 1 launches per forward
+           microbatch on each rank, peak memory and step walls per rank
+           (the two ranks share one card: no speed is read from them);
+    eval2  the eval CLI's run over the eval phase's experiment as two gloo ranks
+           (``eval.shard_processes``): every rank's table equals the eval
+           phase's, and so do the detections (1e-3 s / 1e-4) and the
+           annotated-recall table of the ranks' merged dumps;
+    stack  ``eval.shard_videos`` 4 in this process through the eval CLI's
+           build_evaluator, against V = 1: the same checks, the launches per
+           stacked decode call and the wall per video at V = 4 and V = 1.
+
+    Returns the launches of the four legs (every rank's, and the V = 4
+    run's)."""
+    from decafnet_tpu_torch import ops
+    from decafnet_tpu_torch.eval.__main__ import build_evaluator
+    from decafnet_tpu_torch.train.__main__ import build_trainer, train
+    from decafnet_tpu_torch.utils import EvalResults
+
+    import yaml
+
+    torch.cuda.empty_cache()
+    mroot = os.path.join(root, "multi")
+    os.makedirs(mroot)
+    multi_cfg = os.path.join(mroot, "multi.yaml")
+    with open(multi_cfg, "w") as f:
+        yaml.safe_dump(MULTI_CFG, f)
+
+    def train_argv(tag):
+        return ["--cfg", os.path.join(REPO, "configs", "ego4d_nlq.yaml"),
+                cfg_file, multi_cfg, "--set", "log.root",
+                os.path.join(mroot, tag), "seed", str(SEED), "train.epochs",
+                "1", "train.warmup_epochs", "0", "aux.log_interval", "1"]
+
+    def logged(logdir):
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    def snapshot(trainer):
+        return {"model": {k: v.detach().clone() for k, v in
+                          trainer.model.state_dict().items()},
+                "ema": {k: v.detach().clone() for k, v in
+                        trainer.ema.state_dict().items()}}
+
+    # the one-process reference on the same batches, twice: the second run
+    # measures how far two runs of one process land apart (cuDNN's weight
+    # gradients and the loss's scatters add in no fixed order)
+    t0 = time.perf_counter()
+    ref = build_trainer(train_argv("ref"))
+    start = snapshot(ref)
+    train(ref)
+    ref_s = time.perf_counter() - t0
+    ref_end = snapshot(ref)
+    again = snapshot(train(build_trainer(train_argv("ref_again"))))
+    noise = {k: update_rel_l2(again[k], ref_end[k], start[k])
+             for k in ("model", "ema")}
+    ref_dir = ref.cfg.aux.logdir
+    ref_log = logged(ref_dir)
+    steps = ref.step
+    n_micro = max(ref.cfg.train.batch_size // ref.micro, 1)
+    assert steps == 2 and n_micro == 1, (steps, n_micro)
+    launches = {n: 0 for n in PER_DECODE}
+
+    for leg, nproc, extra in (("ddp1", 1, []),
+                              ("ddp2", 2, ["--device", "cuda:0",
+                                           "--dist-backend", "gloo"])):
+        reports, out, wall = torchrun(nproc, "train", train_argv(leg) + extra,
+                                      os.path.join(mroot, leg))
+        logdir = ref_dir.replace(os.path.join(mroot, "ref"),
+                                 os.path.join(mroot, leg))
+        got = logged(logdir)
+        assert [g["itr"] for g in got] == [r["itr"] for r in ref_log]
+        loss_diff = max(abs(g[k] - r[k]) for g, r in zip(got, ref_log)
+                        for k in ("train/cls", "train/reg", "train/total"))
+        loss_rel = max(abs(g[k] - r[k]) / abs(r[k]) for g, r in zip(got, ref_log)
+                       for k in ("train/cls", "train/reg", "train/total"))
+        ckpt = torch.load(os.path.join(logdir, "models", "last.pth"),
+                          weights_only=True)
+        assert not [k for k in ckpt["model"] if k.startswith("module.")]
+        upd = {"model": update_rel_l2(ckpt["model"], ref_end["model"],
+                                      start["model"]),
+               "ema": update_rel_l2(ckpt["model_ema"], ref_end["ema"],
+                                    start["ema"])}
+        want = {n: c * steps * n_micro for n, c in PER_DECODE.items()}
+        backend = "nccl" if leg == "ddp1" else "gloo"
+        emit({"phase": "multi", "leg": leg, "launch": f"python -m "
+              f"torch.distributed.run --standalone --nproc_per_node {nproc} "
+              f"chip_smoke.py --rank-worker train (decafnet_tpu_torch.train's "
+              f"build_trainer + train)", "backend": backend,
+              "videos_per_rank": ref.cfg.train.batch_size // nproc,
+              "steps": steps, "losses": [{k: g[k] for k in g if k.startswith(
+                  "train/")} for g in got],
+              "ref_losses": [{k: r[k] for k in r if k.startswith("train/")}
+                             for r in ref_log],
+              "loss_max_abs_diff": loss_diff, "loss_max_rel": loss_rel,
+              "weights": upd["model"], "ema": upd["ema"],
+              "one_process_twice": noise,
+              "ranks": reports, "expected_launches_per_rank": want,
+              "step_ms": [1e3 * g["itr_time"] for g in got],
+              "ref_step_ms": [1e3 * r["itr_time"] for r in ref_log],
+              "ref_run_s": ref_s, "wall_s": wall, "card": smi,
+              "note": "two ranks share one card: no speed is read from "
+                      "these walls" if nproc > 1 else "world 1 over NCCL",
+              "tol": {"loss_rtol": MULTI_LOSS_RTOL,
+                      "update_rel_l2_all": GRAD_REL_L2_ALL,
+                      "update_rel_l2_leaf": GRAD_REL_L2_LEAF}})
+        assert [(r["rank"], r["world_size"], r["backend"]) for r in reports] \
+            == [(i, nproc, backend) for i in range(nproc)], reports
+        for r in reports:
+            assert r["launches"] == want, (leg, r["launches"], want)
+            launches = {n: launches[n] + r["launches"][n] for n in PER_DECODE}
+        assert loss_rel <= MULTI_LOSS_RTOL, (leg, loss_rel)
+        for what, u in upd.items():
+            assert u["update_rel_l2_all"] <= GRAD_REL_L2_ALL and \
+                u["worst_leaves"][0]["rel_l2"] <= GRAD_REL_L2_LEAF, (leg, what, u)
+
+    # process-sharded eval over the eval phase's experiment
+    base_m, base_r, base_l = eval_base
+    order = [v["vid_id"] for v in base_r.videos]
+    reports, out, wall = torchrun(
+        2, "eval",
+        ["--name", eval_logdir, "--device", "cuda:0", "--dist-backend", "gloo",
+         "--set", "eval.save_results", "True"], os.path.join(mroot, "eval2"))
+    shards = [EvalResults.load(os.path.join(eval_logdir, f"results_last.pk.r{r}"))
+              for r in (0, 1)]
+    eval2 = merged_results(shards, order)
+    runs = {"device_nms": eval_base,
+            "eval2": (None, eval2, [l for v in eval2.videos for l in v["losses"]])}
+
+    # stacked videos in this process: V = 4 (the path) and V = 1, in turns
+    stack = {}
+    for V in (4, 1, 1, 4):
+        ev = build_evaluator(["--name", eval_logdir, "--set", "eval.save_results",
+                              "True", "eval.shard_videos", str(V)])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = ev.run()
+        torch.cuda.synchronize()
+        wall_v = time.perf_counter() - t0
+        counts, calls = ops.launch_counts(), ev.decoder.decode_calls
+        # stacked videos finish in group order: the dump in the base order
+        results = merged_results([EvalResults.load(os.path.join(
+            eval_logdir, "results_last.pk"))], order)
+        prev = stack.get(V, {"wall_s": [], "ms_per_video": []})
+        stack[V] = {"calls": calls, "launches": counts,
+                    "wall_s": prev["wall_s"] + [wall_v],
+                    "ms_per_video": prev["ms_per_video"] + [1e3 * wall_v / len(order)],
+                    "phase_s": {k: sum(v) for k, v in ev.decoder.time_dict.items()}}
+        runs[f"stack{V}"] = (metrics, results,
+                             [l for v in results.videos for l in v["losses"]])
+        assert counts == {n: c * calls for n, c in PER_DECODE.items()}, (V, counts)
+        assert np.array_equal(metrics, base_m), (V, metrics, base_m)
+        if V == 4:
+            launches = {n: launches[n] + counts[n] for n in PER_DECODE}
+    annotated, n_q = annotated_recall(runs, tuple(ev.cfg.eval.ranks),
+                                      tuple(ev.cfg.eval.iou_threshs))
+    checks = {}
+    for mode in ("eval2", "stack4", "stack1"):
+        _, results, losses = runs[mode]
+        seg_d, sc_d = same_detections(eval_answers(base_r), eval_answers(results))
+        loss_d = max(abs(a[k] - b[k]) / (LOSS_ATOL / LOSS_RTOL + abs(b[k]))
+                     for a, b in zip(losses, base_l) for k in a)
+        checks[mode] = {"seg_s": seg_d, "score": sc_d, "loss_rel": loss_d,
+                        "annotated": annotated[mode].tolist()}
+    emit({"phase": "multi", "leg": "eval2", "launch": "python -m "
+          "torch.distributed.run --standalone --nproc_per_node 2 chip_smoke.py "
+          "--rank-worker eval (decafnet_tpu_torch.eval's build_evaluator + "
+          "run)", "backend": "gloo", "ranks": reports,
+          "recall": base_m.tolist(), "annotated_base":
+          annotated["device_nms"].tolist(), "check": checks["eval2"],
+          "wall_s": wall, "card": smi})
+    emit({"phase": "multi", "leg": "stack", "shard_videos": 4,
+          "runs": "V = 4, 1, 1, 4 in turns; phase_s of the last run of each",
+          "decode_calls": {V: stack[V]["calls"] for V in stack},
+          "launches_per_decode_call": PER_DECODE,
+          "launches": {V: stack[V]["launches"] for V in stack},
+          "wall_s": {V: stack[V]["wall_s"] for V in stack},
+          "ms_per_video": {V: stack[V]["ms_per_video"] for V in stack},
+          "phase_s": {V: stack[V]["phase_s"] for V in stack},
+          "check": {"stack4": checks["stack4"], "stack1": checks["stack1"]},
+          "note": "the wall is recorded, not claimed", "card": smi})
+    for r in reports:
+        assert r["recall"] == base_m.tolist() and r["queries"] == 48, r
+        assert r["launches"] == {n: c * r["decode_calls"]
+                                 for n, c in PER_DECODE.items()}, r
+        launches = {n: launches[n] + r["launches"][n] for n in PER_DECODE}
+    assert sorted(r["videos"] for r in reports) == [6, 6], reports
+    assert stack[4]["calls"] < stack[1]["calls"] == 12, stack
+    for mode, c in checks.items():
+        assert np.array_equal(annotated[mode], annotated["device_nms"]), mode
+        assert c["seg_s"] <= SEG_TOL_S and c["score"] <= SCORE_TOL, (mode, c)
+        assert c["loss_rel"] <= LOSS_RTOL, (mode, c)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -1903,13 +2246,15 @@ def main():
     by_path = {}
     by_path["serve"], service, requests = run_serve(dev)
     with tempfile.TemporaryDirectory() as root:
-        by_path["eval"], logdir = run_eval(root)
+        by_path["eval"], logdir, eval_base = run_eval(root)
         by_path["http"] = run_http(logdir, service, requests)
         cfg_file = write_train_data(root)
         by_path["train"] = run_train(root, cfg_file)
         by_path["remat"] = run_remat(root, cfg_file)
         by_path["variants"] = run_variants(dev, root)
         by_path["encode"], by_path["encode_cli"] = run_encode(dev, service, smi, root)
+        del service
+        by_path["multi"] = run_multi(root, cfg_file, logdir, eval_base, smi)
     launches = {n: sum(p[n] for p in by_path.values()) for n in PER_DECODE}
 
     sources = {"conv3_ln_act": ("decafnet_tpu_torch/csrc/conv3_ln_act.cu",
@@ -1942,4 +2287,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

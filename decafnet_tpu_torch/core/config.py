@@ -260,9 +260,9 @@ def _base_eval(data):
     ev.max_num_queries = 32     # query batching bucket cap
     ev.reference_exact = False  # host C++ SoftNMS per query
     ev.save_results = False     # dump per-video detections for analysis
-    ev.shard_videos = 0         # multi-device eval: not in the port yet
-    ev.shard_time = 0           # (ROADMAP item 11); values > 1 raise
-    ev.shard_processes = True
+    ev.shard_videos = 0         # V > 1: decode groups of V videos per call
+    ev.shard_time = 0           # > 1 raises (ROADMAP item 11)
+    ev.shard_processes = True   # in a process group: per-rank video shards
     return ev
 
 
@@ -282,7 +282,9 @@ def _base_tpu():
     these the port reads ``compute_dtype`` ("auto" and "float32" run f32,
     "bfloat16" raises: ROADMAP item 12), ``remat`` / ``remat_policy``
     (activation checkpointing of the video encoders in training),
-    ``shard_time`` (raises: ROADMAP item 11) and ``video_major_train``."""
+    ``shard_time`` (sequence parallelism, raises: ROADMAP item 11) and
+    ``video_major_train``. Data-parallel training needs no key here: it
+    runs under ``torchrun``."""
     tpu = CfgNode()
     tpu.mesh_shape = None
     tpu.compute_dtype = "auto"

@@ -2,12 +2,21 @@
 
     python -m decafnet_tpu_torch.eval --name <experiment_dir> --ckpt <id>
         [--dryrun] [--set dotted.key value ...] [--device cuda|cpu]
+        [--dist-backend nccl|gloo]
 
 Loads the frozen opt.yaml of the experiment directory, backfills defaults
 introduced since it was written, applies the overrides, loads the EMA
 weights of ``models/<ckpt>.pth`` and prints the Rank@k / IoU@t table and
 the mean eval losses. Runs on the CUDA card unless ``--device`` says
 otherwise; raises where there is none.
+
+Under ``torchrun --nproc_per_node N -m decafnet_tpu_torch.eval ...`` each
+rank (NCCL on the cards, gloo with ``--device cpu``, or ``--dist-backend``)
+evaluates its share of the videos (``eval.shard_processes``) and the lead
+prints the global table. ``--set eval.shard_videos V`` decodes same-bucket
+groups of V videos in one call (one process only). A rank that finishes
+its share first waits for the others at most ``parallel.TIMEOUT_MIN``
+(120 minutes).
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from __future__ import annotations
 import argparse
 import sys
 
+from .. import parallel
 from .evaluator import Evaluator, config_from_logdir
 
 
@@ -30,13 +40,19 @@ def parse_args(argv=None):
                         help="evaluate the first video only")
     parser.add_argument("--set", dest="set_cfgs", nargs="*", default=None)
     parser.add_argument("--device", default=None,
-                        help="cuda (default) or cpu")
+                        help="cuda (default; cuda:LOCAL_RANK under torchrun) "
+                        "or cpu")
+    parser.add_argument("--dist-backend", default=None,
+                        help="process-group backend under torchrun: nccl "
+                        "(default on CUDA) or gloo (default with --device cpu)")
     return parser.parse_args(argv)
 
 
 def build_evaluator(argv=None):
     """The Evaluator that :func:`main` runs for these arguments."""
     args = parse_args(argv)
+    parallel.init_distributed(
+        args.dist_backend or ("gloo" if args.device == "cpu" else None))
     cfg = config_from_logdir(args.name, args.ckpt, args.set_cfgs,
                              dryrun=args.dryrun)
     evaluator = Evaluator(cfg, device=args.device)
@@ -45,8 +61,12 @@ def build_evaluator(argv=None):
 
 
 def main(argv=None):
-    """Evaluate and return the (ranks, iou_threshs) recall matrix."""
-    return build_evaluator(argv).run()
+    """Evaluate and return the (ranks, iou_threshs) recall matrix (the
+    global one in a process group)."""
+    try:
+        return build_evaluator(argv).run()
+    finally:
+        parallel.destroy()
 
 
 if __name__ == "__main__":

@@ -15,8 +15,12 @@ same call computes the per-query eval losses (focal and IoU over the
 annotated points). Wall-clock goes into the reference's buckets: prepare /
 forward / post_process / nms.
 
-:class:`Evaluator` walks a dataset one video at a time, fills the
-``RecallMeter`` and prints the Rank@k / IoU@t table and the mean losses.
+:class:`Evaluator` walks a dataset one video at a time (or, with
+``eval.shard_videos`` V > 1, decodes same-bucket groups of V videos in one
+call), fills the ``RecallMeter`` and prints the Rank@k / IoU@t table and the
+mean losses. In a process group (``eval.shard_processes``) each rank
+evaluates its rank-strided share of the videos and the counts and loss sums
+are summed over the ranks, so every rank ends with the global table.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ..core import (CfgNode, get_cfg_defaults, update_eval_data, update_from,
 from ..data import DataLoader, batchify_eval, make_dataset, min_chunk_size
 from ..models import load_params, load_pth, make_model, require_two_heads
 from ..models.points import fpn_lengths, generate_points, select_points
+from .. import parallel
 from ..ops.masked import max_pool1d
 from ..ops.nms import batched_nms_device, batched_nms_host
 from ..train.annotate import annotate_points
@@ -43,14 +48,15 @@ from .metrics import RecallMeter
 
 
 def resolve_device(device=None):
-    """``None`` means the CUDA card and raises where there is none; the CPU
-    is used only when asked for."""
+    """``None`` means the CUDA card (this process's ``cuda:LOCAL_RANK`` in a
+    process group) and raises where there is none; the CPU is used only
+    when asked for."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("the port runs on a CUDA device by default and "
                                "none is available; pass device='cpu' to run "
                                "on the CPU")
-        device = "cuda"
+        device = parallel.local_device() if parallel.initialized() else "cuda"
     return torch.device(device)
 
 
@@ -301,17 +307,21 @@ class Decoder:
 
 def check_supported(cfg):
     """Raise for eval settings the port does not have yet, naming the
-    ROADMAP item, instead of running something else."""
+    ROADMAP item, instead of running something else; and for the
+    combinations the JAX Evaluator refuses."""
     ev = cfg.eval
-    for key in ("shard_videos", "shard_time"):
-        if int(ev.get(key) or 1) > 1:
-            raise NotImplementedError(
-                f"eval.{key}={ev[key]}: multi-device eval is not in the port "
-                f"yet (ROADMAP item 11)")
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError("multi-process eval is not in the port yet "
-                                  "(ROADMAP item 11)")
+    V, S = int(ev.get("shard_videos") or 1), int(ev.get("shard_time") or 1)
+    if V > 1 and S > 1:
+        raise ValueError("eval.shard_videos and eval.shard_time are exclusive")
+    if S > 1:
+        raise NotImplementedError(
+            f"eval.shard_time={ev.shard_time}: sequence-parallel eval is not "
+            f"in the port yet (ROADMAP item 11)")
+    if V > 1 and parallel.world_size() > 1:
+        raise ValueError(
+            f"eval.shard_videos={V} stacks videos within one process; in a "
+            f"multi-process group use eval.shard_processes (per-process "
+            f"video shards) instead")
 
 
 class Evaluator:
@@ -325,7 +335,14 @@ class Evaluator:
     each :meth:`run` instead, and the log goes to stdout until the trainer
     sets one. ``device``: None for the CUDA card (raises without one), or
     explicit. ``video_ms`` holds each video's wall time of the last
-    :meth:`run`."""
+    :meth:`run` (from its load to its last decoded query chunk), and
+    ``loss_means`` its mean eval losses (over every rank's queries).
+
+    In a process group of W > 1 ranks with ``eval.shard_processes`` (the
+    default), rank r loads and evaluates videos r, r + W, ... and
+    :meth:`run` sums the counts and losses over the ranks; only the lead
+    writes the log. The trainer's evaluator (``train_time``) runs on the
+    lead alone and never shards."""
 
     def __init__(self, cfg, params=None, device=None, train_time=False):
         require_two_heads(cfg, "Evaluator")
@@ -333,8 +350,15 @@ class Evaluator:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dataset = make_dataset(cfg, is_training=False)
+        # the rank shard is taken before any feature IO: the loader reads
+        # only this rank's videos
+        self.shard_proc = (parallel.world_size() > 1 and not train_time
+                           and bool(cfg.eval.get("shard_processes", True)))
+        self.proc_rank, self.proc_world = ((parallel.rank(), parallel.world_size())
+                                           if self.shard_proc else (0, 1))
         self.loader = DataLoader(self.dataset, batch_size=1, shuffle=False,
-                                 drop_last=False,
+                                 drop_last=False, rank=self.proc_rank,
+                                 world_size=self.proc_world,
                                  num_threads=cfg.train.num_workers)
 
         model = make_model(cfg)
@@ -349,22 +373,91 @@ class Evaluator:
 
         self.tag = cfg.aux.get("ckpt", "eval")
         root = cfg.aux.logdir
-        if root and not train_time:
+        self.is_lead = parallel.is_lead()
+        if root and not train_time and self.is_lead:
             os.makedirs(root, exist_ok=True)
             self.logger = Logger(os.path.join(root, f"eval_{self.tag}.txt"))
         else:
-            self.logger = Logger()
+            self.logger = Logger(quiet=not self.is_lead)
         self.video_ms = []
 
-    def predict_video(self, sample):
-        """All detections + loss diagnostics for one video's queries."""
-        meta, items = self.decoder.video_items(sample)
-        results, losses = [], []
-        for item in items:
-            (r, l), = self.decoder.decode_group([item], losses=True)
-            results.extend(r)
-            losses.extend(l)
-        return meta, results, losses
+    def _decode_videos(self, V, loss_list, dump):
+        """Stream work items into same-bucket groups of V videos; decode a
+        group when full (padding the final partial groups with inert
+        ``n_q = 0`` copies) and finish each video once all its query chunks
+        have returned (the JAX ``_run_sharded`` on a mesh of one device).
+        At V = 1 every item is decoded alone as it comes, and the videos
+        finish in the loader's order. Each video's wall time, from its load
+        to its last returned chunk, goes to ``video_ms``."""
+        pending = {}       # bucket key -> items
+        states = {}        # clip_id -> assembly state
+
+        def flush(key):
+            items = pending.pop(key)
+            real = len(items)
+            while len(items) < V:   # inert pad: n_q = 0 rows are ignored
+                items.append({**items[0], "n_q": 0})
+            decoded = self.decoder.decode_group(items, losses=True)
+            for item, (r, l) in zip(items[:real], decoded[:real]):
+                st = states[item["meta"]["clip_id"]]
+                qs = item["q_start"]
+                st["results"][qs:qs + item["n_q"]] = r
+                st["losses"][qs:qs + item["n_q"]] = l
+                st["done"] += item["n_q"]
+                if st["done"] == st["total"]:
+                    self._finish_video(st["meta"], st["results"],
+                                       st["losses"], loss_list, dump)
+                    self.video_ms.append(
+                        1e3 * (time.perf_counter() - st["t0"]))
+                    del states[item["meta"]["clip_id"]]
+
+        for samples in self.loader:
+            t0 = time.perf_counter()
+            meta, items = self.decoder.video_items(samples[0])
+            n = meta["num_queries"]
+            states[meta["clip_id"]] = {"meta": meta, "total": n, "done": 0,
+                                       "t0": t0,
+                                       "results": [None] * n,
+                                       "losses": [None] * n}
+            for item in items:
+                key = self.decoder.bucket_key(item)
+                pending.setdefault(key, []).append(item)
+                if len(pending[key]) == V:
+                    flush(key)
+            if self.cfg.aux.dryrun:
+                break
+        for key in list(pending):
+            flush(key)
+        if states:
+            raise RuntimeError(f"unfinished videos: {list(states)}")
+
+    def _allreduce_eval(self, loss_list):
+        """The global table from every rank's shard: the RecallMeter
+        counts, the text count and the per-key loss sums and counts travel
+        as one float64 vector summed over the ranks, so every rank ends with
+        the same global metrics. Returns a one-dict loss list whose means
+        are the global means."""
+        keys = ("cls_loss", "reg_loss")
+        sums, cnts = np.zeros(len(keys)), np.zeros(len(keys))
+        for d in loss_list:
+            for i, k in enumerate(keys):
+                v = d.get(k, np.nan)
+                if np.isfinite(v):
+                    sums[i] += v
+                    cnts[i] += 1
+        payload = np.concatenate([self.meter.counts.ravel().astype(np.float64),
+                                  [float(self.meter.text_cnt)], sums, cnts])
+        # under NCCL the vector travels on this rank's card, under gloo on
+        # the CPU
+        device = self.device if parallel.backend() == "nccl" else "cpu"
+        total = parallel.all_reduce_sum(torch.tensor(
+            payload, dtype=torch.float64, device=device)).cpu().numpy()
+        nc = self.meter.counts.size
+        self.meter.counts = total[:nc].reshape(self.meter.counts.shape)
+        self.meter.text_cnt = int(round(total[nc]))
+        g_sums, g_cnts = total[nc + 1:nc + 1 + len(keys)], total[nc + 1 + len(keys):]
+        return [{k: (g_sums[i] / g_cnts[i] if g_cnts[i] else float("nan"))
+                 for i, k in enumerate(keys)}]
 
     def _finish_video(self, meta, results, losses, loss_list, dump):
         targets_sec = np.asarray(meta["segment"], np.float64)
@@ -378,10 +471,12 @@ class Evaluator:
             dump.add_video(meta["clip_id"], targets_sec, results, losses)
 
     def run(self, ema=None, tag=None):
-        """Evaluate every video (the first only under ``aux.dryrun``);
-        returns the (ranks, iou_threshs) recall matrix. ``ema`` (a state
-        dict or a module, e.g. the trainer's EMA model) is copied into the
-        evaluated model first; ``tag`` names the results dump."""
+        """Evaluate every video (the first only under ``aux.dryrun``; this
+        rank's share in a process group); returns the (ranks,
+        iou_threshs) recall matrix. ``ema`` (a state dict or a module, e.g.
+        the trainer's EMA model) is copied into the evaluated model first;
+        ``tag`` names the results dump (``results_<tag>.pk``, with a
+        ``.r<rank>`` suffix for a rank's shard)."""
         if ema is not None:
             self.model.load_state_dict(
                 ema.state_dict() if isinstance(ema, torch.nn.Module) else ema)
@@ -395,21 +490,24 @@ class Evaluator:
         loss_list = []
         dump = analysis.EvalResults(self.tag) if self.cfg.eval.get("save_results") else None
 
-        for samples in self.loader:
-            t_video = time.perf_counter()
-            meta, results, losses = self.predict_video(samples[0])
-            self.video_ms.append(1e3 * (time.perf_counter() - t_video))
-            self._finish_video(meta, results, losses, loss_list, dump)
-            if self.cfg.aux.dryrun:
-                break
-        if dump is not None and self.cfg.aux.logdir:
-            dump.save(os.path.join(self.cfg.aux.logdir, f"results_{self.tag}.pk"))
+        self._decode_videos(max(int(self.cfg.eval.get("shard_videos") or 1), 1),
+                            loss_list, dump)
+        if dump is not None and self.cfg.aux.logdir and (self.shard_proc
+                                                        or self.is_lead):
+            name = f"results_{self.tag}.pk"
+            if self.shard_proc:   # this rank's shard of the detections
+                name += f".r{self.proc_rank}"
+            dump.save(os.path.join(self.cfg.aux.logdir, name))
 
+        if self.shard_proc:
+            loss_list = self._allreduce_eval(loss_list)
         metrics, table = self.meter.table()
         log_str = "\nFinal:\n" + table + "\n-----\n"
+        self.loss_means = {}
         if loss_list:
-            loss_dict = easy_reduce(loss_list, "mean", skip_nan=True)
-            log_str += "; ".join(f"{k}: {v:.3f}" for k, v in loss_dict.items())
+            self.loss_means = easy_reduce(loss_list, "mean", skip_nan=True)
+            log_str += "; ".join(f"{k}: {v:.3f}"
+                                 for k, v in self.loss_means.items())
         self.logger.write(log_str)
         phase_summary = " | ".join(
             f"{k}: {sum(v):.2f}s (n={len(v)})"

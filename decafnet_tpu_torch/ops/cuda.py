@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import functools
 import glob
 import hashlib
@@ -97,16 +98,37 @@ def build_log(source):
         return f.read()
 
 
+@contextlib.contextmanager
+def _exclusive(directory):
+    """Hold an exclusive lock on ``directory/.lock`` (``flock``): processes
+    that build at once (the ranks of a ``torchrun`` job) take turns."""
+    with open(os.path.join(directory, ".lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build():
     """Compile the kernels if this source hash has no library yet.
-    Returns (library path, seconds spent compiling; 0.0 when cached)."""
+    Returns (library path, seconds spent compiling; 0.0 when cached).
+    Concurrent callers build once: the first takes the build directory's
+    lock and compiles, the others wait for it and find the library."""
     path = library_path()
     if os.path.exists(path):
         return path, 0.0
-    t0 = time.perf_counter()
-    nvcc = toolkit_binary()
     out_dir = os.path.dirname(path)
     os.makedirs(out_dir, exist_ok=True)
+    with _exclusive(out_dir):
+        if os.path.exists(path):    # built while this process waited
+            return path, 0.0
+        return path, _compile(path, out_dir)
+
+
+def _compile(path, out_dir):
+    t0 = time.perf_counter()
+    nvcc = toolkit_binary()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         cus = sources()
         objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in cus]
@@ -128,7 +150,7 @@ def build():
         subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", tmp_lib],
                        check=True, capture_output=True, text=True)
         os.replace(tmp_lib, path)
-    return path, time.perf_counter() - t0
+    return time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=1)

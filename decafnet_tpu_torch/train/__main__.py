@@ -2,12 +2,25 @@
 
     python -m decafnet_tpu_torch.train --cfg a.yaml [b.yaml ...]
         [--set dotted.key value ...] [--device cuda|cpu]
+        [--dist-backend nccl|gloo]
 
 Builds the config (task defaults <- files <- overrides), writes the
 experiment's ``opt.yaml`` into ``<log.root>/<aux.log>/<aux.exp>/<aux.runid>``,
 runs the Trainer (which resumes from ``models/last.pth`` and
 ``states/last.pt`` when both exist) and writes ``finished``. Runs on the
 CUDA card unless ``--device`` says otherwise; raises where there is none.
+
+Data parallelism, one process per card::
+
+    torchrun --nproc_per_node N -m decafnet_tpu_torch.train --cfg a.yaml ...
+
+joins ``torchrun``'s process group (NCCL on the cards, or gloo with
+``--device cpu``; ``--dist-backend`` picks one explicitly), each rank on
+``cuda:LOCAL_RANK`` unless ``--device`` names a device. ``train.batch_size``
+is the global batch; the lead rank writes ``opt.yaml``, the logs, the
+checkpoints and ``finished``. Only the lead runs the train-time eval while
+the other ranks wait at a barrier, so one eval must take less than
+``parallel.TIMEOUT_MIN`` (120 minutes), after which the group fails.
 """
 
 from __future__ import annotations
@@ -16,6 +29,7 @@ import argparse
 import os
 import sys
 
+from .. import parallel
 from ..core import setup_cfg
 from .trainer import Trainer
 
@@ -29,35 +43,55 @@ def parse_args(argv=None):
     parser.add_argument("--set", dest="set_cfgs", nargs="*", default=None,
                         help="dotted.key value override pairs")
     parser.add_argument("--device", default=None,
-                        help="cuda (default) or cpu")
+                        help="cuda (default; cuda:LOCAL_RANK under torchrun) "
+                        "or cpu")
+    parser.add_argument("--dist-backend", default=None,
+                        help="process-group backend under torchrun: nccl "
+                        "(default on CUDA) or gloo (default with --device cpu)")
     return parser.parse_args(argv)
+
+
+def join_group(args):
+    """``torchrun``'s process group for the CLI's ``--device`` and
+    ``--dist-backend`` (nothing outside ``torchrun``)."""
+    backend = args.dist_backend or ("gloo" if args.device == "cpu" else None)
+    return parallel.init_distributed(backend)
 
 
 def build_trainer(argv=None):
     """The config, ``opt.yaml`` and Trainer that :func:`main` runs."""
     args = parse_args(argv)
+    join_group(args)
     cfg = setup_cfg(args.cfg, args.set_cfgs)
+    # a seed drawn at random must be the same on every rank
+    cfg.seed = parallel.broadcast_object(cfg.seed)
     root = cfg.aux.logdir
-    os.makedirs(root, exist_ok=True)
-    cfg.dump_to_file(os.path.join(root, "opt.yaml"))
-    print(f"experiment: {cfg.aux.exp}", flush=True)
-    print(f"logdir: {root}", flush=True)
+    if parallel.is_lead():
+        os.makedirs(root, exist_ok=True)
+        cfg.dump_to_file(os.path.join(root, "opt.yaml"))
+        print(f"experiment: {cfg.aux.exp}", flush=True)
+        print(f"logdir: {root}", flush=True)
     trainer = Trainer(cfg, device=args.device)
     print(f"device: {trainer.device}", flush=True)
     return trainer
 
 
 def train(trainer):
-    """Run ``trainer`` to the end and write the ``finished`` sentinel."""
+    """Run ``trainer`` to the end; the lead writes the ``finished``
+    sentinel."""
     trainer.run()
-    with open(os.path.join(trainer.cfg.aux.logdir, "finished"), "w") as f:
-        f.write("done\n")
+    if trainer.is_lead:
+        with open(os.path.join(trainer.cfg.aux.logdir, "finished"), "w") as f:
+            f.write("done\n")
     return trainer
 
 
 def main(argv=None):
     """Train; returns the finished Trainer."""
-    return train(build_trainer(argv))
+    try:
+        return train(build_trainer(argv))
+    finally:
+        parallel.destroy()
 
 
 if __name__ == "__main__":

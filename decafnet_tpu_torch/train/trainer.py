@@ -9,6 +9,14 @@ AdamW at the scheduled lr), the EMA of the weights and the loss-norm EMA
 ``(focal(cls1) + focal(cls2)) / 2 + loss_weight * DIoU``, each summed over
 the valid points and divided by the running loss norm.
 
+Data parallelism: in a process group (``torchrun``, see
+:mod:`decafnet_tpu_torch.parallel`) every rank loads its contiguous block
+of each global batch, the model runs under ``DistributedDataParallel``
+with gradients summed over the ranks (the JAX step's loss is a sum over the
+global batch), the metrics and the positive-point count are summed before
+the loss-norm EMA, and only the lead rank writes logs, checkpoints and runs
+the train-time eval; the result equals the single-process run's.
+
 Checkpoints: ``models/{last,<epoch>-<itr>}.pth`` hold ``{model, model_ema}``
 state dicts in the reference layout (what ``load_pth`` and the JAX
 ``load_torch_checkpoint`` read); ``states/last.pt`` holds the optimizer
@@ -20,6 +28,7 @@ generator seeded by ``cfg.seed`` again.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import signal
@@ -27,7 +36,10 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
+from .. import parallel
 from ..data import DataLoader, batchify_train, make_dataset
 from ..models import init_random, load_pth, make_model, require_two_heads
 from ..models.points import fpn_lengths, generate_points, select_points
@@ -49,10 +61,10 @@ def check_supported(cfg):
         raise NotImplementedError(
             "tpu.shard_time: sequence-parallel training is not in the port "
             "yet (ROADMAP item 11)")
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError("multi-process (DDP) training is not in the "
-                                  "port yet (ROADMAP item 11)")
+    world, batch = parallel.world_size(), cfg.train.batch_size
+    if batch % world:
+        raise ValueError(f"train.batch_size {batch} does not divide over "
+                         f"{world} processes")
     if cfg.task not in TASKS:
         raise ValueError(f"task {cfg.task!r}: training knows {TASKS}")
     if cfg.train.version != 2:
@@ -156,18 +168,37 @@ def _atomic_save(obj, path):
     os.replace(tmp, path)
 
 
+def _sum_hook(state, bucket):
+    """DDP communication hook: the bucket's gradients summed over the ranks
+    (DDP's default averages them)."""
+    fut = dist.all_reduce(bucket.buffer(), async_op=True).get_future()
+    return fut.then(lambda f: f.value()[0])
+
+
+def rank_seed(seed, rank):
+    """The dropout generator's seed of ``rank``: ``seed`` itself on rank 0
+    (so one process draws what the single-process run draws), a stream of
+    its own on every other rank."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence((seed, rank)).generate_state(1)[0])
+
+
 def _to_device(batch, device):
     return {k: torch.from_numpy(v).to(device, non_blocking=True)
             for k, v in batch.items()}
 
 
 class Trainer:
-    """Training of ``cfg`` on one device (None: the CUDA card, raising
-    where there is none; the CPU only when asked).
+    """Training of ``cfg`` on one device (None: the CUDA card, this
+    process's ``cuda:LOCAL_RANK`` in a process group, raising where there is
+    none; the CPU only when asked).
 
-    ``model`` trains, ``ema`` holds the EMA weights (what eval reads), and
-    ``generator`` (on the device, seeded by ``cfg.seed``) feeds the
-    dropouts."""
+    ``model`` (the bare module) trains, ``ema`` holds the EMA weights (what
+    eval reads), and ``generator`` (on the device, seeded by ``cfg.seed``
+    and the rank: :func:`rank_seed`) feeds the dropouts. In a process group
+    ``ddp`` is ``model`` under ``DistributedDataParallel`` and runs the
+    forwards; else it is None."""
 
     def __init__(self, cfg, device=None):
         from ..eval.evaluator import Evaluator, resolve_device
@@ -175,7 +206,10 @@ class Trainer:
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.rank, self.world = parallel.rank(), parallel.world_size()
+        self.is_lead = self.rank == 0
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(cfg.seed, self.rank))
 
         self.num_epochs = cfg.train.epochs + cfg.train.warmup_epochs
         self.dataset = make_dataset(cfg, num_epochs=self.num_epochs,
@@ -184,7 +218,8 @@ class Trainer:
         self.max_num_text = cfg.data.max_num_text or 1
         self.loader = DataLoader(
             self.dataset, cfg.train.batch_size, shuffle=True, seed=cfg.seed,
-            num_threads=cfg.train.num_workers,
+            num_threads=cfg.train.num_workers, rank=self.rank,
+            world_size=self.world, shard_within_batch=self.world > 1,
             transform=lambda samples: batchify_train(
                 samples, cfg.data.max_vid_len, cfg.data.max_text_len,
                 self.max_num_text))
@@ -200,7 +235,6 @@ class Trainer:
         self.model = model.to(self.device).train()
         self.ema = copy.deepcopy(self.model).eval().requires_grad_(False)
         self.points_t = train_points(cfg, self.device)
-        self.loss_fn = build_microbatch_loss(self.model, cfg)
 
         sched_cfg = dict(cfg.scheduler, _base_lr=cfg.optimizer.lr)
         self.optimizer = Optimizer(self.model, cfg.optimizer,
@@ -209,10 +243,12 @@ class Trainer:
                                       dtype=torch.float32, device=self.device)
 
         root = cfg.aux.logdir
-        os.makedirs(os.path.join(root, "models"), exist_ok=True)
-        os.makedirs(os.path.join(root, "states"), exist_ok=True)
-        self.logger = Logger(os.path.join(root, "log.txt"))
-        self.metrics_sink = MetricsSink(root, cfg)
+        if self.is_lead:
+            os.makedirs(os.path.join(root, "models"), exist_ok=True)
+            os.makedirs(os.path.join(root, "states"), exist_ok=True)
+        self.logger = Logger(os.path.join(root, "log.txt") if self.is_lead
+                             else None, quiet=not self.is_lead)
+        self.metrics_sink = MetricsSink(root, cfg, enabled=self.is_lead)
         self.loss_meters = {}
         self.timer = AverageMeter()
         n_params = sum(p.numel() for p in self.model.parameters()) / 1e6
@@ -225,8 +261,25 @@ class Trainer:
         elif cfg.aux.get("model_resume"):
             self.load_model_only(cfg.aux.model_resume)
 
+        # wrapped after the weights are loaded: DDP broadcasts rank 0's
+        # parameters at construction (every rank loads the optimizer state
+        # itself). The only buffers are constant position tables, so none
+        # is broadcast per forward; every parameter gets a gradient in
+        # every microbatch, so no unused-parameter search
+        self.ddp = None
+        if parallel.initialized():
+            self.ddp = DistributedDataParallel(
+                self.model, device_ids=(
+                    [self.device.index if self.device.index is not None
+                     else torch.cuda.current_device()]
+                    if self.device.type == "cuda" else None),
+                broadcast_buffers=False)
+            self.ddp.register_comm_hook(None, _sum_hook)
+        self.loss_fn = build_microbatch_loss(self.ddp or self.model, cfg)
+
+        # train-time eval runs on the lead only; the other ranks wait
         self.evaluator = None
-        if cfg.aux.eval_run and cfg.aux.eval_run > 0:
+        if self.is_lead and cfg.aux.eval_run and cfg.aux.eval_run > 0:
             self.evaluator = Evaluator(cfg, device=self.device,
                                        train_time=True)
 
@@ -238,13 +291,16 @@ class Trainer:
     # -- the step -----------------------------------------------------------
 
     def accumulate(self, batch, micro=None):
-        """Forward and backward over ``batch`` (device tensors) in row
-        blocks of ``micro`` videos (default ``train.microbatch_size``),
-        summing gradients into ``.grad`` (cleared first). Returns the
-        summed metrics, 0-d device tensors."""
+        """Forward and backward over ``batch`` (device tensors; in a process
+        group this rank's block of the global batch) in
+        ``global videos / micro`` row blocks (``micro`` defaults to
+        ``train.microbatch_size``), summing gradients into ``.grad``
+        (cleared first; in a group summed over the ranks after the last
+        block). Returns the metrics summed over the blocks and the ranks,
+        0-d device tensors."""
         self.optimizer.zero_grad()
         micro = micro or self.micro
-        n_micro = max(batch["vid"].shape[0] // micro, 1)
+        n_micro = max(batch["vid"].shape[0] * self.world // micro, 1)
         totals = None
         for i in range(n_micro):
             mb = {}
@@ -254,12 +310,19 @@ class Trainer:
                                      f"into {n_micro} microbatches")
                 n = v.shape[0] // n_micro
                 mb[k] = v[i * n:(i + 1) * n]
-            loss, metrics = self.loss_fn(mb, self.generator, self.loss_norm,
-                                         self.points_t)
-            loss.backward()
+            # DDP sums the gradients in the last block's backward only
+            sync = self.ddp is None or i == n_micro - 1
+            with contextlib.nullcontext() if sync else self.ddp.no_sync():
+                loss, metrics = self.loss_fn(mb, self.generator,
+                                             self.loss_norm, self.points_t)
+                loss.backward()
             metrics = {k: v.detach() for k, v in metrics.items()}
             totals = metrics if totals is None else {
                 k: totals[k] + metrics[k] for k in totals}
+        if self.world > 1:
+            keys = list(totals)
+            summed = parallel.all_reduce_sum(torch.stack([totals[k] for k in keys]))
+            totals = dict(zip(keys, summed.unbind()))
         return totals
 
     def update(self, metrics):
@@ -282,6 +345,9 @@ class Trainer:
     # -- checkpoints --------------------------------------------------------
 
     def checkpoint(self):
+        """Write the checkpoint (the lead rank only; a no-op elsewhere)."""
+        if not self.is_lead:
+            return
         root = self.cfg.aux.logdir
 
         def cpu(module):
@@ -327,7 +393,9 @@ class Trainer:
     def run(self):
         """Train to the end (one step under ``aux.dryrun``). A SIGTERM
         only sets a flag; the loop checkpoints at the next step boundary
-        and exits with code 143, and a new Trainer resumes there."""
+        and exits with code 143, and a new Trainer resumes there. In a
+        process group the ranks agree on the flag at each boundary, so all
+        of them leave at the same step."""
         cfg = self.cfg
         self.logger.write("Training started.")
         self._preempted = False
@@ -337,9 +405,18 @@ class Trainer:
                               "next step boundary.")
             self._preempted = True
 
+        def preempted():
+            # the ranks' agreed answer; a SIGTERM that lands during the
+            # all-reduce keeps its flag for the next boundary (it is never
+            # overwritten with the answer read before it)
+            agreed = parallel.any_rank(self._preempted, self.device)
+            self._preempted = self._preempted or agreed
+            return agreed
+
         def checkpoint_and_exit():
             self.logger.write("Preemption checkpoint for resume.")
             self.checkpoint()
+            parallel.barrier()
             raise SystemExit(143)
 
         try:
@@ -353,7 +430,7 @@ class Trainer:
                 for batch in self.loader:
                     metrics = self.train_step(_to_device(batch, self.device))
                     self.itr += 1
-                    if self._preempted:
+                    if preempted():
                         checkpoint_and_exit()
                     for k in ("cls", "reg", "total"):
                         self.loss_meters.setdefault(k, AverageMeter()).update(
@@ -368,7 +445,7 @@ class Trainer:
                             and self.itr % cfg.aux.eval_run == 0):
                         self.evaluate(self.itr)
                 self.epoch += 1
-                if self._preempted:
+                if preempted():
                     checkpoint_and_exit()
                 if cfg.aux.eval_by == "epoch":
                     self.evaluate(self.epoch)
@@ -381,13 +458,15 @@ class Trainer:
 
     def evaluate(self, ct):
         """Checkpoint; every ``aux.eval_run`` epochs (or itrs) also
-        evaluate the EMA weights, logging to ``eval_<epoch>_<itr>.txt``."""
+        evaluate the EMA weights, logging to ``eval_<epoch>_<itr>.txt``
+        (the lead; the other ranks wait for it)."""
         self.checkpoint()
         if (self.evaluator is not None and self.cfg.aux.eval_run > 0
                 and ct % self.cfg.aux.eval_run == 0):
             self.evaluator.logger = Logger(os.path.join(
                 self.cfg.aux.logdir, f"eval_{self.epoch}_{self.itr}.txt"))
             self.evaluator.run(ema=self.ema, tag=f"{self.epoch}_{self.itr}")
+        parallel.barrier()
 
     def log(self):
         t = len(str(self.num_itrs))

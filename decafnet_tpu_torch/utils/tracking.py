@@ -16,12 +16,14 @@ import os
 
 class MetricsSink:
     """Append metric records to ``<logdir>/metrics.jsonl``, and push them to
-    wandb where the environment allows (see the module docstring)."""
+    wandb where the environment allows (see the module docstring). A sink
+    made with ``enabled=False`` (a non-lead rank's) writes nothing."""
 
-    def __init__(self, logdir, cfg=None):
+    def __init__(self, logdir, cfg=None, enabled=True):
         self.path = os.path.join(logdir, "metrics.jsonl")
+        self.enabled = enabled
         self._wandb = None
-        if os.environ.get("WANDB_API_KEY"):
+        if enabled and os.environ.get("WANDB_API_KEY"):
             try:
                 import wandb
             except ImportError:
@@ -40,6 +42,8 @@ class MetricsSink:
                     config=cfg.to_dict() if cfg is not None else None)
 
     def log(self, record, step=None):
+        if not self.enabled:
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps(record) + "\n")
         if self._wandb is not None:

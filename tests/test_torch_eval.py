@@ -271,13 +271,20 @@ def test_missing_checkpoint_names_both_paths(experiment, tmp_path):
 
 
 @pytest.mark.parametrize("override,error", [
-    (("eval.shard_videos", "8"), NotImplementedError),
     (("eval.shard_time", "4"), NotImplementedError),
     (("tpu.compute_dtype", "bfloat16"), ValueError),
 ])
 def test_unported_settings_raise(experiment, override, error):
     with pytest.raises(error, match="ROADMAP item 1[12]"):
         eval_main(["--name", experiment, "--device", "cpu", "--set", *override])
+
+
+def test_shard_videos_runs(experiment, runs):
+    # stacked decode groups (tests/test_torch_sharded_eval.py holds them
+    # against V = 1 and the JAX run); here through the CLI
+    metrics = eval_main(["--name", experiment, "--device", "cpu", "--set",
+                         "eval.shard_videos", "8"])
+    np.testing.assert_array_equal(metrics, runs["device"]["jax"][0])
 
 
 def test_float32_compute_dtype_runs(experiment):

@@ -158,7 +158,7 @@ def test_port_imports_no_jax():
         "walked = [m for m in ('data.dataset', 'data.loader', 'eval.__main__', "
         "'train.losses', 'train.optim', 'train.trainer', 'train.__main__', "
         "'utils.analysis', 'utils.tracking', 'serve', 'encode.pipeline', "
-        "'encode.__main__') "
+        "'encode.__main__', 'parallel', 'parallel.dist') "
         "if 'decafnet_tpu_torch.' + m not in sys.modules]\n"
         "assert not walked, walked\n"
         "print('ok', len([k for k in sys.modules "
