@@ -17,6 +17,22 @@ Phases, each printing one JSON line:
            run of the same function at every served shape, and times kernel,
            plain version and, where one exists, the one PyTorch call
            computing the same function (library_ms, timed here only);
+  bf16     (after the kernels phase) holds each kernel's bf16 variant against
+           its plain version in bf16 at the same served and edge shapes,
+           within 2 bf16 eps of max(1, |plain|), and times kernel, plain
+           version and, for band attention, SDPA in bf16 (bounds at 2 bytes
+           per activation element, conv3's products at the dense bf16 rate);
+           (after the http phase) the bf16 compute mode, tpu.compute_dtype
+           bfloat16: GroundingService with the serve phase's weights on 8
+           videos x 8 queries at T = 2304 (44 / 7 / 1 launches of the bf16
+           kernels per decode call and none of the f32 ones; logits2 and
+           offsets, kernels vs plain versions in bf16, held to the noise
+           floor of plain bf16 vs the f32 kernels; bf16 vs f32 logits; wall,
+           busy share, kernel launches and peak memory of the f32 and bf16
+           services on the same batch), the eval CLI's entry point over the
+           eval phase's 12 videos (launches; R@k count flips and top-1
+           agreement with the f32 run, printed only: the weights are random)
+           and one /ground over HTTP;
   serve    builds GroundingService at the Ego4D-NLQ width
            (configs/ego4d_nlq.yaml) with seeded random weights on the card,
            answers requests through ground() and ground_many(), checks the
@@ -115,9 +131,10 @@ Phases, each printing one JSON line:
            phase's); stack, eval.shard_videos 4 in this process against
            V = 1 (the same checks, launches per stacked decode call, wall
            per video).
-Then one {"kernels": [...]} line (launches summed over the serve, eval,
-http, train, remat, variants, encode, encode CLI and multi paths, with the
-breakdown), the nvidia-smi
+Then one {"kernels": [...]} line (the three f32 kernels with their launches
+summed over the serve, eval, http, train, remat, variants, encode, encode
+CLI and multi paths, and the three bf16 variants with theirs over the bf16
+phase's serve, eval and http paths, each with the breakdown), the nvidia-smi
 name/power-limit line, and last {"ok": true, "device": {...}}. Any failed check raises: the
 script exits non-zero and prints no result. Without CUDA it exits 2.
 """
@@ -142,11 +159,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit): f32
-# outside the tensor cores, dense TF32 on the tensor cores, HBM3 bandwidth.
-# Every kernel here computes in f32; conv3_ln_act runs its products on the
-# tensor cores as three TF32 passes (3xTF32), the others on the CUDA cores.
+# outside the tensor cores, dense TF32 and bf16 on the tensor cores, HBM3
+# bandwidth. Every kernel here computes in f32; conv3_ln_act runs its
+# products on the tensor cores as three TF32 passes (3xTF32), or one bf16
+# pass in its bf16 variant, the others on the CUDA cores.
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 # the served shape: 8 videos x 8 queries of a 2304-clip bucket
@@ -208,12 +227,12 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(n_bytes, n_flops, tc_flops=0):
+def bound_ms(n_bytes, n_flops, tc_flops=0, tc_rate=TF32_FLOPS):
     """Least time for the work: bytes at the HBM rate, f32 operations at the
-    CUDA-core rate, tensor-core TF32 operations at the TF32 rate; the units
-    run side by side, so the largest of the three."""
+    CUDA-core rate, tensor-core operations at ``tc_rate`` (TF32 or bf16);
+    the units run side by side, so the largest of the three."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = max(n_flops / F32_FLOPS, tc_flops / TF32_FLOPS)
+    t_ops = max(n_flops / F32_FLOPS, tc_flops / tc_rate)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -309,8 +328,9 @@ def conv3_f64(x, mask, w, bias, ln_w, ln_b, act="relu", eps=1e-5):
     return torch.relu(y) if act == "relu" else y
 
 
-def conv3_case(dev, g, B, C, T, lens, bias=False, act="relu"):
-    x = torch.randn(B, C, T, generator=g, device=dev)
+def conv3_case(dev, g, B, C, T, lens, bias=False, act="relu", how="as_is",
+               dtype=torch.float32):
+    x = moved(torch.randn(B, C, T, generator=g, device=dev).to(dtype), how)
     w = torch.randn(C, C, 3, generator=g, device=dev) / math.sqrt(3 * C)
     b = torch.randn(C, generator=g, device=dev) if bias else None
     lw = 1 + 0.1 * torch.randn(C, 1, generator=g, device=dev)
@@ -319,22 +339,25 @@ def conv3_case(dev, g, B, C, T, lens, bias=False, act="relu"):
 
 
 def moved(x, how):
-    """``x`` (B, C, T) with the same values at another address: "offset" is
-    contiguous one element past a 16-byte boundary, "padded" sits in rows
+    """``x`` (B, C, T) with the same values and dtype at another address:
+    "offset" is contiguous one element past a 16-byte boundary, "padded"
+    sits in rows
     padded to a multiple of 4 columns (16-byte aligned rows, the last 16
     bytes of a row partly outside it); "as_is" is ``x``."""
     if how == "as_is":
         return x
     B, C, T = x.shape
     if how == "offset":
-        buf = torch.empty(B * C * T + 1, device=x.device)[1:].view(B, C, T)
+        buf = torch.empty(B * C * T + 1, device=x.device,
+                          dtype=x.dtype)[1:].view(B, C, T)
     else:
-        buf = torch.empty(B, C, T // 4 * 4 + 4, device=x.device)[..., :T]
+        buf = torch.empty(B, C, T // 4 * 4 + 4, device=x.device,
+                          dtype=x.dtype)[..., :T]
     return buf.copy_(x)
 
 
-def trio_case(dev, g, B, C, T, lens, how="as_is"):
-    x = moved(torch.randn(B, C, T, generator=g, device=dev), how)
+def trio_case(dev, g, B, C, T, lens, how="as_is", dtype=torch.float32):
+    x = moved(torch.randn(B, C, T, generator=g, device=dev).to(dtype), how)
     ws = [torch.randn(C, 1, 3, generator=g, device=dev) / math.sqrt(3)
           for _ in range(3)]
     lws = [1 + 0.1 * torch.randn(C, 1, generator=g, device=dev) for _ in range(3)]
@@ -342,13 +365,14 @@ def trio_case(dev, g, B, C, T, lens, how="as_is"):
     return (x, prefix_mask(lens, T, dev), ws, lws, lbs), {}
 
 
-def band_case(dev, g, B, T, lens, D=EMBD // HEADS, how="as_is"):
+def band_case(dev, g, B, T, lens, D=EMBD // HEADS, how="as_is",
+              dtype=torch.float32):
     """Strided (B, H, T, D) head views of (B, C, T) projections, as the
     model hands them over, scaled by 1/sqrt(sqrt(D)) like q and k there
     (``how``: see :func:`moved`; "contiguous" gives (B, H, T, D) tensors)."""
     s = float(D) ** -0.25
-    qkv = [moved(torch.randn(B, HEADS * D, T, generator=g, device=dev) * s,
-                 "as_is" if how == "contiguous" else how)
+    qkv = [moved((torch.randn(B, HEADS * D, T, generator=g, device=dev) * s)
+                 .to(dtype), "as_is" if how == "contiguous" else how)
            .reshape(B, HEADS, D, T).transpose(2, 3) for _ in range(3)]
     if how == "contiguous":
         qkv = [t.contiguous() for t in qkv]
@@ -554,10 +578,11 @@ def same_detections(a, b):
     return seg, sc
 
 
-def profile_decode(service, batch, top=12):
+def profile_decode(service, batch, top=12, phase="serve"):
     """Device time by kernel over one stacked 8x8 decode (torch.profiler):
     the busy share of the call's wall time and the kernels that take it.
-    Kernels run on one stream, so their summed time is the busy time."""
+    Kernels run on one stream, so their summed time is the busy time.
+    Emits the record under ``phase`` and returns it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -570,11 +595,14 @@ def profile_decode(service, batch, top=12):
                    if e.device_type == DeviceType.CUDA),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    emit({"phase": "serve", "profile": "one ground_many of 8 videos x 8 queries "
-          "at 2304 clips (profiler on)", "wall_ms": wall_ms,
-          "device_busy_ms": busy_ms, "kernel_launches": sum(r[2] for r in rows),
-          "top_kernels": [{"name": n[:120], "ms": ms, "count": c}
-                          for n, ms, c in rows[:top]]})
+    record = {"phase": phase, "profile": "one ground_many of 8 videos x 8 "
+              "queries at 2304 clips (profiler on)", "wall_ms": wall_ms,
+              "device_busy_ms": busy_ms,
+              "kernel_launches": sum(r[2] for r in rows),
+              "top_kernels": [{"name": n[:120], "ms": ms, "count": c}
+                              for n, ms, c in rows[:top]]}
+    emit(record)
+    return record
 
 
 def run_serve(dev):
@@ -910,6 +938,330 @@ def run_http(logdir, serve_service, requests):
     assert launches == want and calls > 0, (launches, want)
     assert seg_d <= SEG_TOL_S and sc_d <= SCORE_TOL, (seg_d, sc_d)
     return launches
+
+
+# --------------------------------------------------------------------- bf16
+
+# bf16 kernels vs their bf16 plain versions on the card:
+# |diff| <= 2 bf16 eps (2 * 2**-7) times max(1, |plain|), the CPU tests' rule.
+# Both round at the same places (the conv outputs, the result); their f32
+# sums run in another order, which can move a rounding by one bf16 step
+TOL_BF16 = 2 * 2.0 ** -7
+# the served bf16 decode's outputs, kernels vs plain versions, held to the
+# bf16 noise floor (plain bf16 vs the f32 kernels), as tests/test_torch_bf16.py
+# holds the port's bf16 model to JAX's: the mean |diff| within 1.5x, the max
+# within 3x; bf16 vs f32 logits within 0.15 on average (JAX's own rule)
+BF16_MEAN_X, BF16_MAX_X, BF16_DRIFT = 1.5, 3.0, 0.15
+
+
+def bf16_err(got, want):
+    """(max |diff|, max |diff| / max(1, |want|)) over the outputs, in f32."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    d = [((g.float() - w.float()).abs(), w.float().abs().clamp_min(1.0))
+         for g, w in zip(got, want, strict=True)]
+    return max(float(a.max()) for a, _ in d), max(float((a / m).max()) for a, m in d)
+
+
+def check_bf16(op, args, kw, name, what):
+    """One bf16 kernel call against its plain version on the same inputs."""
+    from decafnet_tpu_torch.ops import cuda
+
+    got = op(*args, **kw)
+    with cuda.plain_versions():
+        want = op(*args, **kw)
+    torch.cuda.synchronize()
+    outs = got if isinstance(got, tuple) else (got,)
+    abs_err, rel_err = bf16_err(got, want)
+    ok = (all(t.dtype == torch.bfloat16 and torch.isfinite(t).all() for t in outs)
+          and rel_err <= TOL_BF16)
+    emit({"phase": "bf16", "kernel": name + "_bf16", "check": what,
+          "max_abs_err": abs_err, "max_rel_err": rel_err, "tol": TOL_BF16,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"{name}_bf16 disagrees with its plain version at "
+                             f"{what}: max |diff| / max(1, |plain|) {rel_err}")
+    return abs_err, rel_err
+
+
+def run_bf16_kernels(dev):
+    """Hold each bf16 kernel against its plain version in bf16 at the served
+    shapes and the edge shapes of the kernels phase; time the served shapes
+    (kernel, plain version, SDPA in bf16 for band attention). Bounds count
+    2 bytes per activation element, conv3's products at the dense bf16 rate.
+    Returns per-kernel records summed over one served decode call."""
+    from decafnet_tpu_torch.ops import (band_attention, band_attention_torch,
+                                        conv3_ln_act, conv3_ln_act_torch,
+                                        qkv_depthwise_ln, qkv_depthwise_ln_torch)
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rec = {n: {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0,
+               "plain_ms": 0.0, "bound_ms": 0.0, "flop_ms": 0.0, "byte_ms": 0.0,
+               "library_ms": None, "levels": []}
+           for n in ("conv3_ln_act", "band_attention", "qkv_depthwise_ln")}
+
+    def add(name, count, args, kw, op, plain, n_bytes, n_flops, level, lib=None,
+            tc_flops=0):
+        abs_err, rel_err = check_bf16(op, args, kw, name, f"served level {level}, "
+                                      f"shape {tuple(args[0].shape)}")
+        ms = time_ms(lambda: op(*args, **kw), 20)
+        plain_ms = time_ms(lambda: plain(*args, **kw), 5, warmup=1)
+        b_ms, _ = bound_ms(n_bytes, n_flops, tc_flops, BF16_FLOPS)
+        lib_ms = time_ms(lambda: lib(*args, **kw), 3, warmup=1) if lib else None
+        r = rec[name]
+        r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+        r["max_rel_err"] = max(r["max_rel_err"], rel_err)
+        r["ms"] += count * ms
+        r["plain_ms"] += count * plain_ms
+        r["bound_ms"] += count * b_ms
+        r["byte_ms"] += count * 1e3 * n_bytes / HBM_BYTES_PER_S
+        r["flop_ms"] += count * 1e3 * max(n_flops / F32_FLOPS,
+                                          tc_flops / BF16_FLOPS)
+        if lib_ms is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + count * lib_ms
+        r["levels"].append({"level": level, "shape": list(args[0].shape),
+                            "calls": count, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": b_ms, "share_of_bound": b_ms / ms,
+                            "library_ms": lib_ms})
+
+    for level in range(LEVELS):
+        T = T0 // 2 ** level
+        lens = row_lens(level)
+        n_valid = sum(min(n, T) for n in lens)
+        for C, count in ((EMBD, 4 if level == 0 else 2), (EMBD + RDIM, 4)):
+            args, kw = conv3_case(dev, g, ROWS, C, T, lens, dtype=bf)
+            # x and the output in bf16, the weight as bf16 fragments, the LN
+            # parameters in f32, the mask bytes
+            n_bytes = 2 * (2 * ROWS * C * T + 3 * C * C) + 4 * 2 * C + ROWS * T
+            add("conv3_ln_act", count, args, kw, conv3_ln_act, conv3_ln_act_torch,
+                n_bytes, 8 * ROWS * C * T, level, tc_flops=2 * ROWS * T * C * 3 * C)
+        args, kw = band_case(dev, g, ROWS, T, lens, dtype=bf)
+        D = EMBD // HEADS
+        n_bytes = 2 * (3 * n_valid * HEADS * D + ROWS * HEADS * T * D) + ROWS * T
+        add("band_attention", 1, args, kw, band_attention, band_attention_torch,
+            n_bytes, n_valid * HEADS * (4 * WINDOW * D + 4 * WINDOW), level,
+            lib=sdpa_band)
+        if level == 0:
+            args, kw = trio_case(dev, g, ROWS, EMBD, T, lens, dtype=bf)
+            n_bytes = 2 * 4 * ROWS * EMBD * T + 4 * 15 * EMBD + ROWS * T
+            add("qkv_depthwise_ln", 1, args, kw, qkv_depthwise_ln,
+                qkv_depthwise_ln_torch, n_bytes, 3 * ROWS * EMBD * T * (5 + 8),
+                level)
+        del args
+
+    def edge(name, op, args, kw, what):
+        abs_err, rel_err = check_bf16(op, args, kw, name, what)
+        r = rec[name]
+        r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+        r["max_rel_err"] = max(r["max_rel_err"], rel_err)
+
+    for T in (1000, 301, 36, 17, 9, 4, 3):
+        lens = [T, max(T - 3, 1), T // 2, 0]
+        for how in ("as_is", "offset"):
+            args, kw = conv3_case(dev, g, 4, EMBD + RDIM, T, lens, how=how, dtype=bf)
+            edge("conv3_ln_act", conv3_ln_act, args, kw, f"edge T={T}, x {how}")
+            args, kw = trio_case(dev, g, 4, EMBD, T, lens, how, dtype=bf)
+            edge("qkv_depthwise_ln", qkv_depthwise_ln, args, kw,
+                 f"edge T={T}, x {how}")
+        for how in ("as_is", "contiguous", "offset", "padded"):
+            args, kw = band_case(dev, g, 4, T, lens, how=how, dtype=bf)
+            edge("band_attention", band_attention, args, kw,
+                 f"edge T={T}, q/k/v {how}")
+    args, kw = band_case(dev, g, 16400, 3, [3, 2, 1, 0] * 4100, dtype=bf)
+    edge("band_attention", band_attention, args, kw, "edge B*H = 65600, T=3")
+    args, kw = conv3_case(dev, g, 3, 16, 100, [100, 50, 0], bias=True, act="none",
+                          dtype=bf)
+    args = (args[0], args[1], torch.randn(24, 16, 3, generator=g, device=dev),
+            torch.randn(24, generator=g, device=dev), None, None)
+    edge("conv3_ln_act", conv3_ln_act, args, kw,
+         "C_in 16 -> C_out 24, bias, no LN affine, no activation")
+    return rec
+
+
+def floor_rule(kern16, plain16, f32):
+    """The bf16 noise-floor rule on flattened outputs: (mean, max) of
+    |kernels - plain| in bf16 against those of |plain bf16 - f32 kernels|."""
+    got, floor = (kern16 - plain16).abs(), (plain16 - f32).abs()
+    return {"mean": float(got.mean()), "max": float(got.max()),
+            "floor_mean": float(floor.mean()), "floor_max": float(floor.max()),
+            "ok": bool(got.mean() <= BF16_MEAN_X * floor.mean()
+                       and got.max() <= BF16_MAX_X * floor.max())}
+
+
+def top1_agreement(a, b):
+    """Mean IoU of two eval runs' top-1 segments, query by query."""
+    ious = []
+    for va, vb in zip(a.videos, b.videos, strict=True):
+        assert va["vid_id"] == vb["vid_id"]
+        for da, db in zip(va["detections"], vb["detections"], strict=True):
+            if not len(da["scores"]) or not len(db["scores"]):
+                ious.append(0.0)
+                continue
+            x, y = da["segments"][0], db["segments"][0]
+            inter = max(0.0, min(x[1], y[1]) - max(x[0], y[0]))
+            ious.append(inter / (max(x[1], y[1]) - min(x[0], y[0])))
+    return float(np.mean(ious))
+
+
+def run_bf16(dev, service32, logdir, eval_base, requests):
+    """The bf16 compute mode (``tpu.compute_dtype: bfloat16``) on the card:
+    GroundingService at the Ego4D-NLQ width with the serve phase's seeded
+    weights, 8 x 8 at T = 2304 (launches of the bf16 kernels per decode call,
+    none of the f32 ones; outputs against the plain versions in bf16 by the
+    noise-floor rule and against f32; wall, busy share, kernel launches and
+    peak memory beside the f32 service's on the same batch); the eval CLI's
+    entry point over the eval phase's 12 videos (launches; R@k count flips
+    and top-1 agreement against the f32 run, printed, not gated: with random
+    weights the scores are near flat); one /ground over HTTP. Returns the
+    bf16 kernel launches of those paths."""
+    from http.server import ThreadingHTTPServer
+
+    from decafnet_tpu_torch import ops
+    from decafnet_tpu_torch.core import load_config
+    from decafnet_tpu_torch.eval.__main__ import build_evaluator
+    from decafnet_tpu_torch.models import random_params
+    from decafnet_tpu_torch.ops import cuda
+    from decafnet_tpu_torch.serve import (GroundingService, make_handler,
+                                          service_from_logdir)
+    from decafnet_tpu_torch.utils import EvalResults
+
+    bf = torch.bfloat16
+    t_phase = time.perf_counter()
+    cfg = load_config(os.path.join(REPO, "configs", "ego4d_nlq.yaml"))
+    cfg.tpu.compute_dtype = "bfloat16"
+    service = GroundingService(cfg, params=random_params(cfg, SEED))
+    assert service.device.type == "cuda" and service.model.compute_dtype == bf
+    rng = np.random.default_rng(SEED + 5)
+    batch = [make_request(rng, cfg, T0, 8, tokens=(9, 16)) for _ in range(8)]
+    k = cfg.nms.max_num_segs
+    for s in (service, service32):           # warm-up outside the counts
+        s.ground_many(batch)
+    torch.cuda.synchronize()
+
+    # the main path in bf16: counts to 0 just before, read just after
+    dec = service.decoder
+    calls0 = dec.decode_calls
+    ops.reset_launch_counts()
+    walls = {"bfloat16": [], "float32": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        answers = service.ground_many(batch)
+        walls["bfloat16"].append(1e3 * (time.perf_counter() - t0))
+    launches = ops.launch_counts(bf)
+    f32_launches = ops.launch_counts()
+    calls = dec.decode_calls - calls0
+    want = {n: c * calls for n, c in PER_DECODE.items()}
+    emit({"phase": "bf16", "path": "serve", "decode_calls": calls,
+          "launches_bf16": launches, "launches_f32": f32_launches,
+          "expected": want})
+    assert launches == want, (launches, want)
+    assert not any(f32_launches.values()), f32_launches
+    for req, ans in zip(batch, answers):
+        check_detections(ans, req, k)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        service32.ground_many(batch)
+        walls["float32"].append(1e3 * (time.perf_counter() - t0))
+
+    # the decode's outputs: kernels vs plain versions in bf16, vs f32
+    inputs = variant_inputs(cfg, dev)
+    with torch.inference_mode():
+        out16 = service.model(*inputs, queries_per_video=8)
+        with cuda.plain_versions():
+            plain16 = service.model(*inputs, queries_per_video=8)
+        out32 = service32.model(*inputs, queries_per_video=8)
+    checks = {}
+    for group, key in ((1, "logits2"), (2, "offsets")):
+        assert all(t.dtype == bf for t in out16[group] + plain16[group])
+        flat = [torch.cat([t.float().reshape(-1) for t in out[group]])
+                for out in (out16, plain16, out32)]
+        checks[key] = floor_rule(*flat)
+        checks[key]["bf16_vs_f32_mean"] = float((flat[0] - flat[2]).abs().mean())
+    emit({"phase": "bf16", "check": "served decode outputs, kernels vs plain "
+          "versions in bf16 (noise floor: plain bf16 vs f32 kernels)",
+          "rule": {"mean_x": BF16_MEAN_X, "max_x": BF16_MAX_X,
+                   "bf16_vs_f32_mean": BF16_DRIFT}, **checks})
+    for key, c in checks.items():
+        assert c["ok"] and c["bf16_vs_f32_mean"] < BF16_DRIFT, (key, c)
+
+    # wall, busy share, kernel launches and peak memory, f32 beside bf16
+    side = {}
+    for name, s in (("float32", service32), ("bfloat16", service)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s.ground_many(batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = profile_decode(s, batch, phase="bf16")
+        side[name] = {"wall_ms": walls[name], "profiled_wall_ms": prof["wall_ms"],
+                      "device_busy_ms": prof["device_busy_ms"],
+                      "busy_share": prof["device_busy_ms"] / prof["wall_ms"],
+                      "kernel_launches": prof["kernel_launches"],
+                      "peak_mem_gb": peak}
+    emit({"phase": "bf16", "decode": "ground_many of 8 videos x 8 queries at "
+          "2304 clips, f32 and bf16 services, same batch", **side})
+
+    # the eval CLI's entry point over the eval phase's 12 videos in bf16
+    ev = build_evaluator(["--name", logdir, "--set", "eval.save_results", "True",
+                          "tpu.compute_dtype", "bfloat16"])
+    assert ev.device.type == "cuda" and ev.model.compute_dtype == bf
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = ev.run(tag="bf16")
+    wall_s = time.perf_counter() - t0
+    eval_launches, calls = ops.launch_counts(bf), ev.decoder.decode_calls
+    f32_launches = ops.launch_counts()
+    results = EvalResults.load(os.path.join(logdir, "results_bf16.pk"))
+    base_m, base_r, _ = eval_base
+    n_q = ev.meter.text_cnt
+    flips = np.abs(np.round(metrics * n_q) - np.round(base_m * n_q)).sum(axis=1)
+    want = {n: c * calls for n, c in PER_DECODE.items()}
+    emit({"phase": "bf16", "path": "eval", "recall": metrics.tolist(),
+          "recall_f32": base_m.tolist(), "queries": n_q,
+          "count_flips_by_rank": dict(zip(map(str, ev.cfg.eval.ranks),
+                                          flips.tolist())),
+          "top1_agreement_iou": top1_agreement(results, base_r),
+          "decode_calls": calls, "launches_bf16": eval_launches,
+          "launches_f32": f32_launches, "expected": want, "wall_s": wall_s,
+          "video_ms": ev.video_ms})
+    assert calls == 12 and eval_launches == want, (eval_launches, want)
+    assert not any(f32_launches.values()), f32_launches
+    assert all(np.isfinite(loss[key]) for v in results.videos
+               for loss in v["losses"] for key in ("cls_loss", "reg_loss"))
+
+    # one /ground over HTTP, the serve CLI's service with --set
+    http = service_from_logdir(logdir, set_cfgs=["tpu.compute_dtype", "bfloat16"])
+    assert http.model.compute_dtype == bf
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(http))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    req = requests[2]
+    body = json.dumps({k: ([x.tolist() for x in v] if k == "texts" else
+                           v.tolist() if isinstance(v, np.ndarray) else v)
+                       for k, v in req.items()}).encode()
+    try:
+        calls0 = http.decoder.decode_calls
+        ops.reset_launch_counts()
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{server.server_address[1]}/ground", data=body,
+                headers={"Content-Type": "application/json"}), timeout=300) as r:
+            answer = json.loads(r.read())["detections"]
+        http_launches = ops.launch_counts(bf)
+        calls = http.decoder.decode_calls - calls0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    assert not thread.is_alive()
+    check_detections(answer, req, k)
+    want = {n: c * calls for n, c in PER_DECODE.items()}
+    emit({"phase": "bf16", "path": "http", "decode_calls": calls,
+          "launches_bf16": http_launches, "expected": want,
+          "seconds": time.perf_counter() - t_phase})
+    assert calls > 0 and http_launches == want, (http_launches, want)
+    return {"bf16_serve": launches, "bf16_eval": eval_launches,
+            "bf16_http": http_launches}
 
 
 # ----------------------------------------------------------------- variants
@@ -2243,11 +2595,13 @@ def main():
         "conv3_ln_act does not run on the tensor cores"
 
     rec = run_kernels(dev)
+    rec16 = run_bf16_kernels(dev)
     by_path = {}
     by_path["serve"], service, requests = run_serve(dev)
     with tempfile.TemporaryDirectory() as root:
         by_path["eval"], logdir, eval_base = run_eval(root)
         by_path["http"] = run_http(logdir, service, requests)
+        by_path16 = run_bf16(dev, service, logdir, eval_base, requests)
         cfg_file = write_train_data(root)
         by_path["train"] = run_train(root, cfg_file)
         by_path["remat"] = run_remat(root, cfg_file)
@@ -2279,6 +2633,18 @@ def main():
             **{k: r[k] for k in ("bound_f32_ms", "max_abs_err_f64",
                                  "plain_max_abs_err_f64") if k in r},
             "levels": r["levels"]})
+    for n, r in rec16.items():
+        kernels.append({
+            "name": n + "_bf16", "route": "cuda", "source": sources[n][0],
+            "replaces": sources[n][1],
+            "launches": sum(p[n] for p in by_path16.values()),
+            "launches_by_path": {p: c[n] for p, c in by_path16.items()},
+            "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes" if r["byte_ms"] >= r["flop_ms"] else "operations",
+            "library_ms": r["library_ms"], "f32_kernel_ms": rec[n]["ms"],
+            "per": "one served decode call (64 rows, T=2304, all levels), bf16",
+            "launches_per_forward": PER_DECODE[n], "levels": r["levels"]})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

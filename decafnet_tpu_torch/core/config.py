@@ -5,7 +5,8 @@ dotted-key overrides (``merge_from_list``: unknown keys raise ``KeyError``).
 ``get_cfg_defaults(task)`` builds the task's default tree key for key as the
 JAX package does, ``tpu`` section included, so an ``opt.yaml`` written by
 the JAX trainer loads and takes ``--set`` overrides. Of the ``tpu`` section
-the port reads ``compute_dtype``, ``remat`` and ``remat_policy``
+the port reads ``compute_dtype`` (``models.resolve_compute_dtype``; bf16
+serves and evaluates, training refuses it), ``remat`` and ``remat_policy``
 (``models.make_model``), and ``shard_time`` and ``video_major_train``
 (the Trainer).
 
@@ -279,8 +280,10 @@ def _base_nms():
 
 def _base_tpu():
     """The JAX package's runtime knobs, kept so its snapshots parse. Of
-    these the port reads ``compute_dtype`` ("auto" and "float32" run f32,
-    "bfloat16" raises: ROADMAP item 12), ``remat`` / ``remat_policy``
+    these the port reads ``compute_dtype`` ("auto" and "float32" run f32;
+    "bfloat16" runs the eval and serve paths with bf16 activations and f32
+    parameters and statistics, and the Trainer and the encoders raise on it:
+    ROADMAP items 12b-c), ``remat`` / ``remat_policy``
     (activation checkpointing of the video encoders in training),
     ``shard_time`` (sequence parallelism, raises: ROADMAP item 11) and
     ``video_major_train``. Data-parallel training needs no key here: it

@@ -1,4 +1,7 @@
-// Banded (local-window) multi-head attention, f32, for Hopper (sm_90a).
+// Banded (local-window) multi-head attention for Hopper (sm_90a), in two
+// variants: f32 in and out, and bf16 in and out (bf16 tiles in shared memory;
+// q in f32 registers; scores, the softmax and the weighted sum in f32; the
+// result rounded once to bf16).
 //
 //   out[b, h, t] = sum_{|j - t| <= halo, 0 <= j < T, mask[b, j]} p_j * v[b, h, j]
 //   p = softmax_j(q[b, h, t] . k[b, h, j])      (scores over the valid band keys)
@@ -11,15 +14,19 @@
 // masked max-subtracted softmax and its weighted sum of v rows stay in registers.
 //
 // What bounds it on an H100: memory. Per query it does ~4*(2*halo+1)*D FLOPs
-// against 16*D bytes of q, k, v and output, a few FLOP per byte. The design:
+// against 16*D bytes of q, k, v and output (8*D in bf16), a few FLOP per byte.
+// The design (both variants; E is the element type):
 //   - a block owns one (b, h) and a tile of `tile` time columns ((b, h) and the
 //     tile are flattened into blockIdx.x, so B*H is not capped at 65535);
 //   - the tile's k and v, with `halo` columns on each side, are staged once in
-//     shared memory as [D][row] (interior at column PAD, 16-byte aligned): with
-//     the model's head views (stride_t == 1) every d-row is time-contiguous and
-//     the interior is copied with 16-byte cp.async; the halo, rows whose base
-//     is not 16-byte aligned, and any other layout use 4-byte copies. Each k or
-//     v element is read from memory once instead of once per query of its band;
+//     shared memory as [D][row] of E (interior at column PAD, 16 bytes in):
+//     with the model's head views (stride_t == 1) every d-row is
+//     time-contiguous and the interior is copied with 16-byte cp.async (4 f32
+//     or 8 bf16 columns); the halo, rows whose base is not 16-byte aligned, and
+//     any other layout take one element per copy (a 4-byte cp.async in f32, a
+//     plain load and store in bf16: cp.async copies 4, 8 or 16 bytes). Each k
+//     or v element is read from memory once instead of once per query of its
+//     band;
 //   - the tile's mask bytes are staged once; a tile with no valid query (the
 //     masked tail of a row) writes its zeros and loads nothing else;
 //   - D is a template parameter, so q sits in registers and the d loops unroll;
@@ -33,6 +40,7 @@
 // The launch plan (tile, split) is chosen by the wrapper
 // (ops/local_attention.py:band_attention_plan) from (B, H, T).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <limits.h>
@@ -45,22 +53,40 @@ namespace {
 
 using namespace decafnet;
 
-constexpr int PAD = 4;          // interior column offset of a staged row
 constexpr int MAX_THREADS = 512;
 
-template <int D, int HALO, int SPLIT>
+// elements of E per 16-byte copy; also the interior column offset of a staged
+// row (16 bytes), which leaves room for a halo of up to 4 columns
+template <typename E>
+constexpr int VEC = 16 / (int)sizeof(E);
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// one element into shared memory, zero when !in (src is then not read)
+__device__ __forceinline__ void stage1(float* dst, const float* src, bool in) {
+  cp_async4(dst, src, in);
+}
+__device__ __forceinline__ void stage1(__nv_bfloat16* dst, const __nv_bfloat16* src, bool in) {
+  *dst = in ? *src : __float2bfloat16(0.f);
+}
+
+template <typename E, int D, int HALO, int SPLIT>
 __global__ void __launch_bounds__(MAX_THREADS)
-band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                      float* __restrict__ out, int H, int T, int tile, int row, int n_tiles,
+band_attention_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                      const E* __restrict__ v, const uint8_t* __restrict__ mask,
+                      E* __restrict__ out, int H, int T, int tile, int row, int n_tiles,
                       long long sb, long long sh, long long st, long long sd, bool vec) {
   constexpr int W = 2 * HALO + 1;
   constexpr int QW = 32 / SPLIT;  // queries per warp
   constexpr int DL = D / SPLIT;   // head dims per lane
+  constexpr int PAD = VEC<E>;     // interior column offset of a staged row
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;               // [D][row], tile column c at PAD + c
-  float* vs = smem + D * row;
-  uint8_t* ms = reinterpret_cast<uint8_t*>(smem + 2 * D * row);  // [tile + 2 HALO]
+  E* ks = reinterpret_cast<E*>(smem);  // [D][row], tile column c at PAD + c
+  E* vs = ks + D * row;
+  uint8_t* ms = reinterpret_cast<uint8_t*>(vs + D * row);  // [tile + 2 HALO]
 
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid & 31;
@@ -71,7 +97,7 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = bh / H, h = bh - b * H;
   const int t = t0 + tq;
   const uint8_t* mb = mask + (size_t)b * T;
-  float* ob = out + (size_t)bh * D * T + t;
+  E* ob = out + (size_t)bh * D * T + t;
 
   for (int i = tid; i < tile + 2 * HALO; i += nthreads) {
     const int j = t0 - HALO + i;
@@ -82,32 +108,33 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (!__syncthreads_or(valid)) {  // no valid query in the tile: zeros, no loads
     if (t < T) {
 #pragma unroll
-      for (int i = 0; i < DL; ++i) ob[(size_t)(i * SPLIT + part) * T] = 0.f;
+      for (int i = 0; i < DL; ++i) put(ob + (size_t)(i * SPLIT + part) * T, 0.f);
     }
     return;
   }
 
   const long long base = b * sb + h * sh;
-  const float* kb = k + base;
-  const float* vb = v + base;
+  const E* kb = k + base;
+  const E* vb = v + base;
   if (vec) {
-    // time-contiguous, 16-byte aligned rows: 4 columns per copy
-    const int cpr = tile / 4;  // copies per row; nthreads / cpr == 4 * SPLIT
+    // time-contiguous, 16-byte aligned rows: VEC columns per copy
+    constexpr int V = VEC<E>;
+    const int cpr = tile / V;  // copies per row; nthreads / cpr == V * SPLIT
     const int ch = tid % cpr;
-    const int c0 = t0 + 4 * ch;
-    for (int d = tid / cpr; d < D; d += 4 * SPLIT) {
-      float* kd = ks + d * row + PAD + 4 * ch;
-      float* vd = vs + d * row + PAD + 4 * ch;
+    const int c0 = t0 + V * ch;
+    for (int d = tid / cpr; d < D; d += V * SPLIT) {
+      E* kd = ks + d * row + PAD + V * ch;
+      E* vd = vs + d * row + PAD + V * ch;
       const long long off = d * sd + c0;
-      if (c0 + 4 <= T) {
+      if (c0 + V <= T) {
         cp_async16(kd, kb + off);
         cp_async16(vd, vb + off);
       } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
+        for (int e = 0; e < V; ++e) {
           const bool in = c0 + e < T;
-          cp_async4(kd + e, in ? kb + off + e : kb, in);
-          cp_async4(vd + e, in ? vb + off + e : vb, in);
+          stage1(kd + e, in ? kb + off + e : kb, in);
+          stage1(vd + e, in ? vb + off + e : vb, in);
         }
       }
     }
@@ -117,8 +144,8 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const bool in = t0 + c < T;
     const long long tc = (long long)(in ? t0 + c : 0) * st;
     for (int d = tid / tile; d < D; d += SPLIT) {
-      cp_async4(ks + d * row + PAD + c, kb + tc + d * sd, in);
-      cp_async4(vs + d * row + PAD + c, vb + tc + d * sd, in);
+      stage1(ks + d * row + PAD + c, kb + tc + d * sd, in);
+      stage1(vs + d * row + PAD + c, vb + tc + d * sd, in);
     }
   }
   for (int i = tid; i < 2 * HALO * D; i += nthreads) {
@@ -127,15 +154,15 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int j = t0 + c;
     const bool in = j >= 0 && j < T;
     const long long off = in ? (long long)j * st + d * sd : 0;
-    cp_async4(ks + d * row + PAD + c, kb + off, in);
-    cp_async4(vs + d * row + PAD + c, vb + off, in);
+    stage1(ks + d * row + PAD + c, kb + off, in);
+    stage1(vs + d * row + PAD + c, vb + off, in);
   }
 
   // q into registers while the copies fly (idle lanes past T read column T-1)
   float qr[DL];
-  const float* qt = q + base + (long long)(t < T ? t : T - 1) * st;
+  const E* qt = q + base + (long long)(t < T ? t : T - 1) * st;
 #pragma unroll
-  for (int i = 0; i < DL; ++i) qr[i] = qt[(long long)(i * SPLIT + part) * sd];
+  for (int i = 0; i < DL; ++i) qr[i] = to_f32(qt[(long long)(i * SPLIT + part) * sd]);
 
   cp_async_wait_all();
   __syncthreads();
@@ -149,9 +176,9 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 #pragma unroll
   for (int i = 0; i < DL; ++i) {
-    const float* kr = ks + (i * SPLIT + part) * row + PAD + tq - HALO;
+    const E* kr = ks + (i * SPLIT + part) * row + PAD + tq - HALO;
 #pragma unroll
-    for (int r = 0; r < W; ++r) s[r] = fmaf(qr[i], kr[r], s[r]);
+    for (int r = 0; r < W; ++r) s[r] = fmaf(qr[i], to_f32(kr[r]), s[r]);
   }
 #pragma unroll
   for (int o = QW; o < 32; o <<= 1) {
@@ -178,80 +205,99 @@ band_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < DL; ++i) {
     const int d = i * SPLIT + part;
-    const float* vr = vs + d * row + PAD + tq - HALO;
+    const E* vr = vs + d * row + PAD + tq - HALO;
     float acc = 0.f;
 #pragma unroll
     for (int r = 0; r < W; ++r)
-      if (ok[r]) acc = fmaf(p[r], vr[r], acc);
-    ob[(size_t)d * T] = valid ? acc : 0.f;
+      if (ok[r]) acc = fmaf(p[r], to_f32(vr[r]), acc);
+    put(ob + (size_t)d * T, valid ? acc : 0.f);
   }
 }
 
+template <typename E>
 struct Launch {
-  const float *q, *k, *v;
+  const E *q, *k, *v;
   const uint8_t* mask;
-  float* out;
+  E* out;
   int B, H, T;
   long long sb, sh, st, sd;
   int tile;
   cudaStream_t stream;
 };
 
-template <int D, int HALO, int SPLIT>
-int launch(const Launch& a) {
+template <typename E, int D, int HALO, int SPLIT>
+int launch(const Launch<E>& a) {
+  constexpr int V = VEC<E>;
   const int tile = a.tile;
-  if (tile <= 0 || tile % 4 != 0 || tile % (32 / SPLIT) != 0 || tile * SPLIT > MAX_THREADS)
+  if (tile <= 0 || tile % V != 0 || tile % (32 / SPLIT) != 0 || tile * SPLIT > MAX_THREADS)
     return (int)cudaErrorInvalidValue;
   const long long n_tiles = (a.T + tile - 1) / tile;
   const long long blocks = (long long)a.B * a.H * n_tiles;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  const int row = row_stride(tile, PAD, SPLIT);
-  const size_t smem = sizeof(float) * 2 * D * row + ((tile + 2 * HALO + 15) / 16) * 16;
+  const int row = row_stride(tile, V, SPLIT, (int)sizeof(E));
+  const size_t smem = sizeof(E) * 2 * D * row + ((tile + 2 * HALO + 15) / 16) * 16;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        band_attention_kernel<D, HALO, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        band_attention_kernel<E, D, HALO, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const uintptr_t kv = reinterpret_cast<uintptr_t>(a.k) | reinterpret_cast<uintptr_t>(a.v);
   const bool vec =
-      a.st == 1 && a.sd % 4 == 0 && a.sh % 4 == 0 && a.sb % 4 == 0 && (kv & 15) == 0;
-  band_attention_kernel<D, HALO, SPLIT><<<(unsigned)blocks, tile * SPLIT, smem, a.stream>>>(
+      a.st == 1 && a.sd % V == 0 && a.sh % V == 0 && a.sb % V == 0 && (kv & 15) == 0;
+  band_attention_kernel<E, D, HALO, SPLIT><<<(unsigned)blocks, tile * SPLIT, smem, a.stream>>>(
       a.q, a.k, a.v, a.mask, a.out, a.H, a.T, tile, row, (int)n_tiles, a.sb, a.sh, a.st, a.sd,
       vec);
   return (int)cudaGetLastError();
 }
 
-template <int D, int HALO>
-int launch_split(const Launch& a, int split) {
+template <typename E, int D, int HALO>
+int launch_split(const Launch<E>& a, int split) {
   switch (split) {
-    case 1: return launch<D, HALO, 1>(a);
-    case 2: return launch<D, HALO, 2>(a);
-    case 4: return launch<D, HALO, 4>(a);
+    case 1: return launch<E, D, HALO, 1>(a);
+    case 2: return launch<E, D, HALO, 2>(a);
+    case 4: return launch<E, D, HALO, 4>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename E>
+int entry(const E* q, const E* k, const E* v, const uint8_t* mask, E* out, int B, int H,
+          int T, int D, long long sb, long long sh, long long st, long long sd, int halo,
+          int tile, int split, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || T <= 0 || D != 32) return (int)cudaErrorInvalidValue;
+  const Launch<E> a{q, k, v, mask, out, B, H, T, sb, sh, st, sd, tile, stream};
+  switch (halo) {
+    case 1: return launch_split<E, 32, 1>(a, split);
+    case 2: return launch_split<E, 32, 2>(a, split);
+    case 3: return launch_split<E, 32, 3>(a, split);
+    case 4: return launch_split<E, 32, 4>(a, split);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// C entry point. q, k, v: (B, H, T, D) f32 views sharing the element strides
-// (sb, sh, st, sd); mask (B, T) bytes; out (B, H, D, T) f32 contiguous. The
-// window is 2*halo+1 with halo in 1..4; D must be 32 (the one head width
-// instantiated). Launch plan: `tile` time columns per block (a multiple of 4
-// and of 32 / split, tile * split <= 512), D split over `split` lanes (1, 2
-// or 4). Returns the cudaError_t of the launch.
+// C entry points, f32 and bf16. q, k, v: (B, H, T, D) views sharing the
+// element strides (sb, sh, st, sd); mask (B, T) bytes; out (B, H, D, T)
+// contiguous, of the inputs' type. The window is 2*halo+1 with halo in 1..4; D
+// must be 32 (the one head width instantiated). Launch plan: `tile` time
+// columns per block (a multiple of 32 / split and of the columns per 16-byte
+// copy, 4 in f32 and 8 in bf16; tile * split <= 512), D split over `split`
+// lanes (1, 2 or 4). Each returns the cudaError_t of the launch.
 extern "C" int decafnet_band_attention_f32(const float* q, const float* k, const float* v,
                                            const uint8_t* mask, float* out, int B, int H,
                                            int T, int D, long long sb, long long sh,
                                            long long st, long long sd, int halo, int tile,
                                            int split, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || D != 32) return (int)cudaErrorInvalidValue;
-  const Launch a{q, k, v, mask, out, B, H, T, sb, sh, st, sd, tile, stream};
-  switch (halo) {
-    case 1: return launch_split<32, 1>(a, split);
-    case 2: return launch_split<32, 2>(a, split);
-    case 3: return launch_split<32, 3>(a, split);
-    case 4: return launch_split<32, 4>(a, split);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return entry(q, k, v, mask, out, B, H, T, D, sb, sh, st, sd, halo, tile, split, stream);
+}
+
+extern "C" int decafnet_band_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                            const __nv_bfloat16* v, const uint8_t* mask,
+                                            __nv_bfloat16* out, int B, int H, int T, int D,
+                                            long long sb, long long sh, long long st,
+                                            long long sd, int halo, int tile, int split,
+                                            cudaStream_t stream) {
+  return entry(q, k, v, mask, out, B, H, T, D, sb, sh, st, sd, halo, tile, split, stream);
 }

@@ -1,5 +1,7 @@
-// Fused masked conv3 + channel LayerNorm + activation for Hopper (sm_90a): the
-// products on the tensor cores in 3xTF32, the result at f32 accuracy.
+// Fused masked conv3 + channel LayerNorm + activation for Hopper (sm_90a), in two
+// kernels: for f32 activations the products on the tensor cores in 3xTF32, the
+// result at f32 accuracy; for bf16 activations one bf16 pass with f32
+// accumulation (the bf16 variant, described after the f32 kernel).
 //
 //   out[b, co, t] = act( LN_c( sum_{ci, tap} w[co, ci, tap] * xm[b, ci, t + tap - 1]
 //                              + bias[co] ) * ln_w[co] + ln_b[co] )
@@ -61,6 +63,7 @@
 // exchange between the two channel warps, and stores float2 pairs along T:
 // each warp store fills whole 32-byte sectors.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -377,6 +380,298 @@ int launch(const float* x, const uint8_t* mask, const float* w_hi, const float* 
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ bf16
+//
+// The bf16 variant computes the function of the JAX bf16 composition
+// (conv3_ln_act_xla with bf16 x): the weights rounded to bf16, the conv summed in
+// f32 and rounded to bf16, the bias (rounded to bf16) added and rounded again,
+// then the LN with f32 statistics and the f32 affine on the f32 LN parameters,
+// the activation, and one rounding of the result to bf16. The kernel keeps the
+// composition's roundings of the conv output, so it computes the same function
+// as the plain version and differs only by the order of the f32 sums.
+//
+// What bounds it on an H100: the bytes, barely. One served decode call (64 rows,
+// T = 2304, 7 levels, 44 calls) is 266 GFLOP, 0.27 ms at the 989 TFLOP/s of
+// dense bf16, against ~1.1 GB moved, 0.32 ms at 3.35 TB/s.
+//
+// Design: the f32 kernel's tiling with the m16n8k16 bf16 mma.sync in place of three
+// m16n8k8 TF32 passes, so a chunk is 16 input channels and each output takes
+// 3 taps x C_in/16 products. A block owns one row b, TILE_T = 96 columns and
+// every output channel (C_out padded to a multiple of 32 with zero weights,
+// outside the LN sums); 8 warps as 2 (channels) x 4 (time), each holding MW m16
+// x 3 n8 accumulator tiles. The weights come in A-fragment order, rounded once
+// per weight by the wrapper (ops/fused_conv.py: conv3_bf16_operands), one
+// 16-byte load per lane per (tap, m16 tile). x is staged per chunk as bf16 rows
+// [channel][time] with a one-column halo, the interior with 16-byte cp.async (8
+// columns) where T % 8 == 0 and x is 16-byte aligned, the halo and every other
+// layout with plain 2-byte loads (cp.async copies 4, 8 or 16 bytes), through a
+// ring of STAGES stages as in the f32 kernel. A B fragment register holds the
+// channel pair (2q, 2q + 1) at one column: two 2-byte shared loads, packed; the
+// staged row of 120 bf16 puts the four channel pairs of a fragment read in
+// distinct banks. The mask is not applied to the staged x: each B register is
+// ANDed with its column's mask, computed once per thread for the 3 taps x 3
+// n-tiles it reads (a masked bf16 pair is the zero bit pattern). The sums are
+// not restarted per chunk as in the TF32 kernel: the bf16 rounding of the conv
+// output dwarfs the tensor cores' f32 accumulation error.
+
+constexpr int BKC = 16;                     // input channels per stage (k16 per tap)
+constexpr int BX0 = 8;                      // shared-memory column of t0 (16 bytes)
+constexpr int BXS = 120;                    // staged x row in bf16 (16-byte multiple)
+static_assert(BXS % 8 == 0 && BXS >= BX0 + TILE_T + 1 && (BXS % 32 == 8 || BXS % 32 == 24),
+              "16-byte rows holding the halo; rows 2q (q = 0..3) start q * BXS words "
+              "apart, in banks 0, 24, 16, 8 (or 0, 8, 16, 24)");
+static_assert(BKC * TILE_T / 8 <= THREADS, "at most one 16-byte x copy per thread");
+
+// d = a * b + c on the tensor cores (m16n8k16, bf16 in, f32 accumulate)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2], const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(c[0]),
+        "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// Weight fragments (ceil(C_in/16), 3, 2*MW, 32, 8) bf16: for chunk c16, tap, m16
+// tile mt and lane (g = lane/4, q = lane%4) the eight A-fragment values
+// w[mt*16 + g + 8h, c16*16 + 8kh + 2q + j, tap] at index 4kh + 2h + j, zero when
+// padded (ops/fused_conv.py: conv3_bf16_fragments).
+template <int MW>
+__global__ void __launch_bounds__(THREADS, MW <= 5 ? 2 : 1)
+conv3_ln_act_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ mask,
+                         const __nv_bfloat16* __restrict__ wf, const float* __restrict__ bias,
+                         const float* __restrict__ ln_w, const float* __restrict__ ln_b,
+                         __nv_bfloat16* __restrict__ out, int C_in, int C_out, int T,
+                         float eps, int relu, int vec_x) {
+  constexpr int MT = 2 * MW;                // m16 tiles of the padded C_out
+  constexpr int WS = 3 * MT * 256;          // bf16 of the weights per chunk
+  constexpr int XH = BKC * BXS;             // bf16 of one staged x chunk
+  constexpr int STAGE = WS + XH;            // bf16 per ring stage
+  extern __shared__ __align__(16) float smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __shared__ float red[2][WARPS_M][TILE_T];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int b = blockIdx.y, t0 = blockIdx.x * TILE_T;
+  const __nv_bfloat16* xb = x + (size_t)b * C_in * T;
+  const uint8_t* mb = mask + (size_t)b * T;
+  const int n_chunks = (C_in + BKC - 1) / BKC;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  // the x values a thread stages: on the 16-byte path the same 8 columns of
+  // one channel row (vr < BKC) and, for tid < 2 * BKC, one halo column of row
+  // hr, in every chunk; else elements i = tid + k * THREADS
+  const int vr = tid / (TILE_T / 8), vcol = 8 * (tid % (TILE_T / 8));
+  const int hr = tid >> 1, hj = BX0 + ((tid & 1) ? TILE_T : -1);
+
+  auto load_chunk = [&](int stage, int chunk) {
+    __nv_bfloat16* ws = smem + stage * STAGE;
+    const __nv_bfloat16* gw = wf + (size_t)chunk * WS;
+    for (int i = 8 * tid; i < WS; i += 8 * THREADS) cp_async16(ws + i, gw + i);
+    __nv_bfloat16* xs = ws + WS;
+    const int c0 = chunk * BKC;
+    if (vec_x) {
+      if (vr < BKC) {                       // T % 8 == 0: a group is wholly in or out
+        const int c = c0 + vr, t = t0 + vcol;
+        const bool ok = c < C_in && t < T;
+        cp_async16(xs + vr * BXS + BX0 + vcol, ok ? xb + (size_t)c * T + t : x, ok);
+      }
+      if (tid < 2 * BKC) {                  // halo columns t0 - 1 and t0 + TILE_T
+        const int c = c0 + hr, t = t0 - BX0 + hj;
+        const bool ok = c < C_in && t >= 0 && t < T;
+        xs[hr * BXS + hj] = ok ? xb[(size_t)c * T + t] : zero;
+      }
+    } else {
+      for (int i = tid; i < BKC * (TILE_T + 2); i += THREADS) {
+        const int r = i / (TILE_T + 2), j = BX0 - 1 + i % (TILE_T + 2);
+        const int c = c0 + r, t = t0 - BX0 + j;
+        const bool ok = c < C_in && t >= 0 && t < T;
+        xs[r * BXS + j] = ok ? xb[(size_t)c * T + t] : zero;
+      }
+    }
+  };
+
+  // start the ring before anything else, so the first copies overlap the set-up
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_chunks) load_chunk(s, s);
+    cp_async_commit();
+  }
+
+  // mask of each column this thread reads as a B fragment (all bits or none)
+  uint32_t msk[3][NT];
+#pragma unroll
+  for (int tap = 0; tap < 3; ++tap)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int t = t0 + wn * NT * 8 + nt * 8 + g + tap - 1;
+      msk[tap][nt] = (t >= 0 && t < T && mb[t]) ? 0xffffffffu : 0u;
+    }
+  float acc[MW][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MW; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    cp_async_wait<STAGES - 2>();            // this thread's copies of the chunk landed
+    __syncthreads();                        // everyone's; the last stage is free
+    {
+      const int next = chunk + STAGES - 1;
+      if (next < n_chunks) load_chunk(next % STAGES, next);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* ws = smem + (chunk % STAGES) * STAGE;
+    const uint16_t* xs = reinterpret_cast<const uint16_t*>(ws + WS);
+    if (t0 + wn * NT * 8 >= T) continue;    // this warp's columns lie past T
+    // B fragments of the three taps: channel pairs (2q, 2q + 1) and (2q + 8,
+    // 2q + 9) at column g of each n-tile, shifted by the tap, masked
+    uint32_t bf[3][NT][2];
+#pragma unroll
+    for (int tap = 0; tap < 3; ++tap) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int j = BX0 - 1 + wn * NT * 8 + nt * 8 + g + tap;
+#pragma unroll
+        for (int kh = 0; kh < 2; ++kh) {
+          const int r = 2 * q + 8 * kh;
+          const uint32_t lo = xs[r * BXS + j], hi = xs[(r + 1) * BXS + j];
+          bf[tap][nt][kh] = (lo | (hi << 16)) & msk[tap][nt];
+        }
+      }
+    }
+    const uint4* wa = reinterpret_cast<const uint4*>(ws) + wm * MW * 32 + lane;
+#pragma unroll
+    for (int mt = 0; mt < MW; ++mt) {
+#pragma unroll
+      for (int tap = 0; tap < 3; ++tap) {
+        const uint4 a4 = wa[(tap * MT + mt) * 32];
+        const uint32_t a[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, bf[tap][nt], acc[mt][nt]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // the conv output as the bf16 composition holds it (rounded, plus the
+  // rounded bias, rounded); thread holds columns 2q, 2q + 1 of each n-tile
+  // (index p = 0, 1) for rows g, g + 8 (index 2h + p)
+#pragma unroll
+  for (int mt = 0; mt < MW; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int co = (wm * MW + mt) * 16 + g + 8 * h;
+      const bool with_bias = bias != nullptr && co < C_out;
+      const float bb = with_bias ? round_bf16(bias[co]) : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          float& v = acc[mt][nt][2 * h + p];
+          v = round_bf16(v);
+          if (with_bias) v = round_bf16(v + bb);
+        }
+    }
+
+  // channel LayerNorm per column, as in the f32 kernel
+  float mean[NT][2], rstd[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      float s = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < MW; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if ((wm * MW + mt) * 16 + g + 8 * h < C_out) s += acc[mt][nt][2 * h + p];
+      s = sum_over_groups(s);
+      if (g == 0) red[0][wm][wn * NT * 8 + nt * 8 + 2 * q + p] = s;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int col = wn * NT * 8 + nt * 8 + 2 * q + p;
+      mean[nt][p] = (red[0][0][col] + red[0][1][col]) / (float)C_out;
+      float s = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < MW; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if ((wm * MW + mt) * 16 + g + 8 * h < C_out) {
+            const float d = acc[mt][nt][2 * h + p] - mean[nt][p];
+            s = fmaf(d, d, s);
+          }
+      s = sum_over_groups(s);
+      if (g == 0) red[1][wm][col] = s;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int col = wn * NT * 8 + nt * 8 + 2 * q + p;
+      rstd[nt][p] = rsqrtf((red[1][0][col] + red[1][1][col]) / (float)C_out + eps);
+    }
+  }
+
+  __nv_bfloat16* ob = out + (size_t)b * C_out * T;
+#pragma unroll
+  for (int mt = 0; mt < MW; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int co = (wm * MW + mt) * 16 + g + 8 * h;
+      if (co >= C_out) continue;
+      const float lw = ln_w != nullptr ? ln_w[co] : 1.f;
+      const float lb = ln_b != nullptr ? ln_b[co] : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int t = t0 + wn * NT * 8 + nt * 8 + 2 * q;
+        float y0 = (acc[mt][nt][2 * h] - mean[nt][0]) * rstd[nt][0] * lw + lb;
+        float y1 = (acc[mt][nt][2 * h + 1] - mean[nt][1]) * rstd[nt][1] * lw + lb;
+        if (relu) {
+          y0 = fmaxf(y0, 0.f);
+          y1 = fmaxf(y1, 0.f);
+        }
+        __nv_bfloat16* o = ob + (size_t)co * T + t;
+        if (t + 1 < T && (T & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(y0, y1);
+        } else {
+          if (t < T) o[0] = __float2bfloat16(y0);
+          if (t + 1 < T) o[1] = __float2bfloat16(y1);
+        }
+      }
+    }
+  }
+}
+
+template <int MW>
+int launch_bf16(const __nv_bfloat16* x, const uint8_t* mask, const __nv_bfloat16* wf,
+                const float* bias, const float* ln_w, const float* ln_b, __nv_bfloat16* out,
+                int B, int C_in, int C_out, int T, float eps, int relu, cudaStream_t stream) {
+  constexpr int bytes = STAGES * (3 * 2 * MW * 256 + BKC * BXS) * (int)sizeof(__nv_bfloat16);
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv3_ln_act_bf16_kernel<MW>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int vec_x = (T % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  dim3 grid((T + TILE_T - 1) / TILE_T, B);
+  conv3_ln_act_bf16_kernel<MW><<<grid, THREADS, bytes, stream>>>(
+      x, mask, wf, bias, ln_w, ln_b, out, C_in, C_out, T, eps, relu, vec_x);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point. x (B, C_in, T), mask (B, T) bytes, w_hi/w_lo the TF32 halves of
@@ -402,6 +697,32 @@ extern "C" int decafnet_conv3_ln_act_f32(const float* x, const uint8_t* mask,
     case 6: return launch<6>(x, mask, w_hi, w_lo, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
     case 7: return launch<7>(x, mask, w_hi, w_lo, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
     case 8: return launch<8>(x, mask, w_hi, w_lo, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// C entry point of the bf16 variant. x (B, C_in, T) bf16, mask (B, T) bytes, wf
+// the bf16 weight fragments (see the kernel; ops/fused_conv.py builds them for
+// C_out padded to a multiple of 32), bias/ln_w/ln_b (C_out,) f32 or null, out
+// (B, C_out, T) bf16; all contiguous on the device, wf 16-byte aligned. Returns
+// the cudaError_t of the launch.
+extern "C" int decafnet_conv3_ln_act_bf16(const __nv_bfloat16* x, const uint8_t* mask,
+                                          const __nv_bfloat16* wf, const float* bias,
+                                          const float* ln_w, const float* ln_b,
+                                          __nv_bfloat16* out, int B, int C_in, int C_out, int T,
+                                          float eps, int relu, cudaStream_t stream) {
+  if (B <= 0 || C_in <= 0 || C_out <= 0 || T <= 0 || B > 65535 || C_out > 256 ||
+      reinterpret_cast<uintptr_t>(wf) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  switch ((C_out + 31) / 32) {
+    case 1: return launch_bf16<1>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
+    case 2: return launch_bf16<2>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
+    case 3: return launch_bf16<3>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
+    case 4: return launch_bf16<4>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
+    case 5: return launch_bf16<5>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
+    case 6: return launch_bf16<6>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
+    case 7: return launch_bf16<7>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
+    case 8: return launch_bf16<8>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

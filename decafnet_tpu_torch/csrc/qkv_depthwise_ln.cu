@@ -1,20 +1,29 @@
-// Depthwise q/k/v trio, f32, for Hopper (sm_90a): three depthwise conv3 maps of
+// Depthwise q/k/v trio for Hopper (sm_90a): three depthwise conv3 maps of
 // x * mask (groups = C, zero padding 1, no bias), each followed by its own channel
 // LayerNorm (biased variance, f32 statistics).
 //
 //   y_s[b, c, t] = sum_tap w_s[c, tap] * xm[b, c, t + tap - 1],   s in {q, k, v}
 //   out_s = LN_c(y_s) * ln_w_s + ln_b_s
 //
+// Two variants: f32 in and out, and bf16 in and out. The bf16 one computes the
+// function of the JAX bf16 composition (qkv_depthwise_ln_xla): the taps are
+// rounded to bf16, each 3-tap sum is taken in f32 and rounded to bf16 (the bf16
+// conv output), the LN runs in f32 on the f32 LN parameters, and the result is
+// rounded once to bf16. x is staged as f32 in both, so the arithmetic below is
+// one code path.
+//
 // Replaces the TPU kernel decafnet_tpu/ops/fused_conv.py:_qkv_depthwise_ln_pallas_impl
 // (pallas_call at :370), which read x once for all three branches; so does this.
 //
 // What bounds it on an H100: memory. Per element it does ~9 FMAs and a few LN
-// operations against 4 bytes read and 12 written, far below the card's ~20
-// FLOP/byte f32 balance point. The design:
+// operations against 4 bytes read and 12 written (2 and 6 in bf16), far below
+// the card's ~20 FLOP/byte f32 balance point. The design:
 //   - a block owns one batch row and a tile of `tile` time columns, all C
 //     channels; x[b, :, t0 - 1 .. t0 + tile] is staged once in shared memory,
 //     the interior with 16-byte cp.async when x and its rows are 16-byte
-//     aligned (4-byte copies otherwise, and for the two halo columns);
+//     aligned (4-byte copies otherwise, and for the two halo columns); bf16
+//     x is read 8 columns per 16-byte load where aligned (else one element
+//     per load) and converted to f32 as it is stored;
 //   - the tile's mask is staged once as floats: a tile with no valid column
 //     (halo included) writes ln_b, which is what the LN of an all-zero column
 //     gives, and loads no x; a tile with some masked columns multiplies them
@@ -33,6 +42,7 @@
 //     another's arithmetic and stores.
 // The tile width is chosen by the wrapper (ops/fused_conv.py:qkv_depthwise_ln_plan).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -54,14 +64,26 @@ __device__ __forceinline__ float sum_over_parts(float v) {
   return v;
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// v as the element type E holds it: v itself in f32, rounded to bf16 in bf16
+template <typename E>
+__device__ __forceinline__ float in_e(float v) {
+  return sizeof(E) == 4 ? v : __bfloat162float(__float2bfloat16(v));
+}
+
+template <typename E>
 __global__ void __launch_bounds__(MAX_THREADS)
-qkv_depthwise_ln_kernel(const float* __restrict__ x, const uint8_t* __restrict__ mask,
+qkv_depthwise_ln_kernel(const E* __restrict__ x, const uint8_t* __restrict__ mask,
                         const float* __restrict__ wq, const float* __restrict__ wk,
                         const float* __restrict__ wv, const float* __restrict__ lwq,
                         const float* __restrict__ lbq, const float* __restrict__ lwk,
                         const float* __restrict__ lbk, const float* __restrict__ lwv,
-                        const float* __restrict__ lbv, float* __restrict__ oq,
-                        float* __restrict__ ok, float* __restrict__ ov, int C, int T,
+                        const float* __restrict__ lbv, E* __restrict__ oq,
+                        E* __restrict__ ok, E* __restrict__ ov, int C, int T,
                         int tile, int row, int n_tiles, float eps, bool vec) {
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;                                            // [C][row]
@@ -76,10 +98,10 @@ qkv_depthwise_ln_kernel(const float* __restrict__ x, const uint8_t* __restrict__
   const int b = blockIdx.x / n_tiles;
   const int t0 = (blockIdx.x - b * n_tiles) * tile;
   const int t = t0 + tq;
-  const float* xb = x + (size_t)b * C * T;
+  const E* xb = x + (size_t)b * C * T;
   const uint8_t* mb = mask + (size_t)b * T;
   const float* const lb3[3] = {lbq, lbk, lbv};
-  float* const o3[3] = {oq, ok, ov};
+  E* const o3[3] = {oq, ok, ov};
 
   bool any = false, all = true;
   for (int i = tid; i < tile + 2; i += nthreads) {
@@ -95,12 +117,43 @@ qkv_depthwise_ln_kernel(const float* __restrict__ x, const uint8_t* __restrict__
     if (t < T) {
 #pragma unroll
       for (int s = 0; s < 3; ++s)
-        for (int c = part; c < C; c += CS) o3[s][((size_t)b * C + c) * T + t] = lb3[s][c];
+        for (int c = part; c < C; c += CS) put(o3[s] + ((size_t)b * C + c) * T + t, lb3[s][c]);
     }
     return;
   }
 
-  if (vec) {
+  if constexpr (sizeof(E) == 2) {
+    if (vec) {
+      // 16-byte aligned rows (T % 8 == 0): 8 columns per load, to f32 in shared
+      const int cpr = tile / 8;  // loads per row; nthreads / cpr == 8 * CS
+      const int ch = tid % cpr;
+      const int c0 = t0 + 8 * ch;
+      for (int c = tid / cpr; c < C; c += 8 * CS) {
+        float4* dst = reinterpret_cast<float4*>(xs + c * row + PAD + 8 * ch);
+        if (c0 < T) {
+          const uint4 u = *reinterpret_cast<const uint4*>(xb + (size_t)c * T + c0);
+          const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+          const float2 a = __bfloat1622float2(h[0]), b2 = __bfloat1622float2(h[1]);
+          const float2 c2 = __bfloat1622float2(h[2]), d2 = __bfloat1622float2(h[3]);
+          dst[0] = make_float4(a.x, a.y, b2.x, b2.y);
+          dst[1] = make_float4(c2.x, c2.y, d2.x, d2.y);
+        } else {
+          dst[0] = dst[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+    } else {
+      const int col = tid % tile;  // nthreads == tile * CS
+      const bool in = t0 + col < T;
+      for (int c = tid / tile; c < C; c += CS)
+        xs[c * row + PAD + col] = in ? to_f32(xb[(size_t)c * T + t0 + col]) : 0.f;
+    }
+    for (int i = tid; i < 2 * C; i += nthreads) {
+      const int c = i >> 1;
+      const int col = (i & 1) ? tile : -1;
+      const int j = t0 + col;
+      xs[c * row + PAD + col] = (j >= 0 && j < T) ? to_f32(xb[(size_t)c * T + j]) : 0.f;
+    }
+  } else if (vec) {
     // 16-byte aligned rows (T % 4 == 0): 4 columns per copy
     const int cpr = tile / 4;  // copies per row; nthreads / cpr == 4 * CS
     const int ch = tid % cpr;
@@ -119,12 +172,14 @@ qkv_depthwise_ln_kernel(const float* __restrict__ x, const uint8_t* __restrict__
     for (int c = tid / tile; c < C; c += CS)
       cp_async4(xs + c * row + PAD + col, xb + (size_t)c * T + (in ? t0 + col : 0), in);
   }
-  for (int i = tid; i < 2 * C; i += nthreads) {
-    const int c = i >> 1;
-    const int col = (i & 1) ? tile : -1;
-    const int j = t0 + col;
-    const bool in = j >= 0 && j < T;
-    cp_async4(xs + c * row + PAD + col, xb + (size_t)c * T + (in ? j : 0), in);
+  if constexpr (sizeof(E) == 4) {
+    for (int i = tid; i < 2 * C; i += nthreads) {
+      const int c = i >> 1;
+      const int col = (i & 1) ? tile : -1;
+      const int j = t0 + col;
+      const bool in = j >= 0 && j < T;
+      cp_async4(xs + c * row + PAD + col, xb + (size_t)c * T + (in ? j : 0), in);
+    }
   }
   const float* const w3[3] = {wq, wk, wv};
   const float* const lw3[3] = {lwq, lwk, lwv};
@@ -132,7 +187,7 @@ qkv_depthwise_ln_kernel(const float* __restrict__ x, const uint8_t* __restrict__
 #pragma unroll
     for (int s = 0; s < 3; ++s) {
       const float* w = w3[s] + 3 * i;
-      ws[s * C + i] = make_float4(w[0], w[1], w[2], 0.f);
+      ws[s * C + i] = make_float4(in_e<E>(w[0]), in_e<E>(w[1]), in_e<E>(w[2]), 0.f);
       ls[s * C + i] = make_float2(lw3[s][i], lb3[s][i]);
     }
   }
@@ -157,7 +212,7 @@ qkv_depthwise_ln_kernel(const float* __restrict__ x, const uint8_t* __restrict__
 #pragma unroll
     for (int s = 0; s < 3; ++s) {
       const float4 w = ws[s * C + c];
-      y[s] = fmaf(w.z, r, fmaf(w.y, m, w.x * a));
+      y[s] = in_e<E>(fmaf(w.z, r, fmaf(w.y, m, w.x * a)));
     }
   };
 
@@ -195,22 +250,16 @@ qkv_depthwise_ln_kernel(const float* __restrict__ x, const uint8_t* __restrict__
 #pragma unroll
     for (int s = 0; s < 3; ++s) {
       const float2 l = ls[s * C + c];
-      o3[s][o0 + (size_t)c * T] = fmaf((y[s] - mean[s]) * rstd[s], l.x, l.y);
+      put(o3[s] + o0 + (size_t)c * T, fmaf((y[s] - mean[s]) * rstd[s], l.x, l.y));
     }
   }
 }
 
-}  // namespace
-
-// C entry point. x (B, C, T), mask (B, T) bytes, w_s (C, 3) depthwise taps,
-// ln params (C,), outputs (B, C, T); all f32 contiguous on the device.
-// Launch plan: `tile` time columns per block, a multiple of 4 and of 32 / CS
-// with tile * CS <= 512. Returns the cudaError_t of the launch.
-extern "C" int decafnet_qkv_depthwise_ln_f32(
-    const float* x, const uint8_t* mask, const float* wq, const float* wk, const float* wv,
-    const float* lwq, const float* lbq, const float* lwk, const float* lbk, const float* lwv,
-    const float* lbv, float* oq, float* ok, float* ov, int B, int C, int T, float eps,
-    int tile, cudaStream_t stream) {
+template <typename E>
+int entry(const E* x, const uint8_t* mask, const float* wq, const float* wk, const float* wv,
+          const float* lwq, const float* lbq, const float* lwk, const float* lbk,
+          const float* lwv, const float* lbv, E* oq, E* ok, E* ov, int B, int C, int T,
+          float eps, int tile, cudaStream_t stream) {
   if (B <= 0 || C <= 0 || T <= 0 || C > 256) return (int)cudaErrorInvalidValue;
   if (tile <= 0 || tile % 4 != 0 || tile % QW != 0 || tile * CS > MAX_THREADS)
     return (int)cudaErrorInvalidValue;
@@ -220,12 +269,39 @@ extern "C" int decafnet_qkv_depthwise_ln_f32(
   const size_t smem = sizeof(float) * ((size_t)C * row + 12 * C + 6 * C + tile + 2);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        qkv_depthwise_ln_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        qkv_depthwise_ln_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const bool vec = T % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  qkv_depthwise_ln_kernel<<<(unsigned)(B * n_tiles), tile * CS, smem, stream>>>(
+  // rows of 16-byte multiples: T % 4 == 0 in f32, T % 8 == 0 in bf16
+  const bool vec = T % (16 / (int)sizeof(E)) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  qkv_depthwise_ln_kernel<E><<<(unsigned)(B * n_tiles), tile * CS, smem, stream>>>(
       x, mask, wq, wk, wv, lwq, lbq, lwk, lbk, lwv, lbv, oq, ok, ov, C, T, tile, row,
       (int)n_tiles, eps, vec);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points, f32 and bf16. x (B, C, T) and the outputs (B, C, T) of one
+// type; mask (B, T) bytes; w_s (C, 3) depthwise taps and the ln params (C,) in
+// f32 (the bf16 variant rounds the taps to bf16); all contiguous on the
+// device. Launch plan: `tile` time columns per block, a multiple of 8 (the
+// columns per warp, 32 / CS) with tile * CS <= 512. Each returns the
+// cudaError_t of the launch.
+extern "C" int decafnet_qkv_depthwise_ln_f32(
+    const float* x, const uint8_t* mask, const float* wq, const float* wk, const float* wv,
+    const float* lwq, const float* lbq, const float* lwk, const float* lbk, const float* lwv,
+    const float* lbv, float* oq, float* ok, float* ov, int B, int C, int T, float eps,
+    int tile, cudaStream_t stream) {
+  return entry(x, mask, wq, wk, wv, lwq, lbq, lwk, lbk, lwv, lbv, oq, ok, ov, B, C, T, eps,
+               tile, stream);
+}
+
+extern "C" int decafnet_qkv_depthwise_ln_bf16(
+    const __nv_bfloat16* x, const uint8_t* mask, const float* wq, const float* wk,
+    const float* wv, const float* lwq, const float* lbq, const float* lwk, const float* lbk,
+    const float* lwv, const float* lbv, __nv_bfloat16* oq, __nv_bfloat16* ok,
+    __nv_bfloat16* ov, int B, int C, int T, float eps, int tile, cudaStream_t stream) {
+  return entry(x, mask, wq, wk, wv, lwq, lbq, lwk, lbk, lwv, lbv, oq, ok, ov, B, C, T, eps,
+               tile, stream);
 }

@@ -122,12 +122,13 @@ class ClipEncoder(nn.Module):
 
 def make_clip_encoder(opt):
     """``ClipEncoder`` from an options dict (keys it does not take are
-    ignored, as the JAX factory does). The port computes in f32: a bf16
-    ``dtype`` raises (ROADMAP item 12)."""
+    ignored, as the JAX factory does). The port's encoders compute in f32:
+    a bf16 ``dtype`` raises (the encode stage in bf16 is ROADMAP item
+    12c)."""
     dtype = opt.get("dtype")
     if dtype not in (None, "float32", torch.float32, np.float32):
         raise ValueError(f"dtype={dtype!r}: the port's encoders compute in "
-                         f"f32; a bf16 mode is ROADMAP item 12")
+                         f"f32; a bf16 encode stage is ROADMAP item 12c")
     fields = set(inspect.signature(ClipEncoder).parameters)
     return ClipEncoder(**{k: v for k, v in opt.items() if k in fields})
 

@@ -6,7 +6,9 @@ rows (port of decafnet_tpu/eval/evaluator.py, the per-video path that
 device, shared by the Evaluator and the serving path. Per bucket (T, Q, L)
 the model runs video-major (V videos x Q query rows); scores are sigmoid
 logits (optionally modulated by external scores); the top-k cut is a
-per-query threshold (``scores >= kth``, so ties match the JAX decode);
+per-query threshold (``scores >= kth``, so ties match the JAX decode; in
+the bf16 compute mode the scores are bf16, as in JAX, and the threshold is
+applied to them before any upcast, since bf16 scores tie far more often);
 segments are assembled for all points and filtered by length. Then either
 fixed-k SoftNMS with voting runs on the device and only the (Q, k, 2)
 detections return to the host, or (``eval.reference_exact``) the (Q, P)
@@ -258,7 +260,9 @@ class Decoder:
             cat("text_cls"), cat("text_masks"),
             cat("ext_scores") if has_ext else None, pe_interp, Q,
             targets=targets)
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+        # bf16 scores (reference_exact in the bf16 mode) reach numpy as f32
+        out = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+               for k, v in out.items()}
         self.time_dict["forward"].append(time.perf_counter() - t_fwd)
 
         # "post_process": host-side slicing and grid -> seconds; "nms": the
@@ -361,6 +365,10 @@ class Evaluator:
                                  world_size=self.proc_world,
                                  num_threads=cfg.train.num_workers)
 
+        # the JAX Evaluator resolves the compute dtype per shape bucket and
+        # keeps one model per dtype (_model_for_bucket); with its length gate
+        # off the resolution is the same for every bucket, and a port model's
+        # weights are the same in every dtype, so one model serves
         model = make_model(cfg)
         if params is not None:
             load_params(model, params)

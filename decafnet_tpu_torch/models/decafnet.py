@@ -18,6 +18,11 @@ the videos to rows first.
 ``model.tcn_dropout`` and the channel dropout ``vid_net.cdrop``), drawn from
 the ``generator`` passed to ``forward``; in eval mode the forward is the
 serving forward.
+
+``compute_dtype`` (``torch.bfloat16``, or None for f32) is the activations'
+dtype after delegation, which stays f32, as in the JAX models: the video
+and text inputs are cast at entry, the parameters stay f32 and are cast at
+each use (nn/blocks.py), and the outputs come in the compute dtype.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 from ..nn.blocks import MaskedConv1D, dropout, reset_parameters
 from ..ops.delegation import delegate, delegation_weights
 from ..ops.masked import interpolate_nearest_1d, masked_max_pool1d
+from ..ops.params import cast
 from .fusion import XAttNFusion
 from .heads import ClsHead, RegHead
 from .tcn import TCN
@@ -79,6 +85,11 @@ def _fusion(m, text_dim):
                        xattn_mode=fu.get("xattn_mode", "adaln"), **_drops(fu))
 
 
+def _to_compute(x, dtype):
+    """``x`` in the compute dtype (None: unchanged, f32)."""
+    return x if dtype is None else x.to(dtype)
+
+
 def _expand_videos(Q, *videos):
     """Video-major inputs -> one row per query (each video repeated Q
     times)."""
@@ -88,14 +99,16 @@ def _expand_videos(Q, *videos):
 
 
 class DeCafNetIterative(nn.Module):
-    """Live DeCafNet model, f32. ``cfg`` is the ``model`` config subtree
-    (after ``core.update_opt``). With ``second_fusion`` (``iter2``) the
-    fusion runs again over every FPN level before the heads."""
+    """Live DeCafNet model. ``cfg`` is the ``model`` config subtree (after
+    ``core.update_opt``). With ``second_fusion`` (``iter2``) the fusion runs
+    again over every FPN level before the heads. ``compute_dtype``: see the
+    module docstring."""
 
-    def __init__(self, cfg, second_fusion=False):
+    def __init__(self, cfg, second_fusion=False, compute_dtype=None):
         super().__init__()
         m = cfg
         self.cfg, self.second_fusion = m, second_fusion
+        self.compute_dtype = compute_dtype
         _check_names(m)
         vid_embd = m["vid_net"]["embd_dim"]
         num_levels = m["vid_net"]["arch"][-1]
@@ -152,8 +165,10 @@ class DeCafNetIterative(nn.Module):
         The binary delegation weight broadcasts over channels, so it
         commutes with the 1x1 projection: W_e @ (vid * w) + W_s @ shallow + b
         == w * (W_e @ vid) + (W_s @ shallow) + b. The 2C -> embd projection
-        runs once per video; rows are expanded at embd channels. Returns
-        per-row (vid_rows, mask_rows)."""
+        runs once per video; rows are expanded at embd channels. The
+        saliency correlation and the delegation weights stay f32; the
+        projection and the rows are in the compute dtype. Returns per-row
+        (vid_rows, mask_rows)."""
         m = self.cfg
         V, _, T = vid.shape
         embd = self.vid_map.conv.weight.shape[0]
@@ -169,12 +184,15 @@ class DeCafNetIterative(nn.Module):
         weight = delegation_weights(correl, mask_rows, m.get("sn", 60),
                                     m.get("sratio", 0.0))
 
-        mask_f = vid_masks[:, None, :].to(vid.dtype)
-        W, bias = self.vid_map.conv.weight, self.vid_map.conv.bias
-        a = F.conv1d(vid * mask_f, W[:, :C_exp])                 # (V, embd, T)
-        w_rows = weight.reshape(V, Q, 1, T).to(vid.dtype)
+        dtype = self.compute_dtype or vid.dtype
+        mask_f = vid_masks[:, None, :].to(dtype)
+        W = cast(self.vid_map.conv.weight, dtype)
+        bias = cast(self.vid_map.conv.bias, dtype)
+        a = F.conv1d(vid.to(dtype) * mask_f, W[:, :C_exp])       # (V, embd, T)
+        w_rows = weight.reshape(V, Q, 1, T).to(dtype)
         if m.get("msf", False):
-            b_ = F.conv1d(shallow_vid * mask_f, W[:, C_exp:C_exp + C_side])
+            b_ = F.conv1d(shallow_vid.to(dtype) * mask_f,
+                          W[:, C_exp:C_exp + C_side])
             rows = a[:, None] * w_rows + b_[:, None]
         else:
             rows = a[:, None] * w_rows
@@ -182,7 +200,7 @@ class DeCafNetIterative(nn.Module):
         rows = rows.reshape(V * Q, embd, T)
         if m.get("scat", False):
             # the correlation channel is masked by the per-row mask
-            corr_rows = correl.to(vid.dtype) * mask_rows.to(vid.dtype)
+            corr_rows = correl.to(dtype) * mask_rows.to(dtype)
             rows = rows + W[:, -1, 0][None, :, None] * corr_rows[:, None, :]
         if bias is not None:
             rows = rows + bias[None, :, None]
@@ -213,12 +231,13 @@ class DeCafNetIterative(nn.Module):
                 ratio=m.get("sratio", 0.0), normalize=m.get("norm", False),
                 msf=m.get("msf", False), scat=m.get("scat", False),
                 sfonly=m.get("sfonly", False) and not self.training)
-            vid = dropout(vid, self.cdrop, generator, self.training,
-                          shape=vid.shape[:2] + (1,))
+            vid = dropout(_to_compute(vid, self.compute_dtype), self.cdrop,
+                          generator, self.training, shape=vid.shape[:2] + (1,))
             vid, vm = self.vid_map(vid, vid_masks[:, None, :])
 
-        text_enc, text_mask_enc = self.text_net(text, text_masks,
-                                                generator=generator)
+        text_enc, text_mask_enc = self.text_net(
+            _to_compute(text, self.compute_dtype), text_masks,
+            generator=generator)
         vid, vm = self.fusion(vid, vm, text_enc, text_mask_enc,
                               generator=generator)
         fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp,
@@ -230,11 +249,12 @@ class DeCafNetIterative(nn.Module):
 class _OneHeadModel(nn.Module):
     """What the early- and late-fusion variants share: delegation per row
     (video-major batches expanded to rows first), the text net, the fusion
-    and the two heads at the video width."""
+    and the two heads at the video width. The video (after delegation) and
+    the text are cast to ``compute_dtype`` at entry."""
 
-    def __init__(self, m, vid_in_dim):
+    def __init__(self, m, vid_in_dim, compute_dtype=None):
         super().__init__()
-        self.cfg = m
+        self.cfg, self.compute_dtype = m, compute_dtype
         _check_names(m)
         vid_embd = m["vid_net"]["embd_dim"]
         self.cdrop = m["vid_net"].get("cdrop", 0.0)
@@ -256,8 +276,8 @@ class _OneHeadModel(nn.Module):
             vid, shallow_vid, vid_masks, text_cls, sn=m.get("sn", 60),
             ratio=m.get("sratio", 0.0), normalize=m.get("norm", False),
             msf=m.get("msf", False), scat=m.get("scat", False), sfonly=sfonly)
-        vid = dropout(vid, self.cdrop, generator, self.training,
-                      shape=vid.shape[:2] + (1,))
+        vid = dropout(_to_compute(vid, self.compute_dtype), self.cdrop,
+                      generator, self.training, shape=vid.shape[:2] + (1,))
         return vid, vid_masks[:, None, :]
 
     def _heads(self, fpn, fpn_masks):
@@ -272,9 +292,9 @@ class DeCafNetEarlyFusion(_OneHeadModel):
     ``early2``: the fusion again over every level) -> cls_head + reg_head.
     Returns (logits, offsets, masks), each a list over FPN levels."""
 
-    def __init__(self, cfg, second_fusion=True):
+    def __init__(self, cfg, second_fusion=True, compute_dtype=None):
         vid_embd = cfg["vid_net"]["embd_dim"]
-        super().__init__(cfg, vid_embd)
+        super().__init__(cfg, vid_embd, compute_dtype)
         self.second_fusion = second_fusion
         self.vid_map = MaskedConv1D(_delegated_in_dim(cfg), vid_embd, 1)
 
@@ -284,8 +304,9 @@ class DeCafNetEarlyFusion(_OneHeadModel):
         vid, vm = self._delegate(vid, shallow_vid, vid_masks, text_cls,
                                  queries_per_video, sfonly, generator)
         vid, vm = self.vid_map(vid, vm)
-        text_enc, text_mask_enc = self.text_net(text, text_masks,
-                                                generator=generator)
+        text_enc, text_mask_enc = self.text_net(
+            _to_compute(text, self.compute_dtype), text_masks,
+            generator=generator)
         vid, vm = self.fusion(vid, vm, text_enc, text_mask_enc,
                               generator=generator)
         fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp,
@@ -302,8 +323,8 @@ class DeCafNetLateFusion(_OneHeadModel):
     cls_head + reg_head. Returns (logits, offsets, masks), each a list over
     FPN levels."""
 
-    def __init__(self, cfg):
-        super().__init__(cfg, _delegated_in_dim(cfg))
+    def __init__(self, cfg, compute_dtype=None):
+        super().__init__(cfg, _delegated_in_dim(cfg), compute_dtype)
 
     def forward(self, vid, shallow_vid, vid_masks, text, text_cls, text_masks,
                 pe_interp=None, queries_per_video=1, generator=None):
@@ -312,37 +333,62 @@ class DeCafNetLateFusion(_OneHeadModel):
                                  queries_per_video, False, generator)
         fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp,
                                       generator=generator)
-        text_enc, text_mask_enc = self.text_net(text, text_masks,
-                                                generator=generator)
+        text_enc, text_mask_enc = self.text_net(
+            _to_compute(text, self.compute_dtype), text_masks,
+            generator=generator)
         fpn, fpn_masks = self.fusion(fpn, fpn_masks, text_enc, text_mask_enc,
                                      generator=generator)
         return self._heads(fpn, fpn_masks)
 
 
-def make_model(cfg):
-    """Model factory of the JAX ``make_model`` names, in f32
-    (``tpu.compute_dtype`` "auto" or "float32"): ``iter`` / ``iter2``
+# compute dtype names -> the models' ``compute_dtype`` (None: f32)
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
+                  "bf16": torch.bfloat16}
+
+
+def resolve_compute_dtype(cfg):
+    """``cfg.tpu.compute_dtype`` as a concrete name (port of
+    decafnet_tpu/models/decafnet.py:379-417). An explicit value passes
+    through. "auto" is "float32" for training and for
+    ``eval.reference_exact``, and the JAX function gives "bfloat16" only for
+    eval and serving on a TPU backend: on any other backend, a GPU included,
+    it gives "float32", and so does the port, in every mode (so it takes no
+    ``eval_mode``). Making bf16 the card's eval default waits for its own
+    numerics study on the card (ROADMAP item 12d)."""
+    tpu = cfg.get("tpu") or {}
+    value = tpu.get("compute_dtype", "float32")
+    return "float32" if value == "auto" else value
+
+
+def make_model(cfg, compute_dtype=None):
+    """Model factory of the JAX ``make_model`` names: ``iter`` / ``iter2``
     (:class:`DeCafNetIterative` without / with the second fusion),
     ``early`` / ``early2`` (:class:`DeCafNetEarlyFusion` without / with it)
-    and ``default`` (:class:`DeCafNetLateFusion`). ``tpu.remat`` wraps the
-    video net's encoders in activation checkpointing for training, with
-    ``tpu.remat_policy`` "nothing" or "dots"."""
+    and ``default`` (:class:`DeCafNetLateFusion`). The compute dtype is
+    ``compute_dtype`` when given, else ``cfg.tpu.compute_dtype`` resolved:
+    "float32" ("auto") or "bfloat16" / "bf16" (bf16 activations, f32
+    parameters and statistics); any other value raises. ``tpu.remat``
+    wraps the video net's encoders in activation checkpointing for
+    training, with ``tpu.remat_policy`` "nothing" or "dots"."""
     tpu = cfg.get("tpu", {})
-    dtype = tpu.get("compute_dtype", "auto")
-    if dtype not in ("auto", "float32"):
-        raise ValueError(f"tpu.compute_dtype={dtype!r}: the port computes in "
-                         f"f32; a bf16 mode is ROADMAP item 12")
+    value = compute_dtype or resolve_compute_dtype(cfg)
+    if value not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype {value!r}: tpu.compute_dtype is "
+                         f"'auto' or one of {sorted(COMPUTE_DTYPES)}")
+    dtype = COMPUTE_DTYPES[value]
     m = cfg.model
     if tpu.get("remat"):
         m = {**m, "vid_net": {**m["vid_net"], "remat": True,
                               "remat_policy": tpu.get("remat_policy", "nothing")}}
     name = m["name"]
     if name in ("iter", "iter2"):
-        return DeCafNetIterative(m, second_fusion=name == "iter2")
+        return DeCafNetIterative(m, second_fusion=name == "iter2",
+                                 compute_dtype=dtype)
     if name in ("early", "early2"):
-        return DeCafNetEarlyFusion(m, second_fusion=name == "early2")
+        return DeCafNetEarlyFusion(m, second_fusion=name == "early2",
+                                   compute_dtype=dtype)
     if name == "default":
-        return DeCafNetLateFusion(m)
+        return DeCafNetLateFusion(m, compute_dtype=dtype)
     raise ValueError(f"unknown model: {name!r}")
 
 

@@ -8,6 +8,7 @@ import torch.nn as nn
 
 from ..nn.blocks import AttNPool1D, MaskedConv1D, TransformerEncoder
 from ..ops.masked import interpolate_linear_1d, sinusoid_encoding
+from ..ops.params import cast
 
 
 def add_pe(x, mask, max_seq_len, training=False):
@@ -59,7 +60,7 @@ class TextTransformer(nn.Module):
         if self.use_abs_pe:
             x = add_pe(x, mask, self.max_seq_len, self.training)
         if self.bkgd_token is not None:
-            bkgd = self.bkgd_token.to(x.dtype)[None].expand(x.shape[0], -1, -1)
+            bkgd = cast(self.bkgd_token, x.dtype)[None].expand(x.shape[0], -1, -1)
             x = torch.cat([bkgd, x], dim=-1)
             mask = torch.cat([mask[..., :1], mask], dim=-1)
         for layer in self.transformer:

@@ -12,6 +12,12 @@ and draw their masks from the ``torch.Generator`` passed down each forward
 as ``generator`` (never from the global RNG), as the JAX modules draw from
 the ``dropout`` rng stream; in eval mode, or at rate 0, they are the
 identity.
+
+Compute dtype: the activations' dtype is the compute dtype (f32, or bf16
+under ``tpu.compute_dtype: bfloat16``); parameters stay f32 and are cast to
+it at each use (:func:`ops.params.cast`, a copy cached per weight), as the
+JAX modules cast theirs (``param.astype(x.dtype)``); LayerNorm statistics
+and attention scores and softmax stay f32.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from ..ops.fused_conv import qkv_depthwise_ln
 from ..ops.local_attention import band_attention
 from ..ops.masked import (channel_layer_norm, interpolate_nearest_1d,
                           masked_avg_pool1d, masked_max_pool1d)
+from ..ops.params import cast
 
 
 def _uniform_(t, bound, generator):
@@ -92,8 +99,13 @@ class Conv1d(nn.Module):
                 nn.init.constant_(self.bias, self.bias_fill)
 
     def forward(self, x):
-        return F.conv1d(x, self.weight, self.bias, self.stride, self.padding,
-                        self.dilation, self.groups)
+        # the bias is added to the conv's output in its dtype, as the JAX
+        # Conv1d adds it (in bf16 the conv output is rounded first)
+        y = F.conv1d(x, cast(self.weight, x.dtype), None, self.stride,
+                     self.padding, self.dilation, self.groups)
+        if self.bias is None:
+            return y
+        return y + cast(self.bias, y.dtype)[:, None]
 
 
 class MaskedConv1D(nn.Module):
@@ -116,7 +128,8 @@ class MaskedConv1D(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """Channel-first LayerNorm over (bs, c, t); affine params are (c, 1)."""
+    """Channel-first LayerNorm over (bs, c, t); affine params are (c, 1),
+    cast to x's dtype and applied in f32 (JAX nn/blocks.py:198-214)."""
 
     def __init__(self, n_channels, affine=True, eps=1e-5):
         super().__init__()
@@ -133,7 +146,8 @@ class LayerNorm(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return channel_layer_norm(x, self.weight, self.bias, self.eps)
+        return channel_layer_norm(x, cast(self.weight, x.dtype),
+                                  cast(self.bias, x.dtype), self.eps)
 
 
 class TorchLayerNorm(nn.Module):
@@ -151,7 +165,8 @@ class TorchLayerNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return channel_layer_norm(x, self.weight, self.bias, self.eps)
+        return channel_layer_norm(x, cast(self.weight, x.dtype),
+                                  cast(self.bias, x.dtype), self.eps)
 
 
 class Scale(nn.Module):
@@ -166,7 +181,7 @@ class Scale(nn.Module):
         nn.init.constant_(self.scale, self.init)
 
     def forward(self, x):
-        return x * self.scale
+        return x * cast(self.scale, x.dtype)
 
 
 class LayerScale(nn.Module):
@@ -182,13 +197,17 @@ class LayerScale(nn.Module):
         nn.init.constant_(self.scale, self.init_scale)
 
     def forward(self, x, generator=None):
-        return drop_path(self.scale * x, self.pdrop, generator, self.training)
+        return drop_path(cast(self.scale, x.dtype) * x, self.pdrop, generator,
+                         self.training)
 
 
 class MaskedMHA(nn.Module):
     """Multi-head attention with masking; global, or banded local when
     ``window_size`` > 0. q and k are both scaled by 1/sqrt(sqrt(d)); the
-    global softmax gives zeros, not NaN, for fully masked rows. In training,
+    global softmax gives zeros, not NaN, for fully masked rows. The global
+    scores accumulate in f32 and the softmax runs in f32; the weights are
+    rounded to v's dtype for the second product, which accumulates in f32
+    (JAX nn/blocks.py:314-329). In training,
     dropout at ``attn_pdrop`` on the global attention weights (the banded
     path has none, as in the JAX module) and at ``proj_pdrop`` on the
     output projection."""
@@ -229,7 +248,8 @@ class MaskedMHA(nn.Module):
         if self.window_size > 0:
             out = band_attention(qh, kh, vh, mask2d, self.window_size)
         else:
-            scores = torch.einsum("bhid,bhjd->bhij", qh, kh)
+            acc = torch.promote_types(q.dtype, torch.float32)
+            scores = torch.einsum("bhid,bhjd->bhij", qh.to(acc), kh.to(acc))
             kv_valid = mask2d[:, None, None, :]
             scores = scores.masked_fill(~kv_valid, -float("inf"))
             smax = torch.amax(scores, dim=-1, keepdim=True)
@@ -239,7 +259,8 @@ class MaskedMHA(nn.Module):
             denom = torch.sum(attn, dim=-1, keepdim=True)
             attn = attn / torch.clamp_min(denom, torch.finfo(attn.dtype).tiny)
             attn = dropout(attn, self.attn_pdrop, generator, self.training)
-            out = torch.einsum("bhij,bhjd->bhid", attn, vh)
+            out = torch.einsum("bhij,bhjd->bhid", attn.to(vh.dtype).to(acc),
+                               vh.to(acc)).to(q.dtype)
 
         out = out.transpose(2, 3).reshape(bs, h * d, -1)
         return dropout(self.proj(out), self.proj_pdrop, generator,

@@ -1,6 +1,8 @@
 """Tensor ops of the port: masked primitives, delegation, the three kernel
 ops (each with its plain version), the device NMS and the host C++ NMS."""
 
+import torch
+
 from .delegation import delegate, delegation_weights, saliency_correlation
 from .fused_conv import (conv3_ln_act, conv3_ln_act_torch, qkv_depthwise_ln,
                          qkv_depthwise_ln_torch)
@@ -17,8 +19,11 @@ KERNEL_OPS = (conv3_ln_act, band_attention, qkv_depthwise_ln)
 
 def reset_launch_counts():
     for op in KERNEL_OPS:
-        op.launches = 0
+        op.launches = op.launches_bf16 = 0
 
 
-def launch_counts():
-    return {op.__name__: op.launches for op in KERNEL_OPS}
+def launch_counts(dtype=torch.float32):
+    """Launches of each op's kernel for ``dtype`` activations (f32 or bf16)
+    since the last :func:`reset_launch_counts`."""
+    attr = {torch.float32: "launches", torch.bfloat16: "launches_bf16"}[dtype]
+    return {op.__name__: getattr(op, attr) for op in KERNEL_OPS}

@@ -5,7 +5,8 @@ For query i and band offset r in [-w//2, w//2], key j = i + r takes part
 when 0 <= j < T and kv_mask[j]; softmax over those keys, rows with an
 invalid query (or no valid key) are zero. ``band_attention_torch`` is the
 plain version (the per-diagonal form of the JAX ``band_attention_diag``);
-``band_attention`` launches csrc/band_attention.cu for CUDA tensors.
+``band_attention`` launches csrc/band_attention.cu for CUDA tensors, its f32
+or its bf16 kernel after the inputs' dtype.
 """
 
 from __future__ import annotations
@@ -28,15 +29,27 @@ def _shift_time(x, r):
 
 
 def band_attention_torch(q, k, v, kv_mask, window_size):
-    """Plain version. q, k, v (B, H, T, D) f32; kv_mask (B, T) bool (also the
-    query mask); odd ``window_size``. Returns (B, H, T, D)."""
+    """Plain version. q, k, v (B, H, T, D) f32 or bf16 (f64 for gradient
+    checks); kv_mask (B, T) bool (also the query mask); odd
+    ``window_size``. Returns (B, H, T, D) in q's dtype.
+
+    The scores, the softmax and the weighted sum of v accumulate in f32 (in
+    f64 for f64), as ``band_attention_diag`` does with
+    ``preferred_element_type=jnp.float32``: bf16 q and k are upcast before
+    their products, which are exact in f32, so the scores are not rounded
+    to bf16. JAX's ones-dot form for bf16 at T >= 4096
+    (decafnet_tpu/ops/local_attention.py:183-198) is a TPU lowering that
+    keeps the q * k products in bf16; the port keeps this exact-product form
+    at every length."""
     assert window_size % 2 == 1 and window_size > 0
     halo = window_size // 2
+    acc = torch.promote_types(q.dtype, torch.float32)   # f32, or f64 in f64
     mask_f = kv_mask.float()[:, None, :, None]              # (B, 1, T, 1)
     neg = torch.tensor(-float("inf"), device=q.device)
+    qa, ka = q.to(acc), k.to(acc)
     scores = []
     for r in range(-halo, halo + 1):
-        s = torch.einsum("bhtd,bhtd->bht", q, _shift_time(k, r))
+        s = torch.einsum("bhtd,bhtd->bht", qa, _shift_time(ka, r))
         m_r = _shift_time(mask_f, r)[..., 0]                # (B, 1, T)
         scores.append(torch.where(m_r > 0, s, neg))
     s = torch.stack(scores, dim=-1)                         # (B, H, T, w)
@@ -48,7 +61,6 @@ def band_attention_torch(q, k, v, kv_mask, window_size):
     denom = torch.sum(p, dim=-1, keepdim=True)
     p = p / torch.clamp_min(denom, torch.finfo(p.dtype).tiny)
 
-    acc = torch.promote_types(q.dtype, torch.float32)   # f32, or f64 in f64
     out = torch.zeros(q.shape, dtype=acc, device=q.device)
     for i, r in enumerate(range(-halo, halo + 1)):
         out = out + p[..., i:i + 1] * _shift_time(v, r).to(acc)
@@ -77,8 +89,10 @@ def band_attention(q, k, v, kv_mask, window_size):
     """Banded attention (see :func:`band_attention_torch`).
 
     On CUDA this launches csrc/band_attention.cu, the counterpart of the TPU
-    kernel decafnet_tpu/ops/local_attention.py:_band_attention_pallas_impl.
-    q, k and v may be any strided (B, H, T, D) views that share their
+    kernel decafnet_tpu/ops/local_attention.py:_band_attention_pallas_impl:
+    its f32 kernel for f32 inputs, its bf16 kernel (bf16 tiles, f32 scores,
+    softmax and sums, a bf16 result) for bf16 ones; ``.launches`` counts the
+    first, ``.launches_bf16`` the second. q, k and v may be any strided (B, H, T, D) views that share their
     strides (the head view of a (B, C, T) projection is read in place); the
     result is a (B, H, T, D) view of a (B, H, D, T) contiguous buffer.
 
@@ -132,8 +146,10 @@ def launch_band_attention(q, k, v, kv_mask, window_size, plan):
     cuda.require(q.is_cuda, name, "the kernel takes CUDA tensors")
     cuda.require(window_size % 2 == 1 and 1 <= halo <= 4, name,
                  f"window_size {window_size} (odd, 3..9)")
-    cuda.require(all(t.dtype == torch.float32 and t.device == q.device
-                     for t in (q, k, v)), name, "f32 tensors on one device")
+    cuda.require(q.dtype in (torch.float32, torch.bfloat16)
+                 and all(t.dtype == q.dtype and t.device == q.device
+                         for t in (k, v)), name,
+                 "f32 or bf16 tensors of one dtype on one device")
     cuda.require(k.shape == q.shape and v.shape == q.shape, name,
                  "q, k, v shapes differ")
     cuda.require(D in BAND_HEAD_DIMS, name,
@@ -146,14 +162,20 @@ def launch_band_attention(q, k, v, kv_mask, window_size, plan):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     sb, sh, st, sd = q.stride()
     tile, split = plan
-    out = torch.empty((B, H, D, T), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, H, D, T), dtype=q.dtype, device=q.device)
     m8 = cuda.as_bytes(kv_mask)
-    err = cuda.library().decafnet_band_attention_f32(
-        cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m8), cuda.ptr(out),
-        B, H, T, D, sb, sh, st, sd, halo, tile, split, cuda.stream())
-    cuda.check(err, name)
-    band_attention.launches += 1
+    bf16 = q.dtype == torch.bfloat16
+    entry = (cuda.library().decafnet_band_attention_bf16 if bf16
+             else cuda.library().decafnet_band_attention_f32)
+    err = entry(cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m8),
+                cuda.ptr(out), B, H, T, D, sb, sh, st, sd, halo, tile, split,
+                cuda.stream())
+    cuda.check(err, name + ("_bf16" if bf16 else ""))
+    if bf16:
+        band_attention.launches_bf16 += 1
+    else:
+        band_attention.launches += 1
     return out.transpose(2, 3)
 
 
-band_attention.launches = 0
+band_attention.launches = band_attention.launches_bf16 = 0

@@ -48,7 +48,9 @@ class GroundingService:
     ``cfg``: a full config tree (``core.load_config``). Weights come from
     ``params``, a flax-layout parameter tree of numpy arrays, or from
     ``checkpoint``, a reference-layout ``.pth`` (its ``model_ema``).
-    ``device``: None for the CUDA card, or an explicit device."""
+    ``device``: None for the CUDA card, or an explicit device. The model
+    computes in ``tpu.compute_dtype`` (f32 for "auto"; ``--set
+    tpu.compute_dtype bfloat16`` serves in bf16)."""
 
     def __init__(self, cfg, params=None, checkpoint=None, device=None):
         require_two_heads(cfg, "GroundingService")

@@ -41,7 +41,8 @@ from torch.nn.parallel import DistributedDataParallel
 
 from .. import parallel
 from ..data import DataLoader, batchify_train, make_dataset
-from ..models import init_random, load_pth, make_model, require_two_heads
+from ..models import (init_random, load_pth, make_model, require_two_heads,
+                      resolve_compute_dtype)
 from ..models.points import fpn_lengths, generate_points, select_points
 from ..utils.logging import AverageMeter, Logger, time_str
 from ..utils.tracking import MetricsSink
@@ -57,6 +58,10 @@ def check_supported(cfg):
     ROADMAP item, instead of running something else; and for the
     forward-only model variants."""
     require_two_heads(cfg, "Trainer")
+    if resolve_compute_dtype(cfg) != "float32":
+        raise NotImplementedError(
+            f"tpu.compute_dtype={cfg.tpu.compute_dtype!r}: training computes "
+            f"in f32; bf16 training is not in the port yet (ROADMAP item 12b)")
     if cfg.tpu.get("shard_time"):
         raise NotImplementedError(
             "tpu.shard_time: sequence-parallel training is not in the port "

@@ -31,6 +31,11 @@ TOL = {"conv3_ln_act": 1e-4, "qkv_depthwise_ln": 1e-5, "band_attention": 1e-5}
 # conv3 kernel vs an f64 run of the same function: its 3xTF32 products must
 # keep f32 accuracy (one TF32 pass is off by ~1e-3 at these widths)
 TOL_F64 = 1e-5
+# bf16 kernels vs their bf16 plain versions: |diff| <= 2 bf16 eps (2 * 2**-7)
+# times max(1, |plain|). Both round at the same places (the conv outputs,
+# the result); their f32 sums run in another order, which can move a
+# rounding by one bf16 step
+TOL_BF16 = 2 * 2.0 ** -7
 
 
 def _mask(lens, T, dev):
@@ -38,9 +43,10 @@ def _mask(lens, T, dev):
 
 
 def _case(name, T, dev, seed=0, C=160, contiguous_heads=False, how="as_is",
-          B=4):
+          B=4, dtype=torch.float32):
     """Arguments of one op at width C (band attention: 4 heads of C//4), the
-    (B, C, T) input(s) laid out as ``how`` says (see chip_smoke.moved)."""
+    (B, C, T) input(s) in ``dtype`` and laid out as ``how`` says (see
+    chip_smoke.moved); the parameters in f32."""
     g = torch.Generator(device=dev).manual_seed(seed)
     lens = ([T, max(T - 3, 1), T // 2, 0] * B)[:B]
     mask = _mask(lens, T, dev)
@@ -49,14 +55,16 @@ def _case(name, T, dev, seed=0, C=160, contiguous_heads=False, how="as_is",
         return torch.randn(*shape, generator=g, device=dev)
 
     if name == "conv3_ln_act":
-        return (rn(B, C, T), mask, rn(C, C, 3) / math.sqrt(3 * C), None,
-                1 + 0.1 * rn(C, 1), 0.1 * rn(C, 1))
+        return (moved(rn(B, C, T).to(dtype), how), mask,
+                rn(C, C, 3) / math.sqrt(3 * C), None, 1 + 0.1 * rn(C, 1),
+                0.1 * rn(C, 1))
     if name == "qkv_depthwise_ln":
-        return (moved(rn(B, C, T), how), mask, [rn(C, 1, 3) for _ in range(3)],
+        return (moved(rn(B, C, T).to(dtype), how), mask,
+                [rn(C, 1, 3) for _ in range(3)],
                 [1 + 0.1 * rn(C, 1) for _ in range(3)],
                 [0.1 * rn(C, 1) for _ in range(3)])
     D = C // 4
-    qkv = [moved(rn(B, C, T) * D ** -0.25, how).reshape(B, 4, D, T)
+    qkv = [moved((rn(B, C, T) * D ** -0.25).to(dtype), how).reshape(B, 4, D, T)
            .transpose(2, 3) for _ in range(3)]
     if contiguous_heads:
         qkv = [t.contiguous() for t in qkv]
@@ -103,6 +111,59 @@ def test_kernel_matches_plain_version(card, name, how, T, rows):
         assert g.shape == w.shape
         assert torch.isfinite(g).all()
         assert float((g - w).abs().max()) <= TOL[name]
+
+
+# bf16 layouts: conv3 also takes a base pointer off 16 bytes (its scalar
+# staging path)
+LAYOUTS_BF16 = LAYOUTS + [("conv3_ln_act", "offset")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4, 64])
+@pytest.mark.parametrize("T", [2304, 1000, 301, 72, 36, 17, 9, 3])
+@pytest.mark.parametrize("name,how", LAYOUTS_BF16)
+def test_bf16_kernel_matches_plain_version(card, name, how, T, rows):
+    op = getattr(ops, name)
+    C = 160 if name == "conv3_ln_act" else 128
+    args = _case(name, T, card, C=C, how=how, B=rows, dtype=torch.bfloat16)
+    before, before_bf16 = op.launches, op.launches_bf16
+    got = op(*args)
+    assert (op.launches, op.launches_bf16) == (before, before_bf16 + 1)
+    with cuda.plain_versions():
+        want = op(*args)
+    assert (op.launches, op.launches_bf16) == (before, before_bf16 + 1)
+    torch.cuda.synchronize()
+    for g, w in zip(_flat(got), _flat(want)):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.bfloat16
+        assert torch.isfinite(g).all()
+        g, w = g.float(), w.float()
+        assert float(((g - w).abs() / w.abs().clamp_min(1.0)).max()) <= TOL_BF16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out,bias,affine,act", [
+    (128, 128, False, True, "relu"), (160, 160, True, True, "relu"),
+    (16, 24, True, False, "none"), (13, 40, True, True, "relu")])
+@pytest.mark.parametrize("T", [2304, 301, 4])
+def test_bf16_conv3_ln_act_widths(card, c_in, c_out, bias, affine, act, T):
+    g = torch.Generator(device=card).manual_seed(c_in + c_out + T)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=card)
+
+    args = (rn(4, c_in, T).bfloat16(),
+            _mask([T, max(T - 3, 1), T // 2, 0], T, card),
+            rn(c_out, c_in, 3) / math.sqrt(3 * c_in),
+            rn(c_out) if bias else None,
+            1 + 0.1 * rn(c_out, 1) if affine else None,
+            0.1 * rn(c_out, 1) if affine else None)
+    got = ops.conv3_ln_act(*args, act=act)
+    with cuda.plain_versions():
+        want = ops.conv3_ln_act(*args, act=act)
+    assert got.shape == (4, c_out, T) and got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert float(((got - want).abs() / want.abs().clamp_min(1.0)).max()) <= TOL_BF16
 
 
 def _conv3_f64(x, mask, w, bias, ln_w, ln_b, act="relu", eps=1e-5):
@@ -321,6 +382,17 @@ def test_cpu_tensors_take_the_plain_version(name):
     assert op.launches == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_bf16_cpu_tensors_take_the_plain_version(name):
+    op, plain = getattr(ops, name), getattr(ops, name + "_torch")
+    args = _case(name, 40, torch.device("cpu"), C=16, dtype=torch.bfloat16)
+    before = op.launches, op.launches_bf16
+    got, want = _flat(op(*args)), _flat(plain(*args))
+    assert (op.launches, op.launches_bf16) == before
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, w)
 
 
 def test_plain_versions_hook_restores_routing():
