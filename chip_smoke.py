@@ -8,8 +8,7 @@ Phases, each printing one JSON line:
   build    compiles the CUDA kernels from decafnet_tpu_torch/csrc with nvcc,
            prints ptxas's registers / shared memory / spills of every
            kernel and checks in the conv3 kernels' SASS (cuobjdump) that
-           they run on the tensor cores (HMMA; LDSM, the ldmatrix loads of
-           the bf16 kernel's fragments, counted beside);
+           they run on the tensor cores (HMMA);
   kernels  holds each kernel against its plain PyTorch version on the card at
            the served shapes (V=8 videos x Q=8 queries = 64 rows, T=2304, all
            7 FPN levels) and at edge shapes (ragged and odd T, masked tails,
@@ -19,12 +18,11 @@ Phases, each printing one JSON line:
            plain version and, where one exists, the one PyTorch call
            computing the same function (library_ms, timed here only);
   bf16     (after the kernels phase) holds each kernel's bf16 variant against
-           its plain version in bf16 at the same served and edge shapes and
-           conv3 at every branch of its launch plan, within 2 bf16 eps of
-           max(1, |plain|), and times kernel, plain version and, for band
-           attention, SDPA in bf16 (bounds at 2 bytes per activation element,
-           conv3's products at the dense bf16 rate), each served level
-           beside the f32 kernel's time and, for conv3, its plan;
+           its plain version in bf16 at the same served and edge shapes,
+           within 2 bf16 eps of max(1, |plain|), and times kernel, plain
+           version and, for band attention, SDPA in bf16 (bounds at 2 bytes
+           per activation element, conv3's products at the dense bf16 rate),
+           each served level beside the f32 kernel's time;
            (after the http phase) the bf16 compute mode, tpu.compute_dtype
            bfloat16: GroundingService with the serve phase's weights on 8
            videos x 8 queries at T = 2304 (44 / 7 / 1 launches of the bf16
@@ -139,7 +137,7 @@ summed over the serve, eval, http, train, remat, variants, encode, encode
 CLI and multi paths, and the three bf16 variants with theirs over the bf16
 phase's serve, eval and http paths, each with the breakdown; the bf16
 records also carry ptxas's registers, spills and shared memory of their
-kernels, conv3's HMMA and LDSM counts, and the f32 kernel's time), the nvidia-smi
+kernels, conv3's HMMA count, and the f32 kernel's time), the nvidia-smi
 name/power-limit line, and last {"ok": true, "device": {...}}. Any failed check raises: the
 script exits non-zero and prints no result. Without CUDA it exits 2.
 """
@@ -298,10 +296,9 @@ def ptxas_report(log):
     return out
 
 
-def sass_hmma(lib_path, name, ops=("HMMA",)):
-    """Per compiled kernel whose name holds ``name``, the count of each SASS
-    instruction in ``ops`` (HMMA: a tensor-core product; LDSM: an
-    ldmatrix), from cuobjdump -sass of the built library."""
+def sass_hmma(lib_path, name):
+    """Tensor-core (HMMA) instructions per compiled kernel whose name holds
+    ``name``, from cuobjdump -sass of the built library."""
     from decafnet_tpu_torch.ops import cuda
 
     sass = subprocess.run([cuda.toolkit_binary("cuobjdump"), "-sass", lib_path],
@@ -312,11 +309,9 @@ def sass_hmma(lib_path, name, ops=("HMMA",)):
         if m:
             cur = m.group(1) if name in m.group(1) else None
             if cur:
-                counts[cur] = dict.fromkeys(ops, 0)
-        elif cur:
-            for op in ops:
-                if re.search(r"\b" + op + r"\b", line):
-                    counts[cur][op] += 1
+                counts[cur] = 0
+        elif cur and "HMMA" in line:
+            counts[cur] += 1
     return counts
 
 
@@ -971,17 +966,13 @@ def bf16_err(got, want):
     return max(float(a.max()) for a, _ in d), max(float((a / m).max()) for a, m in d)
 
 
-def check_bf16(op, args, kw, name, what, plain=None):
-    """One bf16 kernel call against its plain version on the same inputs (the
-    op itself inside ``cuda.plain_versions``, or ``plain``)."""
+def check_bf16(op, args, kw, name, what):
+    """One bf16 kernel call against its plain version on the same inputs."""
     from decafnet_tpu_torch.ops import cuda
 
     got = op(*args, **kw)
-    if plain is not None:
-        want = plain(*args, **kw)
-    else:
-        with cuda.plain_versions():
-            want = op(*args, **kw)
+    with cuda.plain_versions():
+        want = op(*args, **kw)
     torch.cuda.synchronize()
     outs = got if isinstance(got, tuple) else (got,)
     abs_err, rel_err = bf16_err(got, want)
@@ -998,19 +989,15 @@ def check_bf16(op, args, kw, name, what, plain=None):
 
 def run_bf16_kernels(dev, rec32):
     """Hold each bf16 kernel against its plain version in bf16 at the served
-    shapes and the edge shapes of the kernels phase, and conv3 at every
-    branch of its launch plan (the mid and short tilings, each with its
-    weights in shared memory or streamed; short levels, ragged T, x off 16
-    bytes, C_in not a multiple of 16); time the served shapes (kernel, plain
-    version, SDPA in bf16 for band attention), each level beside the f32
-    kernel's time in ``rec32`` (the kernels phase's records) and, for conv3,
-    with its launch plan. Bounds count 2 bytes per activation element,
-    conv3's products at the dense bf16 rate. Returns per-kernel records
-    summed over one served decode call."""
+    shapes and the edge shapes of the kernels phase; time the served shapes
+    (kernel, plain version, SDPA in bf16 for band attention), each level
+    beside the f32 kernel's time in ``rec32`` (the kernels phase's records).
+    Bounds count 2 bytes per activation element, conv3's products at the
+    dense bf16 rate. Returns per-kernel records summed over one served
+    decode call."""
     from decafnet_tpu_torch.ops import (band_attention, band_attention_torch,
-                                        conv3_ln_act, conv3_ln_act_torch, cuda,
+                                        conv3_ln_act, conv3_ln_act_torch,
                                         qkv_depthwise_ln, qkv_depthwise_ln_torch)
-    from decafnet_tpu_torch.ops import fused_conv
 
     bf = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -1045,9 +1032,7 @@ def run_bf16_kernels(dev, rec32):
                             "calls": count, "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": b_ms, "share_of_bound": b_ms / ms,
                             "library_ms": lib_ms, "f32_ms": f32[0] if f32 else None})
-        return r["levels"][-1]
 
-    sms = cuda.sm_count(dev)
     for level in range(LEVELS):
         T = T0 // 2 ** level
         lens = row_lens(level)
@@ -1057,10 +1042,8 @@ def run_bf16_kernels(dev, rec32):
             # x and the output in bf16, the weight as bf16 fragments, the LN
             # parameters in f32, the mask bytes
             n_bytes = 2 * (2 * ROWS * C * T + 3 * C * C) + 4 * 2 * C + ROWS * T
-            lvl = add("conv3_ln_act", count, args, kw, conv3_ln_act,
-                      conv3_ln_act_torch, n_bytes, 8 * ROWS * C * T, level,
-                      tc_flops=2 * ROWS * T * C * 3 * C)
-            lvl["plan"] = fused_conv.conv3_bf16_plan(ROWS, T, C, C, sms)._asdict()
+            add("conv3_ln_act", count, args, kw, conv3_ln_act, conv3_ln_act_torch,
+                n_bytes, 8 * ROWS * C * T, level, tc_flops=2 * ROWS * T * C * 3 * C)
         args, kw = band_case(dev, g, ROWS, T, lens, dtype=bf)
         D = EMBD // HEADS
         n_bytes = 2 * (3 * n_valid * HEADS * D + ROWS * HEADS * T * D) + ROWS * T
@@ -1075,8 +1058,8 @@ def run_bf16_kernels(dev, rec32):
                 level)
         del args
 
-    def edge(name, op, args, kw, what, plain=None):
-        abs_err, rel_err = check_bf16(op, args, kw, name, what, plain)
+    def edge(name, op, args, kw, what):
+        abs_err, rel_err = check_bf16(op, args, kw, name, what)
         r = rec[name]
         r["max_abs_err"] = max(r["max_abs_err"], abs_err)
         r["max_rel_err"] = max(r["max_rel_err"], rel_err)
@@ -1101,27 +1084,6 @@ def run_bf16_kernels(dev, rec32):
             torch.randn(24, generator=g, device=dev), None, None)
     edge("conv3_ln_act", conv3_ln_act, args, kw,
          "C_in 16 -> C_out 24, bias, no LN affine, no activation")
-
-    # every branch of conv3's plan, at its widest and narrowest tile
-    for rows, c_in, c_out, T, how in ((ROWS, EMBD + RDIM, EMBD + RDIM, 36, "as_is"),
-                                      (4, EMBD + RDIM, EMBD + RDIM, 301, "offset"),
-                                      (4, 13, 40, 17, "as_is")):
-        args, kw = conv3_case(dev, g, rows, c_out, T,
-                              ([T, max(T - 3, 1), T // 2, 0] * rows)[:rows],
-                              bias=True, how=how, dtype=bf)
-        x = moved(torch.randn(rows, c_in, T, generator=g, device=dev).to(bf), how)
-        args = (x, args[1], torch.randn(c_out, c_in, 3, generator=g, device=dev)
-                / math.sqrt(3 * c_in), *args[3:])
-        for tiling, resident in (("mid", True), ("mid", False), ("short", True),
-                                 ("short", False)):
-            plans = [p for _, p in fused_conv.conv3_bf16_plans(rows, T, c_in, c_out, sms)
-                     if (p.tiling, p.resident) == (tiling, resident)]
-            for plan in (plans[0], plans[-1]):
-                edge("conv3_ln_act",
-                     lambda *a, plan=plan, **k: fused_conv.launch_conv3_ln_act_bf16(
-                         *a, k.get("act", "relu"), 1e-5, plan),
-                     args, kw, f"plan {plan._asdict()}, x {tuple(x.shape)} {how}",
-                     conv3_ln_act_torch)
     return rec
 
 
@@ -2635,9 +2597,9 @@ def main():
     for kernel in ("conv3_ln_act", "band_attention", "qkv_depthwise_ln"):
         emit({"phase": "build", "kernel": kernel, "ptxas":
               ptxas_report(cuda.build_log(kernel + ".cu"))})
-    sass = sass_hmma(path, "conv3_ln_act", ("HMMA", "LDSM"))
-    emit({"phase": "build", "kernel": "conv3_ln_act", "sass": sass})
-    assert sass and all(n["HMMA"] > 0 for n in sass.values()), \
+    hmma = sass_hmma(path, "conv3_ln_act")
+    emit({"phase": "build", "kernel": "conv3_ln_act", "sass_hmma": hmma})
+    assert hmma and all(n > 0 for n in hmma.values()), \
         "conv3_ln_act does not run on the tensor cores"
 
     rec = run_kernels(dev)
@@ -2694,7 +2656,7 @@ def main():
             "library_ms": r["library_ms"], "f32_kernel_ms": rec[n]["ms"],
             "per": "one served decode call (64 rows, T=2304, all levels), bf16",
             "launches_per_forward": PER_DECODE[n], "ptxas": bf16_kernels,
-            **({"sass": {k: c for k, c in sass.items() if "bf16" in k}}
+            **({"sass_hmma": {k: c for k, c in hmma.items() if "bf16" in k}}
                if n == "conv3_ln_act" else {}),
             "levels": r["levels"]})
     emit({"kernels": kernels})

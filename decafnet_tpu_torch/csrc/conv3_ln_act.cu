@@ -65,7 +65,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 #include "cp_async.cuh"
@@ -395,98 +394,41 @@ int launch(const float* x, const uint8_t* mask, const float* w_hi, const float* 
 // T = 2304, 7 levels, 44 calls) moves 1.21 GB (x and the output in bf16, the
 // weight fragments, the f32 LN parameters, the mask bytes, as chip_smoke.py
 // counts them): 0.361 ms at 3.35 TB/s, against 266 GFLOP, 0.269 ms at the
-// 989 TFLOP/s of dense bf16.
+// 989 TFLOP/s of dense bf16. This kernel reaches about 17 % of that bound.
+// A redesign with B fragments read by ldmatrix from x transposed as staged,
+// a launch plan for the short levels and two blocks per SM was slower on an
+// H100 in sum (2.23 against 2.17 ms per decode call): its tensor pipe was busy
+// about a quarter of the time, the rest barriers, staging and the epilogue
+// (PERF.md). The next design has to take those off the product warps (a
+// warp-specialised producer, or wgmma with B read from shared memory).
 //
-// The first version of this kernel (2-byte fragment reads, weights copied
-// for every 96 columns, a fixed grid) reached 17 % of that bound. This one:
-//
-// 1. Fragment reads of 16 bytes. x is copied as it lies (cp.async, 16 bytes
-//    where T % 8 == 0 and x is 16-byte aligned, else 8, 4 or 2) into a ring
-//    of three landing slots, three chunk steps ahead, then transposed shared
-//    to shared by ldmatrix.x4.trans + stmatrix.x4 into rows of 32 channels
-//    per time column (80 bytes, an odd number of 16-byte units, so the 8 rows
-//    of a matrix read lie in distinct banks), the column mask ANDed in on the
-//    way. A tap is then a row offset and the B fragments come from
-//    ldmatrix.x4, 4 registers per instruction; the A fragments (weights,
-//    rounded and laid out once per weight by the wrapper) are 16-byte loads.
-//    mma.sync, not wgmma: it keeps the accumulators and the channel LN in
-//    registers as before, and it is the smaller step.
-// 2. Weight re-reads. When the fragments fit beside x (154 KB at C = 160) a
-//    block can hold them for the launch and walk tiles (resident plans). On
-//    the H100 that lost: one block per SM leaves the barriers, the
-//    transposition and the per-tile epilogue unhidden, and streaming the
-//    weights through a ring of 2 chunk slots (fetched a step ahead) with two
-//    blocks per SM was 1.36x faster at level 0 (202.9 against 149.5 us at
-//    C = 160; a 16-warp tiling of 128-column tiles, resident, 181.5, and it
-//    spilled; scripts/torch_conv3_bf16_plans.py). So at the served shapes a
-//    tile of 96 columns still reads the whole fragment array through L2, as
-//    the first version did; resident plans remain for small grids.
-// 3. A launch plan (ops/fused_conv.py: conv3_bf16_plan) picks the tiling,
-//    the column tile (a multiple of 8, balanced over the row) and the grid
-//    from (B, T, C_in, C_out) and the SM count, fills the card at the short
-//    levels (at least one block per SM in flight) and cuts the n8 tiles
-//    computed past T. Tilings (column warps x n8 tiles, K halves), 8 warps
-//    and two blocks per SM each: mid 4 x 3, and short 2 x 1 with each
-//    chunk's two k16 steps on two warps whose sums meet in shared memory.
-//
-// A block: 2 channel warps (wm: half of C_out padded to a multiple of 32
-// with zero weights, outside the LN sums, MW m16 tiles each) x WN column
-// warps x WK K halves. C_in is walked in chunks of 32 channels (zero past
-// C_in), one barrier per chunk step. The sums run through all of K in the
-// f32 accumulators (the bf16 rounding of the conv output dwarfs the tensor
-// cores' accumulation error). A warp runs its products as a body with a
-// compile-time n8 count: a guard on a runtime count predicated every mma and
-// ptxas put a WARPSYNC before each. After a tile's last chunk the epilogue
-// rounds the conv output as the composition does, takes each column's channel
-// statistics over registers, shuffles and one shared exchange between the
-// two channel warps (a compact build for warps with all NW n8 tiles and no
-// padded channel), and writes the output through shared memory, one m16 tile
-// of both channel warps at a time, as 16-byte stores along T.
-//
-// Where the time goes (clock64 per phase, scripts/torch_conv3_bf16_plans.py
-// prof, H100, level 0, C = 160): per chunk step and warp ~1.5k cycles of
-// barrier and landing issue, ~0.9k of transposition, ~2.9k issuing the
-// products, and ~17k per tile of epilogue. During the products the tensor
-// pipe runs near the card's mma.sync rate; the other phases leave it idle,
-// and a second resident block hides only part of them.
-//
-// ptxas (sm_90a, C_out = 160, MW = 5): mid 128 registers, short 109, no
-// spill; static shared memory 3456 / 2176 bytes beside 100,160 / 82,432
-// dynamic when the weights stream (103.6 / 84.6 KB a block, two per SM).
-// Wider outputs spill in the mid tiling (MW 6-8: 116-356 bytes stored).
-// chip_smoke.py's bf16 kernel record prints every instantiation.
+// Design: the f32 kernel's tiling with the m16n8k16 bf16 mma.sync in place of three
+// m16n8k8 TF32 passes, so a chunk is 16 input channels and each output takes
+// 3 taps x C_in/16 products. A block owns one row b, TILE_T = 96 columns and
+// every output channel (C_out padded to a multiple of 32 with zero weights,
+// outside the LN sums); 8 warps as 2 (channels) x 4 (time), each holding MW m16
+// x 3 n8 accumulator tiles. The weights come in A-fragment order, rounded once
+// per weight by the wrapper (ops/fused_conv.py: conv3_bf16_operands), one
+// 16-byte load per lane per (tap, m16 tile). x is staged per chunk as bf16 rows
+// [channel][time] with a one-column halo, the interior with 16-byte cp.async (8
+// columns) where T % 8 == 0 and x is 16-byte aligned, the halo and every other
+// layout with plain 2-byte loads (cp.async copies 4, 8 or 16 bytes), through a
+// ring of STAGES stages as in the f32 kernel. A B fragment register holds the
+// channel pair (2q, 2q + 1) at one column: two 2-byte shared loads, packed; the
+// staged row of 120 bf16 puts the four channel pairs of a fragment read in
+// distinct banks. The mask is not applied to the staged x: each B register is
+// ANDed with its column's mask, computed once per thread for the 3 taps x 3
+// n-tiles it reads (a masked bf16 pair is the zero bit pattern). The sums are
+// not restarted per chunk as in the TF32 kernel: the bf16 rounding of the conv
+// output dwarfs the tensor cores' f32 accumulation error.
 
-constexpr int BF_KC = 32;          // input channels per chunk: two k16 steps
-constexpr int BF_XS = 40;          // bf16 per staged time column: 32 channels + pad
-constexpr int BF_STAGES = 2;       // weight ring, when the weights are streamed
-constexpr int BF_EXTRA_ROWS = 2;   // staged rows past the tile: the two halo rows
-constexpr int BF_XSTAGES = 3;      // x landing ring: x is fetched three steps ahead
-static_assert(BF_XS % 8 == 0 && (BF_XS / 8) % 2 == 1, "rows of an odd number of 16-byte units");
-
-// bf16 per landing row of a tile of at most n_max columns: n_max + 16 (the
-// edge groups), padded to an odd number of 16-byte units so that the 8 rows
-// of an ldmatrix.trans read lie in distinct banks
-__host__ __device__ constexpr int land_row(int n_max) {
-  return ((n_max + 16) / 8) % 2 == 1 ? n_max + 16 : n_max + 24;
-}
-
-// bf16 of an xt buffer: a staged x chunk (the tile's columns and the two
-// halo rows, BF_XS each) or a staged output piece (32 channels x the tile,
-// rows of n_max + 8), whichever is larger
-__host__ __device__ constexpr int xt_size(int n_max) {
-  return (n_max + BF_EXTRA_ROWS) * BF_XS > 32 * (n_max + 8) ? (n_max + BF_EXTRA_ROWS) * BF_XS
-                                                             : 32 * (n_max + 8);
-}
-
-// cp.async of N = 4 or 8 bytes through L1; when !valid nothing is read and
-// the bytes are zeroed
-template <int N>
-__device__ __forceinline__ void cp_async_ca(void* dst, const void* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(d), "l"(src), "n"(N),
-               "r"(valid ? N : 0)
-               : "memory");
-}
+constexpr int BKC = 16;                     // input channels per stage (k16 per tap)
+constexpr int BX0 = 8;                      // shared-memory column of t0 (16 bytes)
+constexpr int BXS = 120;                    // staged x row in bf16 (16-byte multiple)
+static_assert(BXS % 8 == 0 && BXS >= BX0 + TILE_T + 1 && (BXS % 32 == 8 || BXS % 32 == 24),
+              "16-byte rows holding the halo; rows 2q (q = 0..3) start q * BXS words "
+              "apart, in banks 0, 24, 16, 8 (or 0, 8, 16, 24)");
+static_assert(BKC * TILE_T / 8 <= THREADS, "at most one 16-byte x copy per thread");
 
 // d = a * b + c on the tensor cores (m16n8k16, bf16 in, f32 accumulate)
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -498,531 +440,244 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
         "f"(c[1]), "f"(c[2]), "f"(c[3]));
 }
 
-// four (x4) or two (x2) 8x8 b16 matrices from shared memory; lane l gives the
-// address of row l % 8 of matrix l / 8 and receives row l / 4, elements
-// 2 (l % 4) and 2 (l % 4) + 1, of each
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// four 8x8 b16 matrices to shared memory: lane l gives the address of row
-// l % 8 of matrix l / 8; lane (g, q)'s register i lands in row g, elements
-// 2q, 2q + 1 of matrix i
-__device__ __forceinline__ void stsm_x4(void* p, const uint32_t (&r)[4]) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};" ::"r"(a),
-               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(a));
-}
-
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-template <int N>
-struct Count {
-  static constexpr int value = N;
-};
-
-// Weight fragments (2 * ceil(C_in/32), 3, 2*MW, 32, 8) bf16: for k16 step c16
-// (chunk c16 / 2, half c16 % 2), tap, m16 tile mt and lane (g = lane/4,
-// q = lane%4) the eight A-fragment values w[mt*16 + g + 8h, c16*16 + 8kh + 2q + j,
-// tap] at index 4kh + 2h + j, zero when padded (ops/fused_conv.py:
-// conv3_bf16_fragments). MW m16 tiles per channel warp, WN column warps of NW
-// n8 tiles each, WK = 1 or 2 K halves: 2 * WN * WK warps.
-template <int MW, int NW, int WN, int WK>
-__global__ void __launch_bounds__(64 * WN * WK, 2)  // two blocks per SM
+// Weight fragments (ceil(C_in/16), 3, 2*MW, 32, 8) bf16: for chunk c16, tap, m16
+// tile mt and lane (g = lane/4, q = lane%4) the eight A-fragment values
+// w[mt*16 + g + 8h, c16*16 + 8kh + 2q + j, tap] at index 4kh + 2h + j, zero when
+// padded (ops/fused_conv.py: conv3_bf16_fragments).
+template <int MW>
+__global__ void __launch_bounds__(THREADS, MW <= 5 ? 2 : 1)
 conv3_ln_act_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ mask,
                          const __nv_bfloat16* __restrict__ wf, const float* __restrict__ bias,
                          const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-                         __nv_bfloat16* __restrict__ out, int B, int C_in, int C_out, int T,
-                         float eps, int relu, int n_tile, int resident, int vec) {
-  constexpr int NTHREADS = 64 * WN * WK;
-  constexpr int WARPS = NTHREADS / 32;
-  constexpr int N_MAX = WN * NW * 8;             // most columns per tile
-  constexpr int MT = 2 * MW;                     // m16 tiles of the padded C_out
-  constexpr int WCH = 2 * 3 * MT * 256;          // bf16 of one chunk's weights
-  constexpr int XT = xt_size(N_MAX);            // bf16 of one xt buffer
-  constexpr int LS = land_row(N_MAX);            // bf16 per landing row
-  constexpr int LAND = BF_KC * LS;               // bf16 of one landing slot
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float red[2][2][N_MAX];
-  __shared__ float prm[3][16 * MT];   // per output channel: bias (bf16-rounded), ln_w, ln_b
-
-  const int n_chunks = (C_in + BF_KC - 1) / BF_KC;
-  __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* land = wsm + (resident ? n_chunks : BF_STAGES) * WCH;  // [slots][32][LS]
-  __nv_bfloat16* xt = land + BF_XSTAGES * LAND;                        // [2][rows][BF_XS]
-  float* kred = reinterpret_cast<float*>(xt + 2 * XT);                // short tiling
+                         __nv_bfloat16* __restrict__ out, int C_in, int C_out, int T,
+                         float eps, int relu, int vec_x) {
+  constexpr int MT = 2 * MW;                // m16 tiles of the padded C_out
+  constexpr int WS = 3 * MT * 256;          // bf16 of the weights per chunk
+  constexpr int XH = BKC * BXS;             // bf16 of one staged x chunk
+  constexpr int STAGE = WS + XH;            // bf16 per ring stage
+  extern __shared__ __align__(16) float smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __shared__ float red[2][WARPS_M][TILE_T];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
-  const int wm = warp & 1, wn = (warp >> 1) % WN, wk = (warp >> 1) / WN;
-  const int ipr = (T + n_tile - 1) / n_tile;     // tiles per row
-  const int items = B * ipr;
-  const int my_items =
-      (int)blockIdx.x < items ? (items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
-  const int total = my_items * n_chunks;         // chunks this block walks
-  if (total == 0) return;
-  const int n8 = n_tile / 8;
-  const int nw = (n8 + WN - 1) / WN;             // n8 tiles per column warp (<= NW)
-  const int w0 = wn * nw;                        // this warp's first n8 tile
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int b = blockIdx.y, t0 = blockIdx.x * TILE_T;
+  const __nv_bfloat16* xb = x + (size_t)b * C_in * T;
+  const uint8_t* mb = mask + (size_t)b * T;
+  const int n_chunks = (C_in + BKC - 1) / BKC;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  // the x values a thread stages: on the 16-byte path the same 8 columns of
+  // one channel row (vr < BKC) and, for tid < 2 * BKC, one halo column of row
+  // hr, in every chunk; else elements i = tid + k * THREADS
+  const int vr = tid / (TILE_T / 8), vcol = 8 * (tid % (TILE_T / 8));
+  const int hr = tid >> 1, hj = BX0 + ((tid & 1) ? TILE_T : -1);
 
-  // tile (row b, first column t0) of chunk step s
-  auto tile_of = [&](int s, int& b, int& t0) {
-    const int it = (int)blockIdx.x + (s / n_chunks) * (int)gridDim.x;
-    b = it / ipr;
-    t0 = (it - b * ipr) * n_tile;
-  };
-
-  // x of chunk step s into landing slot s % BF_XSTAGES, as x lies: 32 channel
-  // rows, column j holding time t0 - 8 + j for the 8-column groups t0 - 8 ..
-  // t0 + n_tile + 7 (the halo columns t0 - 1 and t0 + n_tile inside the edge
-  // groups); cp.async of 16, 8 or 4 bytes after vec, zero past C_in and
-  // outside [0, T), or plain 2-byte loads where x allows no copy
-  const int groups = n8 + 2;
-  auto land_x = [&](int s) {
-    int b, t0;
-    tile_of(s, b, t0);
-    const int c0 = (s % n_chunks) * BF_KC;
-    const __nv_bfloat16* xb = x + (size_t)b * C_in * T;
-    __nv_bfloat16* ls = land + (s % BF_XSTAGES) * LAND;
-    for (int i = tid; i < BF_KC * groups; i += NTHREADS) {
-      const int r = i / groups, gi = i - r * groups;
-      const int c = c0 + r, t = t0 - 8 + 8 * gi;
-      __nv_bfloat16* dst = ls + r * LS + 8 * gi;
-      const __nv_bfloat16* src = xb + (size_t)c * T + t;
-      if (vec == 8) {
+  auto load_chunk = [&](int stage, int chunk) {
+    __nv_bfloat16* ws = smem + stage * STAGE;
+    const __nv_bfloat16* gw = wf + (size_t)chunk * WS;
+    for (int i = 8 * tid; i < WS; i += 8 * THREADS) cp_async16(ws + i, gw + i);
+    __nv_bfloat16* xs = ws + WS;
+    const int c0 = chunk * BKC;
+    if (vec_x) {
+      if (vr < BKC) {                       // T % 8 == 0: a group is wholly in or out
+        const int c = c0 + vr, t = t0 + vcol;
+        const bool ok = c < C_in && t < T;
+        cp_async16(xs + vr * BXS + BX0 + vcol, ok ? xb + (size_t)c * T + t : x, ok);
+      }
+      if (tid < 2 * BKC) {                  // halo columns t0 - 1 and t0 + TILE_T
+        const int c = c0 + hr, t = t0 - BX0 + hj;
         const bool ok = c < C_in && t >= 0 && t < T;
-        cp_async16(dst, ok ? src : x, ok);
-      } else if (vec == 4) {
-#pragma unroll
-        for (int h = 0; h < 8; h += 4) {
-          const bool ok = c < C_in && t + h >= 0 && t + h < T;
-          cp_async_ca<8>(dst + h, ok ? src + h : x, ok);
-        }
-      } else if (vec == 2) {
-#pragma unroll
-        for (int h = 0; h < 8; h += 2) {
-          const bool ok = c < C_in && t + h >= 0 && t + h < T;
-          cp_async_ca<4>(dst + h, ok ? src + h : x, ok);
-        }
-      } else {
-#pragma unroll
-        for (int h = 0; h < 8; ++h)
-          dst[h] = c < C_in && t + h >= 0 && t + h < T ? src[h] : __float2bfloat16(0.f);
+        xs[hr * BXS + hj] = ok ? xb[(size_t)c * T + t] : zero;
+      }
+    } else {
+      for (int i = tid; i < BKC * (TILE_T + 2); i += THREADS) {
+        const int r = i / (TILE_T + 2), j = BX0 - 1 + i % (TILE_T + 2);
+        const int c = c0 + r, t = t0 - BX0 + j;
+        const bool ok = c < C_in && t >= 0 && t < T;
+        xs[r * BXS + j] = ok ? xb[(size_t)c * T + t] : zero;
       }
     }
   };
 
-  // The transposition of a landed chunk into xt: op tb (8 columns t0 + 8 tb
-  // .., all 32 channels) is one ldmatrix.x4.trans (4 channel blocks) and one
-  // stmatrix.x4; lane (g, q) then holds channels 8 i + 2q, 8 i + 2q + 1 of
-  // column t0 + 8 tb + g in register i, and ANDs in that column's mask. Warp
-  // w takes ops w, w + WARPS, ...; threads 0-31 also take the halo columns
-  // (channel pair tid % 16 of column t0 - 1, or of t0 + n_tile for tid >= 16).
-  // The mask words of a tile are loaded a chunk step ahead of its first
-  // transposition.
-  constexpr int OPS = (N_MAX / 8 + WARPS - 1) / WARPS;  // transposition ops per warp
-  uint32_t mk[OPS], nk[OPS], mh = 0u, nh = 0u;
+  // start the ring before anything else, so the first copies overlap the set-up
 #pragma unroll
-  for (int j = 0; j < OPS; ++j) mk[j] = nk[j] = 0u;
-  auto masks = [&](int s, uint32_t (&m)[OPS], uint32_t& h) {
-    int b, t0;
-    tile_of(s, b, t0);
-    const uint8_t* mb = mask + (size_t)b * T;
-#pragma unroll
-    for (int j = 0; j < OPS; ++j) {
-      const int t = t0 + 8 * (warp + WARPS * j) + g;
-      m[j] = t < T && __ldg(mb + t) ? ~0u : 0u;
-    }
-    if (tid < 32) {
-      const int t = (tid >> 4) ? t0 + n_tile : t0 - 1;
-      h = t >= 0 && t < T && __ldg(mb + t) ? ~0u : 0u;
-    }
-  };
-  auto transpose = [&](int s) {
-    const __nv_bfloat16* ls = land + (s % BF_XSTAGES) * LAND;
-    __nv_bfloat16* xs = xt + (s & 1) * XT;
-#pragma unroll
-    for (int j = 0; j < OPS; ++j) {
-      const int tb = warp + WARPS * j;
-      if (tb >= n8) break;
-      uint32_t r[4];
-      ldsm_x4_trans(r, ls + (8 * (lane >> 3) + (lane & 7)) * LS + 8 + 8 * tb);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) r[i] &= mk[j];
-      stsm_x4(xs + (1 + 8 * tb + (lane & 7)) * BF_XS + 8 * (lane >> 3), r);
-    }
-    if (tid < 32) {
-      const int pr = tid & 15, col = (tid >> 4) ? 8 + n_tile : 7;
-      const uint16_t* l16 = reinterpret_cast<const uint16_t*>(ls);
-      const uint32_t v = l16[2 * pr * LS + col] | (uint32_t)l16[(2 * pr + 1) * LS + col] << 16;
-      reinterpret_cast<uint32_t*>(xs + ((tid >> 4) ? n_tile + 1 : 0) * BF_XS)[pr] = v & mh;
-    }
-  };
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_chunks) load_chunk(s, s);
+    cp_async_commit();
+  }
 
-  // streamed weights of chunk step s into ring slot s % BF_STAGES
-  auto load_w = [&](int s) {
-    const __nv_bfloat16* src = wf + (size_t)(s % n_chunks) * WCH;
-    __nv_bfloat16* dst = wsm + (s % BF_STAGES) * WCH;
-    for (int i = 8 * tid; i < WCH; i += 8 * NTHREADS) cp_async16(dst + i, src + i);
-  };
-
-  float acc[MW][NW][4];
+  // mask of each column this thread reads as a B fragment (all bits or none)
+  uint32_t msk[3][NT];
+#pragma unroll
+  for (int tap = 0; tap < 3; ++tap)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int t = t0 + wn * NT * 8 + nt * 8 + g + tap - 1;
+      msk[tap][nt] = (t >= 0 && t < T && mb[t]) ? 0xffffffffu : 0u;
+    }
+  float acc[MW][NT][4];
 #pragma unroll
   for (int mt = 0; mt < MW; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < NW; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
-  // The products of chunk step s over this warp's first N n8 tiles, N a
-  // compile-time count: a guard on a runtime count would predicate every mma
-  // (and ptxas puts a WARPSYNC before each)
-  auto compute_n = [&](auto count, int s) {
-    constexpr int N = decltype(count)::value;
-    const __nv_bfloat16* xs = xt + (s & 1) * XT;
-    const uint4* wa = reinterpret_cast<const uint4*>(
-                          wsm + (resident ? s % n_chunks : s % BF_STAGES) * WCH) +
-                      wm * MW * 32 + lane;
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    cp_async_wait<STAGES - 2>();            // this thread's copies of the chunk landed
+    __syncthreads();                        // everyone's; the last stage is free
+    {
+      const int next = chunk + STAGES - 1;
+      if (next < n_chunks) load_chunk(next % STAGES, next);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* ws = smem + (chunk % STAGES) * STAGE;
+    const uint16_t* xs = reinterpret_cast<const uint16_t*>(ws + WS);
+    if (t0 + wn * NT * 8 >= T) continue;    // this warp's columns lie past T
+    // B fragments of the three taps: channel pairs (2q, 2q + 1) and (2q + 8,
+    // 2q + 9) at column g of each n-tile, shifted by the tap, masked
+    uint32_t bf[3][NT][2];
 #pragma unroll
-    for (int kk = 0; kk < 2 / WK; ++kk) {
-      const int kh = WK == 2 ? wk : kk;
-      // B fragments of the three taps: ldmatrix rows are time columns
-      // (tile j + tap), 16 bytes of 8 channels each
-      uint32_t bfr[3][N][2];
-      const int mi = lane >> 3;
+    for (int tap = 0; tap < 3; ++tap) {
 #pragma unroll
-      for (int tap = 0; tap < 3; ++tap) {
+      for (int nt = 0; nt < NT; ++nt) {
+        const int j = BX0 - 1 + wn * NT * 8 + nt * 8 + g + tap;
 #pragma unroll
-        for (int p = 0; p < (N + 1) / 2; ++p) {
-          const int row = (w0 + 2 * p + (mi >> 1)) * 8 + (lane & 7) + tap;
-          const __nv_bfloat16* addr = xs + row * BF_XS + kh * 16 + (mi & 1) * 8;
-          if (2 * p + 1 < N) {
-            uint32_t r[4];
-            ldsm_x4(r, addr);
-            bfr[tap][2 * p][0] = r[0];
-            bfr[tap][2 * p][1] = r[1];
-            bfr[tap][2 * p + 1][0] = r[2];
-            bfr[tap][2 * p + 1][1] = r[3];
-          } else {
-            uint32_t r[2];
-            ldsm_x2(r, addr);
-            bfr[tap][2 * p][0] = r[0];
-            bfr[tap][2 * p][1] = r[1];
-          }
-        }
-      }
-      // taps outermost: an accumulator's next product is MW * N mma later
-#pragma unroll
-      for (int tap = 0; tap < 3; ++tap) {
-#pragma unroll
-        for (int mt = 0; mt < MW; ++mt) {
-          const uint4 a4 = wa[((kh * 3 + tap) * MT + mt) * 32];
-          const uint32_t a[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-          for (int nt = 0; nt < N; ++nt) mma_bf16(acc[mt][nt], a, bfr[tap][nt], acc[mt][nt]);
+        for (int kh = 0; kh < 2; ++kh) {
+          const int r = 2 * q + 8 * kh;
+          const uint32_t lo = xs[r * BXS + j], hi = xs[(r + 1) * BXS + j];
+          bf[tap][nt][kh] = (lo | (hi << 16)) & msk[tap][nt];
         }
       }
     }
-  };
-  auto compute = [&](int s, int nv) {
-    if (nv >= NW) compute_n(Count<NW>{}, s);
-    else if (nv == 1) compute_n(Count<1>{}, s);
-    else if (nv == 2) compute_n(Count<(NW > 2 ? 2 : 1)>{}, s);
-    else if (nv == 3) compute_n(Count<(NW > 3 ? 3 : 1)>{}, s);
-  };
+    const uint4* wa = reinterpret_cast<const uint4*>(ws) + wm * MW * 32 + lane;
+#pragma unroll
+    for (int mt = 0; mt < MW; ++mt) {
+#pragma unroll
+      for (int tap = 0; tap < 3; ++tap) {
+        const uint4 a4 = wa[(tap * MT + mt) * 32];
+        const uint32_t a[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, bf[tap][nt], acc[mt][nt]);
+      }
+    }
+  }
+  cp_async_wait<0>();
 
-  // A tile's epilogue: K halves summed (short tiling), conv output rounded as
-  // the composition rounds it (the bias, rounded, in prm[0]; 0 without one:
-  // rounding v + 0 gives v), channel LN per column, activation, bf16 out.
-  // Thread holds columns 2q, 2q + 1 of each n8 tile (index p) for rows g,
-  // g + 8 (index 2h + p) of each m16 tile. The statistics come in two builds:
-  // FULL for a warp with all NW n8 tiles in the tile and no padded output
-  // channel (no per-element check), and the general one. The output leaves
-  // through shared memory, one m16 tile of both channel warps (32 channels x
-  // the tile) at a time in the xt buffer the step just read, as 16-byte
-  // stores along T: a warp's direct stores would cover half 32-byte sectors.
-  float mean[NW][2], rstd[NW][2];
-  auto stats_mean = [&](auto full, int nv) {
-    constexpr bool FULL = decltype(full)::value;
+  // the conv output as the bf16 composition holds it (rounded, plus the
+  // rounded bias, rounded); thread holds columns 2q, 2q + 1 of each n-tile
+  // (index p = 0, 1) for rows g, g + 8 (index 2h + p)
 #pragma unroll
-    for (int mt = 0; mt < MW; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float bb = prm[0][(wm * MW + mt) * 16 + g + 8 * h];
-#pragma unroll
-        for (int nt = 0; nt < NW; ++nt)
-#pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            float& v = acc[mt][nt][2 * h + p];
-            v = round_bf16(round_bf16(v) + bb);
-          }
-      }
-#pragma unroll
-    for (int nt = 0; nt < NW; ++nt) {
-      if (!FULL && nt >= nv) break;
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        float s = 0.f;
-#pragma unroll
-        for (int mt = 0; mt < MW; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            if (FULL || (wm * MW + mt) * 16 + g + 8 * h < C_out) s += acc[mt][nt][2 * h + p];
-        s = sum_over_groups(s);
-        if (g == 0) red[0][wm][(w0 + nt) * 8 + 2 * q + p] = s;
-      }
-    }
-  };
-  auto stats_var = [&](auto full, int nv) {
-    constexpr bool FULL = decltype(full)::value;
-#pragma unroll
-    for (int nt = 0; nt < NW; ++nt) {
-      if (!FULL && nt >= nv) break;
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        const int col = (w0 + nt) * 8 + 2 * q + p;
-        mean[nt][p] = (red[0][0][col] + red[0][1][col]) / (float)C_out;
-        float s = 0.f;
-#pragma unroll
-        for (int mt = 0; mt < MW; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            if (FULL || (wm * MW + mt) * 16 + g + 8 * h < C_out) {
-              const float d = acc[mt][nt][2 * h + p] - mean[nt][p];
-              s = fmaf(d, d, s);
-            }
-        s = sum_over_groups(s);
-        if (g == 0) red[1][wm][col] = s;
-      }
-    }
-  };
-  // the staged piece of m16 tile mt: row wm * 16 + g + 8h, column of the tile
-  constexpr int SR = N_MAX + 8;                  // bf16 per staged output row
-  static_assert(32 * SR <= XT, "a staged output piece fits an xt buffer");
-  auto stage_out = [&](auto full, int mt, int nv, __nv_bfloat16* stg) {
-    constexpr bool FULL = decltype(full)::value;
+  for (int mt = 0; mt < MW; ++mt)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int co = (wm * MW + mt) * 16 + g + 8 * h;
-      const float lw = prm[1][co], lb = prm[2][co];
-      uint32_t* row = reinterpret_cast<uint32_t*>(stg + (wm * 16 + g + 8 * h) * SR);
+      const bool with_bias = bias != nullptr && co < C_out;
+      const float bb = with_bias ? round_bf16(bias[co]) : 0.f;
 #pragma unroll
-      for (int nt = 0; nt < NW; ++nt) {
-        if (!FULL && nt >= nv) break;
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          float& v = acc[mt][nt][2 * h + p];
+          v = round_bf16(v);
+          if (with_bias) v = round_bf16(v + bb);
+        }
+    }
+
+  // channel LayerNorm per column, as in the f32 kernel
+  float mean[NT][2], rstd[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      float s = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < MW; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if ((wm * MW + mt) * 16 + g + 8 * h < C_out) s += acc[mt][nt][2 * h + p];
+      s = sum_over_groups(s);
+      if (g == 0) red[0][wm][wn * NT * 8 + nt * 8 + 2 * q + p] = s;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int col = wn * NT * 8 + nt * 8 + 2 * q + p;
+      mean[nt][p] = (red[0][0][col] + red[0][1][col]) / (float)C_out;
+      float s = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < MW; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if ((wm * MW + mt) * 16 + g + 8 * h < C_out) {
+            const float d = acc[mt][nt][2 * h + p] - mean[nt][p];
+            s = fmaf(d, d, s);
+          }
+      s = sum_over_groups(s);
+      if (g == 0) red[1][wm][col] = s;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int col = wn * NT * 8 + nt * 8 + 2 * q + p;
+      rstd[nt][p] = rsqrtf((red[1][0][col] + red[1][1][col]) / (float)C_out + eps);
+    }
+  }
+
+  __nv_bfloat16* ob = out + (size_t)b * C_out * T;
+#pragma unroll
+  for (int mt = 0; mt < MW; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int co = (wm * MW + mt) * 16 + g + 8 * h;
+      if (co >= C_out) continue;
+      const float lw = ln_w != nullptr ? ln_w[co] : 1.f;
+      const float lb = ln_b != nullptr ? ln_b[co] : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int t = t0 + wn * NT * 8 + nt * 8 + 2 * q;
         float y0 = (acc[mt][nt][2 * h] - mean[nt][0]) * rstd[nt][0] * lw + lb;
         float y1 = (acc[mt][nt][2 * h + 1] - mean[nt][1]) * rstd[nt][1] * lw + lb;
         if (relu) {
           y0 = fmaxf(y0, 0.f);
           y1 = fmaxf(y1, 0.f);
         }
-        const __nv_bfloat162 v = __floats2bfloat162_rn(y0, y1);
-        row[(w0 + nt) * 4 + q] = *reinterpret_cast<const uint32_t*>(&v);
-      }
-    }
-  };
-  auto epilogue = [&](int b, int t0, int nv, __nv_bfloat16* stg) {
-    if (WK == 2) {
-      float* kr = kred + (wm + 2 * wn) * (MW * NW * 4 * 32) + lane;
-      if (wk == 1)
-#pragma unroll
-        for (int mt = 0; mt < MW; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < NW; ++nt)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) kr[((mt * NW + nt) * 4 + i) * 32] = acc[mt][nt][i];
-      __syncthreads();
-      if (wk == 0)
-#pragma unroll
-        for (int mt = 0; mt < MW; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < NW; ++nt)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[mt][nt][i] += kr[((mt * NW + nt) * 4 + i) * 32];
-    }
-    const bool owner = wk == 0;
-    const bool full = nv == NW && C_out == 16 * MT;
-    if (owner) {
-      if (full) stats_mean(Count<1>{}, nv);
-      else stats_mean(Count<0>{}, nv);
-    }
-    __syncthreads();
-    if (owner) {
-      if (full) stats_var(Count<1>{}, nv);
-      else stats_var(Count<0>{}, nv);
-    }
-    __syncthreads();
-    if (owner) {
-#pragma unroll
-      for (int nt = 0; nt < NW; ++nt) {
-        if (nt >= nv) break;
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          const int col = (w0 + nt) * 8 + 2 * q + p;
-          rstd[nt][p] = rsqrtf((red[1][0][col] + red[1][1][col]) / (float)C_out + eps);
-        }
-      }
-    }
-    // stage and store m16 tile mt of both channel warps: 32 channels x the
-    // tile's columns, 8 columns (16 bytes) per thread and task (two tiles
-    // per round, in this buffer and the landing slot step s transposed,
-    // measured no faster and spilled at C_out = 160)
-    const bool vec_out = T % 8 == 0;
-    __nv_bfloat16* ob = out + (size_t)b * C_out * T;
-#pragma unroll
-    for (int mt = 0; mt < MW; ++mt) {
-      if (mt > 0) __syncthreads();               // the last piece's reads done
-      if (owner) {
-        if (full) stage_out(Count<1>{}, mt, nv, stg);
-        else stage_out(Count<0>{}, mt, nv, stg);
-      }
-      __syncthreads();
-      for (int i = tid; i < 32 * n8; i += NTHREADS) {
-        const int r = i / n8, c8 = i - r * n8;
-        const int co = ((r >> 4) * MW + mt) * 16 + (r & 15), t = t0 + 8 * c8;
-        if (co >= C_out || t >= T) continue;
-        const __nv_bfloat16* src = stg + r * SR + 8 * c8;
-        __nv_bfloat16* dst = ob + (size_t)co * T + t;
-        if (vec_out && t + 8 <= T) {
-          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        __nv_bfloat16* o = ob + (size_t)co * T + t;
+        if (t + 1 < T && (T & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(y0, y1);
         } else {
-          for (int e = 0; e < 8 && t + e < T; ++e) dst[e] = src[e];
+          if (t < T) o[0] = __float2bfloat16(y0);
+          if (t + 1 < T) o[1] = __float2bfloat16(y1);
         }
       }
     }
-  };
-
-  // Pipeline: each step commits two cp.async groups, the streamed weights of
-  // the next step (empty when resident), then the landing of x three steps
-  // ahead. Step s waits for all but the last group (the weights of step s and
-  // landing s + 1), issues its groups into the slots steps s - 1 and s freed,
-  // transposes landing s + 1 into the other xt buffer, then issues the mma of
-  // step s (issuing the mma first measured 5 % slower): one barrier per step.
-  // The resident weights, the first weights and the first three landings are
-  // the prologue's groups.
-  if (resident)
-    for (int i = 8 * tid; i < n_chunks * WCH; i += 8 * NTHREADS) cp_async16(wsm + i, wf + i);
-  else
-    load_w(0);
-  cp_async_commit();
-  land_x(0);
-  cp_async_commit();
-  for (int c = tid; c < 16 * MT; c += NTHREADS) {
-    const bool in = c < C_out;
-    prm[0][c] = in && bias != nullptr ? round_bf16(__ldg(bias + c)) : 0.f;
-    prm[1][c] = in && ln_w != nullptr ? __ldg(ln_w + c) : 1.f;
-    prm[2][c] = in && ln_b != nullptr ? __ldg(ln_b + c) : 0.f;
   }
-#pragma unroll
-  for (int j = 1; j < 3; ++j) {
-    if (j < total) land_x(j);
-    cp_async_commit();
-  }
-  masks(0, mk, mh);
-  if (1 < total && 1 % n_chunks == 0) masks(1, nk, nh);
-  cp_async_wait<2>();
-  __syncthreads();
-  transpose(0);
-
-  for (int s = 0; s < total; ++s) {
-    cp_async_wait<1>();                 // weights of step s, landing s + 1
-    __syncthreads();                    // everyone's; xt[s & 1] staged; step s - 1 done
-    if (!resident && s + 1 < total) load_w(s + 1);  // the slot of step s - 1's weights
-    cp_async_commit();
-    if (s + 3 < total) land_x(s + 3);   // the slot of landing s, transposed
-    cp_async_commit();
-    if (s + 1 < total) {
-      if ((s + 1) % n_chunks == 0) {
-#pragma unroll
-        for (int j = 0; j < OPS; ++j) mk[j] = nk[j];
-        mh = nh;
-      }
-      transpose(s + 1);                 // into the xt buffer step s - 1 read
-      if (s + 2 < total && (s + 2) % n_chunks == 0) masks(s + 2, nk, nh);
-    }
-    int b, t0;
-    tile_of(s, b, t0);
-    const int n8v = min(n8, (T - t0 + 7) / 8);     // n8 tiles before T
-    const int nv = max(0, min(nw, n8v - w0));
-    compute(s, nv);
-    if (s % n_chunks == n_chunks - 1) {
-      epilogue(b, t0, nv, xt + (s & 1) * XT);   // the buffer step s read
-#pragma unroll
-      for (int mt = 0; mt < MW; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NW; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-    }
-  }
-  cp_async_wait<0>();
-}
-
-// Dynamic shared memory of one launch (ops/fused_conv.py: conv3_bf16_smem
-// computes the same)
-template <int MW, int NW, int WN, int WK>
-size_t smem_bf16(int C_in, int resident) {
-  constexpr int N_MAX = WN * NW * 8, WCH = 2 * 3 * 2 * MW * 256;
-  const size_t chunks = resident ? (C_in + BF_KC - 1) / BF_KC : BF_STAGES;
-  return sizeof(__nv_bfloat16) * (chunks * WCH + BF_XSTAGES * BF_KC * land_row(N_MAX) +
-                                  2 * xt_size(N_MAX)) +
-         (WK == 2 ? sizeof(float) * 2 * WN * MW * NW * 4 * 32 : 0);
-}
-
-template <int MW, int NW, int WN, int WK>
-int launch_bf16(const __nv_bfloat16* x, const uint8_t* mask, const __nv_bfloat16* wf,
-                const float* bias, const float* ln_w, const float* ln_b, __nv_bfloat16* out,
-                int B, int C_in, int C_out, int T, float eps, int relu, int n_tile, int grid,
-                int resident, cudaStream_t stream) {
-  constexpr int N_MAX = WN * NW * 8;
-  if (n_tile <= 0 || n_tile % 8 != 0 || n_tile > N_MAX) return (int)cudaErrorInvalidValue;
-  const size_t bytes = smem_bf16<MW, NW, WN, WK>(C_in, resident);
-  if (bytes > (size_t)INT_MAX) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      conv3_ln_act_bf16_kernel<MW, NW, WN, WK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const uintptr_t a = reinterpret_cast<uintptr_t>(x);
-  const int vec = (T % 8 == 0 && a % 16 == 0)  ? 8
-                  : (T % 4 == 0 && a % 8 == 0) ? 4
-                  : (T % 2 == 0 && a % 4 == 0) ? 2
-                                               : 1;
-  conv3_ln_act_bf16_kernel<MW, NW, WN, WK><<<grid, 64 * WN * WK, bytes, stream>>>(
-      x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, n_tile, resident, vec);
-  return (int)cudaGetLastError();
 }
 
 template <int MW>
-int launch_bf16_tiling(const __nv_bfloat16* x, const uint8_t* mask, const __nv_bfloat16* wf,
-                       const float* bias, const float* ln_w, const float* ln_b,
-                       __nv_bfloat16* out, int B, int C_in, int C_out, int T, float eps, int relu,
-                       int tiling, int n_tile, int grid, int resident, cudaStream_t stream) {
-  switch (tiling) {
-    case 0: return launch_bf16<MW, 1, 2, 2>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out,
-                                            T, eps, relu, n_tile, grid, resident, stream);
-    case 1: return launch_bf16<MW, 3, 4, 1>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out,
-                                            T, eps, relu, n_tile, grid, resident, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int launch_bf16(const __nv_bfloat16* x, const uint8_t* mask, const __nv_bfloat16* wf,
+                const float* bias, const float* ln_w, const float* ln_b, __nv_bfloat16* out,
+                int B, int C_in, int C_out, int T, float eps, int relu, cudaStream_t stream) {
+  constexpr int bytes = STAGES * (3 * 2 * MW * 256 + BKC * BXS) * (int)sizeof(__nv_bfloat16);
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv3_ln_act_bf16_kernel<MW>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int vec_x = (T % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  dim3 grid((T + TILE_T - 1) / TILE_T, B);
+  conv3_ln_act_bf16_kernel<MW><<<grid, THREADS, bytes, stream>>>(
+      x, mask, wf, bias, ln_w, ln_b, out, C_in, C_out, T, eps, relu, vec_x);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1056,37 +711,26 @@ extern "C" int decafnet_conv3_ln_act_f32(const float* x, const uint8_t* mask,
 
 // C entry point of the bf16 variant. x (B, C_in, T) bf16, mask (B, T) bytes, wf
 // the bf16 weight fragments (see the kernel; ops/fused_conv.py builds them for
-// C_in padded to a multiple of 32 and C_out to a multiple of 32), bias/ln_w/ln_b
-// (C_out,) f32 or null, out (B, C_out, T) bf16; all contiguous on the device, wf
-// 16-byte aligned. Launch plan (ops/fused_conv.py: conv3_bf16_plan): `tiling` 1
-// for the mid tiling (n_tile <= 96), 0 for the short one (n_tile <= 16, K
-// split);
-// n_tile time columns per tile, a multiple of 8; `grid` blocks walking the
-// B * ceil(T / n_tile) tiles; `resident` 1 to hold every weight fragment in
-// shared memory for the launch. Returns the cudaError_t of the launch.
+// C_out padded to a multiple of 32), bias/ln_w/ln_b (C_out,) f32 or null, out
+// (B, C_out, T) bf16; all contiguous on the device, wf 16-byte aligned. Returns
+// the cudaError_t of the launch.
 extern "C" int decafnet_conv3_ln_act_bf16(const __nv_bfloat16* x, const uint8_t* mask,
                                           const __nv_bfloat16* wf, const float* bias,
                                           const float* ln_w, const float* ln_b,
                                           __nv_bfloat16* out, int B, int C_in, int C_out, int T,
-                                          float eps, int relu, int tiling, int n_tile, int grid,
-                                          int resident, cudaStream_t stream) {
-  if (B <= 0 || C_in <= 0 || C_out <= 0 || T <= 0 || C_out > 256 || grid <= 0 ||
-      n_tile <= 0 || (long long)B * ((T + n_tile - 1) / n_tile) > INT_MAX ||
+                                          float eps, int relu, cudaStream_t stream) {
+  if (B <= 0 || C_in <= 0 || C_out <= 0 || T <= 0 || B > 65535 || C_out > 256 ||
       reinterpret_cast<uintptr_t>(wf) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-#define DECAF_BF16(MW)                                                                         \
-  launch_bf16_tiling<MW>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, tiling, \
-                         n_tile, grid, resident, stream)
   switch ((C_out + 31) / 32) {
-    case 1: return DECAF_BF16(1);
-    case 2: return DECAF_BF16(2);
-    case 3: return DECAF_BF16(3);
-    case 4: return DECAF_BF16(4);
-    case 5: return DECAF_BF16(5);
-    case 6: return DECAF_BF16(6);
-    case 7: return DECAF_BF16(7);
-    case 8: return DECAF_BF16(8);
+    case 1: return launch_bf16<1>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
+    case 2: return launch_bf16<2>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
+    case 3: return launch_bf16<3>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
+    case 4: return launch_bf16<4>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
+    case 5: return launch_bf16<5>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
+    case 6: return launch_bf16<6>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
+    case 7: return launch_bf16<7>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
+    case 8: return launch_bf16<8>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef DECAF_BF16
 }

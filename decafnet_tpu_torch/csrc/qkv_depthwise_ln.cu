@@ -49,8 +49,7 @@
 // q, k and v is a bf16x2 and the 8 lanes of a part write 32 contiguous bytes,
 // a whole sector. The taps (rounded to bf16) and the LN parameters stay
 // staged in shared memory per block: read through L1 from prepared tables in
-// the inner loops instead, the kernel took 0.1206 ms per decode call against
-// 0.0915 (scripts/torch_conv3_bf16_plans.py, H100).
+// the inner loops instead, the kernel was slower on an H100 (PERF.md).
 // The tile widths are chosen by the wrapper (ops/fused_conv.py:qkv_depthwise_ln_plan).
 
 #include <cuda_bf16.h>

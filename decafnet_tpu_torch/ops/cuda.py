@@ -53,7 +53,7 @@ _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_fl
 # C signatures of the entry points (csrc/*.cu), all returning cudaError_t
 _SIGNATURES = {
     "decafnet_conv3_ln_act_f32": [_vp] * 8 + [_i] * 4 + [_f, _i, _vp],
-    "decafnet_conv3_ln_act_bf16": [_vp] * 7 + [_i] * 4 + [_f] + [_i] * 5 + [_vp],
+    "decafnet_conv3_ln_act_bf16": [_vp] * 7 + [_i] * 4 + [_f, _i, _vp],
     "decafnet_qkv_depthwise_ln_f32": [_vp] * 14 + [_i] * 3 + [_f, _i, _vp],
     "decafnet_qkv_depthwise_ln_bf16": [_vp] * 14 + [_i] * 3 + [_f, _i, _vp],
     "decafnet_band_attention_f32": [_vp] * 5 + [_i] * 4 + [_ll] * 4 + [_i] * 3 + [_vp],

@@ -12,9 +12,6 @@ recomputes through its plain version (the rule in ops/cuda.py).
 
 from __future__ import annotations
 
-import collections
-import functools
-
 import torch
 import torch.nn.functional as F
 
@@ -83,16 +80,14 @@ def conv3_weight_operands(w):
 
 def conv3_bf16_fragments(w):
     """The (C_out, C_in, 3) conv weight rounded to bf16 as the bf16 kernel of
-    csrc/conv3_ln_act.cu reads it: (2 * ceil(C_in/32), 3, M/16, 32, 8) with
-    M = C_out padded to a multiple of 32 and C_in to a multiple of 32 (the
-    kernel's chunks of two k16 steps), zero where padded. For k16 step c16
-    (input channels 16 c16 .. 16 c16 + 15), tap, m16 tile mt and lane
-    (g = lane // 4, q = lane % 4), entry 4 kh + 2 h + j is
-    ``w[16 mt + g + 8 h, 16 c16 + 8 kh + 2 q + j, tap]``: the A fragment of
-    ``mma.sync.m16n8k16`` (rows = output channels, k = input channels), four
-    registers of two bf16 each, one 16-byte load per lane."""
+    csrc/conv3_ln_act.cu reads it: (ceil(C_in/16), 3, M/16, 32, 8) with M =
+    C_out padded to a multiple of 32, zero where padded. For input-channel
+    chunk c16, tap, m16 tile mt and lane (g = lane // 4, q = lane % 4),
+    entry 4 kh + 2 h + j is ``w[16 mt + g + 8 h, 16 c16 + 8 kh + 2 q + j,
+    tap]``: the A fragment of ``mma.sync.m16n8k16`` (rows = output
+    channels, k = input channels), four registers of two bf16 each."""
     C_out, C_in, _ = w.shape
-    mt, nc16 = 2 * -(-C_out // 32), 2 * -(-C_in // 32)
+    mt, nc16 = 2 * -(-C_out // 32), -(-C_in // 16)
     wp = w.new_zeros(16 * mt, 16 * nc16, 3, dtype=torch.bfloat16)
     wp[:C_out, :C_in] = w
     # (mt, h, g, c16, kh, q, j, tap) -> (c16, tap, mt, g, q, kh, h, j)
@@ -105,97 +100,6 @@ def conv3_bf16_operands(w):
     """:func:`conv3_bf16_fragments` of ``w``, cached against its version as
     :func:`conv3_weight_operands` is."""
     return cached(w, "bf16_fragments", conv3_bf16_fragments)
-
-
-# csrc/conv3_ln_act.cu's bf16 kernel: blocks of 2 channel warps x column
-# warps x K halves (8 warps) in one of two tilings, (column warps, n8 tiles
-# per column warp, K halves), by their index in the C entry point: short (up
-# to 16 columns, each chunk's two k16 steps on two warps) and mid (up to 96
-# columns). Two blocks fit on an SM when their weights stream.
-CONV3_BF16_TILINGS = {"short": (2, 1, 2), "mid": (4, 3, 1)}
-# shared memory of an H100: the most one block may use, and an SM's total,
-# of which each resident block also reserves 1 KB
-SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED = 227 * 1024, 228 * 1024, 1024
-# the plan's cost model (scripts/torch_conv3_bf16_plans.py times every plan
-# at the served shapes; these constants pick, at each served level of one
-# decode call, a plan within 5 % of the fastest that fills the card on an
-# H100): a tile costs CONV3_TILE_COST (its epilogue and barriers) plus
-# CONV3_N8_COST per n8 tile of its busiest column warp (halved by the short
-# tiling's K split), times CONV3_RAGGED_COST when some column warp has fewer
-# than NW n8 tiles (the epilogue's general build)
-CONV3_TILE_COST, CONV3_N8_COST, CONV3_RAGGED_COST = 2.0, 1.0, 1.15
-
-Conv3Plan = collections.namedtuple(
-    "Conv3Plan", "tiling n_tile grid resident per_sm")
-Conv3Plan.__doc__ = """Launch plan of the bf16 conv3 kernel: the tiling (a
-key of CONV3_BF16_TILINGS), the time columns per tile, the blocks (each walks
-tiles blockIdx.x, + grid, ...), whether the weight fragments stay in shared
-memory for the launch, and the blocks that fit on one SM."""
-
-
-def conv3_bf16_smem(C_in, C_out, tiling, resident):
-    """Shared memory of one block of the bf16 conv3 kernel in bytes, dynamic
-    and static (csrc/conv3_ln_act.cu: ``smem_bf16`` and ``red``): the weight
-    fragments (every chunk of 32 input channels when ``resident``, else a
-    ring of 2), a ring of 3 landing slots of 32 channel rows of x, two xt
-    buffers (a staged x chunk of 40 bf16 per column, or a staged output
-    piece of 32 channels), the K-half exchange of the short tiling,
-    the LN partial sums and the per-channel parameters."""
-    wn, nw, wk = CONV3_BF16_TILINGS[tiling]
-    n_max, mw = wn * nw * 8, -(-C_out // 32)
-    chunk = 2 * 3 * 2 * mw * 256
-    chunks = -(-C_in // 32) if resident else 2
-    land_row = n_max + 16 if ((n_max + 16) // 8) % 2 else n_max + 24
-    xt = max((n_max + 2) * 40, 32 * (n_max + 8))
-    dynamic = 2 * (chunks * chunk + 3 * 32 * land_row + 2 * xt)
-    if wk == 2:
-        dynamic += 4 * 2 * wn * mw * nw * 4 * 32
-    return dynamic + 4 * (2 * 2 * n_max + 3 * 32 * mw)
-
-
-def conv3_bf16_plans(B, T, C_in, C_out, sms):
-    """Every launch plan of the bf16 conv3 kernel for x (B, C_in, T) on a
-    card of ``sms`` SMs, each with its modelled cost: for each tiling and
-    each count of tiles per row (the columns balanced over the row, a
-    multiple of 8), the weights kept in shared memory where they fit (blocks
-    walking tiles, at most one wave) and streamed (one tile per block). The
-    cost is the rounds of tiles per block slot times a tile's cost (see
-    CONV3_TILE_COST)."""
-    for tiling, (wn, nw, wk) in CONV3_BF16_TILINGS.items():
-        n_max = wn * nw * 8
-        for resident in (True, False):
-            smem = conv3_bf16_smem(C_in, C_out, tiling, resident)
-            if smem > SMEM_PER_BLOCK:
-                continue
-            per_sm = min(2, SMEM_PER_SM // (smem + SMEM_RESERVED))
-            slots = sms * per_sm
-            for per_row in range(-(-T // n_max), -(-T // 8) + 1):
-                n_tile = 8 * -(-T // (8 * per_row))
-                if -(-T // n_tile) != per_row:
-                    continue
-                tiles = B * per_row
-                grid = min(tiles, slots) if resident else tiles
-                rounds = -(-tiles // min(grid, slots))
-                n8 = n_tile // 8
-                nv = -(-n8 // wn)
-                tile = CONV3_TILE_COST + CONV3_N8_COST * nv / wk
-                if n8 % wn or nv != nw:
-                    tile *= CONV3_RAGGED_COST
-                yield rounds * tile, Conv3Plan(tiling, n_tile, grid, resident, per_sm)
-
-
-@functools.lru_cache(maxsize=None)
-def conv3_bf16_plan(B, T, C_in, C_out, sms):
-    """The cheapest of :func:`conv3_bf16_plans` among those that put as many
-    blocks in flight as there are SMs (or as many as any plan does, where
-    none fills the card); on a tie the one with more blocks in flight.
-    Cached: the enumeration takes ~0.6 ms of host time at T = 2304, and the
-    served decode calls the kernel 44 times."""
-    plans = list(conv3_bf16_plans(B, T, C_in, C_out, sms))
-    flight = lambda p: min(p.grid, sms * p.per_sm)  # noqa: E731
-    need = min(sms, max(flight(p) for _, p in plans))
-    return min(((c, p) for c, p in plans if flight(p) >= need),
-               key=lambda cp: (cp[0], -flight(cp[1])))[1]
 
 
 def conv3_ln_act(x, mask, w, bias=None, ln_w=None, ln_b=None, act="relu",
@@ -266,9 +170,13 @@ def _conv3_ln_act(x, mask, w, bias, ln_w, ln_b, act, eps):
     m8 = cuda.as_bytes(mask)
     out = torch.empty((B, C_out, T), dtype=x.dtype, device=x.device)
     if bf16:
-        plan = conv3_bf16_plan(B, T, C_in, C_out, cuda.sm_count(x.device))
-        return _launch_conv3_bf16(x, m8, w, bias, ln_w, ln_b, act, eps, plan,
-                                  out)
+        err = cuda.library().decafnet_conv3_ln_act_bf16(
+            cuda.ptr(x), cuda.ptr(m8), cuda.ptr(conv3_bf16_operands(w)),
+            cuda.ptr(bias), cuda.ptr(ln_w), cuda.ptr(ln_b), cuda.ptr(out),
+            B, C_in, C_out, T, float(eps), int(act == "relu"), cuda.stream())
+        cuda.check(err, name + "_bf16")
+        conv3_ln_act.launches_bf16 += 1
+        return out
     w_hi, w_lo = conv3_weight_operands(w)
     err = cuda.library().decafnet_conv3_ln_act_f32(
         cuda.ptr(x), cuda.ptr(m8), cuda.ptr(w_hi), cuda.ptr(w_lo),
@@ -277,36 +185,6 @@ def _conv3_ln_act(x, mask, w, bias, ln_w, ln_b, act, eps):
     cuda.check(err, name)
     conv3_ln_act.launches += 1
     return out
-
-
-def _launch_conv3_bf16(x, m8, w, bias, ln_w, ln_b, act, eps, plan, out):
-    """Launch the bf16 kernel with ``plan`` on checked arguments (the LN and
-    bias vectors flat f32, the mask as bytes)."""
-    B, C_in, T = x.shape
-    C_out = w.shape[0]
-    err = cuda.library().decafnet_conv3_ln_act_bf16(
-        cuda.ptr(x), cuda.ptr(m8), cuda.ptr(conv3_bf16_operands(w)),
-        cuda.ptr(bias), cuda.ptr(ln_w), cuda.ptr(ln_b), cuda.ptr(out),
-        B, C_in, C_out, T, float(eps), int(act == "relu"),
-        list(CONV3_BF16_TILINGS).index(plan.tiling),
-        plan.n_tile, plan.grid, int(plan.resident), cuda.stream())
-    cuda.check(err, "conv3_ln_act_bf16")
-    conv3_ln_act.launches_bf16 += 1
-    return out
-
-
-def launch_conv3_ln_act_bf16(x, mask, w, bias, ln_w, ln_b, act, eps, plan):
-    """The bf16 kernel with an explicit :class:`Conv3Plan` on CUDA tensors
-    (the card tests and the plan study script pass plans the wrapper would
-    not pick); the arguments as :func:`conv3_ln_act_torch` takes them."""
-    name = "conv3_ln_act_bf16"
-    cuda.require(x.is_cuda and x.dtype == torch.bfloat16 and x.is_contiguous(),
-                 name, "contiguous bf16 CUDA x")
-    vec = lambda p: None if p is None else p.reshape(-1).float().contiguous()  # noqa: E731
-    out = torch.empty((x.shape[0], w.shape[0], x.shape[2]), dtype=x.dtype,
-                      device=x.device)
-    return _launch_conv3_bf16(x, cuda.as_bytes(mask), w, vec(bias), vec(ln_w),
-                              vec(ln_b), act, eps, plan, out)
 
 
 conv3_ln_act.launches = conv3_ln_act.launches_bf16 = 0
@@ -329,11 +207,10 @@ def qkv_depthwise_ln_torch(x, mask, ws, ln_ws, ln_bs, eps=1e-5):
         for w, lw, lb in zip(ws, ln_ws, ln_bs))
 
 
+# the widest tile in either dtype: at the served level 0 on an H100, 64 is
+# the fastest in f32 and within 1 % of the fastest (128) in bf16, two
+# columns per lane (scripts/torch_band_trio_plans.py)
 QKV_MAX_TILE = 64
-# the bf16 kernel's widest tile (2 columns per lane: 128 threads); 64 was
-# the fastest tile at the served level 0 in every card run of
-# scripts/torch_conv3_bf16_plans.py (16 to 128 columns tried)
-QKV_BF16_MAX_TILE = 64
 # lanes that share a time column (bf16: a column pair) in
 # csrc/qkv_depthwise_ln.cu (its CS)
 QKV_LANES = 4
@@ -344,10 +221,9 @@ def qkv_depthwise_ln_plan(T, dtype=torch.float32):
     ``tile`` columns of one batch row, each column's channels (in bf16, each
     pair of adjacent columns') split over QKV_LANES lanes of a warp. ``tile``
     is a multiple of the columns per warp (32 // QKV_LANES in f32, twice that
-    in bf16) and of 4, at most QKV_MAX_TILE (f32) or QKV_BF16_MAX_TILE."""
-    if dtype == torch.bfloat16:
-        return cuda.time_tile(T, 2 * 32 // QKV_LANES, QKV_BF16_MAX_TILE)
-    return cuda.time_tile(T, 32 // QKV_LANES, QKV_MAX_TILE)
+    in bf16) and of 4, at most QKV_MAX_TILE."""
+    per_warp = 32 // QKV_LANES * (2 if dtype == torch.bfloat16 else 1)
+    return cuda.time_tile(T, per_warp, QKV_MAX_TILE)
 
 
 def qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps=1e-5):

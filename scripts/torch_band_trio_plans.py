@@ -6,10 +6,11 @@ trio kernels, on one card.
 
 Plans: through the shipped library, runs every launch plan the two kernels
 take at the served shapes of one decode call (64 rows, T=2304; band
-attention at all 7 FPN levels, the trio at level 0): band attention with
-(tile, split) = time columns per block and lanes per query, the trio with
-tile = time columns per block. Each plan is held against the plain version
-(it must agree within chip_smoke's tolerance) and timed with CUDA events.
+attention at all 7 FPN levels, the trio at level 0 in f32 and in bf16):
+band attention with (tile, split) = time columns per block and lanes per
+query, the trio with tile = time columns per block. Each plan is held
+against the plain version (it must agree within chip_smoke's tolerance, in
+bf16 its 2 bf16 eps of max(1, |plain|)) and timed with CUDA events.
 One JSON line per shape: every plan's time and error, the wrapper's plan,
 the fastest plan.
 
@@ -50,7 +51,8 @@ VARIANTS = {
         "no_tail_skip": ("if (!__syncthreads_or(valid)) {",
                          "if (!__syncthreads_or(valid) && false) {")}),
     "qkv_depthwise_ln": ("decafnet_qkv_depthwise_ln_f32", {
-        "no_tail_skip": ("if (!any) {", "if (!any && false) {"),
+        "no_tail_skip": ("all = __syncthreads_and(all);\n  if (!any) {",
+                         "all = __syncthreads_and(all);\n  if (!any && false) {"),
         "lanes1": (TRIO_LANES, "constexpr int CS = 1;"),
         "lanes2": (TRIO_LANES, "constexpr int CS = 2;")}),
 }
@@ -111,7 +113,8 @@ def main():
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
     total = {k: {"wrapper_plans_ms": 0.0, "fastest_plans_ms": 0.0,
-                 **{n: 0.0 for (kk, n) in fns if kk == k}} for k in VARIANTS}
+                 **{n: 0.0 for (kk, n) in fns if kk == k}}
+             for k in (*VARIANTS, "qkv_depthwise_ln_bf16")}
 
     def band_variant(fn, q, k, v, mask, window, plan):
         B, H, T, D = q.shape
@@ -135,14 +138,17 @@ def main():
         return tuple(outs)
 
     def study(kernel, level, args, chosen, candidates, launch, variant):
+        op, bf16 = kernel.removesuffix("_bf16"), kernel.endswith("_bf16")
         with cuda.plain_versions():
-            want = getattr(local_attention if kernel == "band_attention"
-                           else fused_conv, kernel)(*args)
+            want = getattr(local_attention if op == "band_attention"
+                           else fused_conv, op)(*args)
         row = {"kernel": kernel, "level": level, "shape": list(args[0].shape),
                "wrapper_plan": chosen, "plans": []}
         for plan in candidates:
-            err = cs.max_err(launch(*args, plan), want)
-            assert err <= cs.TOL[kernel], (kernel, level, plan, err)
+            got = launch(*args, plan)
+            err = cs.bf16_err(got, want)[1] if bf16 else cs.max_err(got, want)
+            assert err <= (cs.TOL_BF16 if bf16 else cs.TOL[op]), \
+                (kernel, level, plan, err)
             ms = cs.time_ms(lambda: launch(*args, plan), 20)
             row["plans"].append({"plan": plan, "ms": ms, "max_abs_err": err})
         best = min(row["plans"], key=lambda p: p["ms"])
@@ -176,9 +182,18 @@ def main():
             chosen = fused_conv.qkv_depthwise_ln_plan(T)
             cands = [t for t, _ in plans(TRIO_TILES, T, (fused_conv.QKV_LANES,))]
             cands += [chosen] if chosen not in cands else []
-            study("qkv_depthwise_ln", level, args, chosen, cands,
-                  lambda *a: fused_conv.launch_qkv_depthwise_ln(*a[:-1], 1e-5, a[-1]),
+            trio = lambda *a: fused_conv.launch_qkv_depthwise_ln(  # noqa: E731
+                *a[:-1], 1e-5, a[-1])
+            study("qkv_depthwise_ln", level, args, chosen, cands, trio,
                   trio_variant)
+            # bf16: two columns per lane, so tiles of 16 columns
+            args, _ = cs.trio_case(dev, g, cs.ROWS, cs.EMBD, T, lens,
+                                   dtype=torch.bfloat16)
+            chosen = fused_conv.qkv_depthwise_ln_plan(T, torch.bfloat16)
+            cands = [t for t in TRIO_TILES if t % 16 == 0]
+            cands += [chosen] if chosen not in cands else []
+            study("qkv_depthwise_ln_bf16", level, args, chosen, cands, trio,
+                  None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()

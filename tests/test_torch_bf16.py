@@ -138,10 +138,10 @@ def test_band_attention_plain_matches_diag_in_bf16(T):
 
 
 def _unfragment_bf16(f):
-    """(2 * ceil(C_in/32), 3, M/16, 32, 8) bf16 fragments back to
-    (M, 16 * f.shape[0], 3) by the PTX ISA's m16n8k16 .bf16 A layout:
-    lane = 4 * groupID + tid_in_group, a0..a7 = (g, 2q), (g, 2q+1), (g+8, 2q),
-    (g+8, 2q+1), (g, 2q+8), (g, 2q+9), (g+8, 2q+8), (g+8, 2q+9)."""
+    """(ceil(C_in/16), 3, M/16, 32, 8) bf16 fragments back to (M, C_in16, 3)
+    by the PTX ISA's m16n8k16 .bf16 A layout: lane = 4 * groupID +
+    tid_in_group, a0..a7 = (g, 2q), (g, 2q+1), (g+8, 2q), (g+8, 2q+1),
+    (g, 2q+8), (g, 2q+9), (g+8, 2q+8), (g+8, 2q+9)."""
     f = f.float().numpy()
     nc16, _, mt = f.shape[:3]
     w = np.full((16 * mt, 16 * nc16, 3), np.nan, np.float32)
@@ -162,10 +162,10 @@ def test_bf16_fragments_follow_the_mma_a_layout(c_in, c_out):
     w = torch.from_numpy(np.random.RandomState(c_in).randn(c_out, c_in, 3)
                          .astype(np.float32))
     f = tfc.conv3_bf16_fragments(w)
-    m, k = 32 * -(-c_out // 32), 32 * -(-c_in // 32)
-    assert f.shape == (k // 16, 3, m // 16, 32, 8)
+    m = 32 * -(-c_out // 32)
+    assert f.shape == (-(-c_in // 16), 3, m // 16, 32, 8)
     assert f.dtype == torch.bfloat16 and f.is_contiguous()
-    want = np.zeros((m, k, 3), np.float32)   # zero where padded
+    want = np.zeros((m, 16 * -(-c_in // 16), 3), np.float32)
     want[:c_out, :c_in] = w.to(torch.bfloat16).float().numpy()
     np.testing.assert_array_equal(_unfragment_bf16(f), want)
     assert tfc.conv3_bf16_operands(w) is tfc.conv3_bf16_operands(w)   # cached

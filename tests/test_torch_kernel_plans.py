@@ -1,15 +1,12 @@
-"""Launch plans and summation orders of the band-attention, q/k/v-trio and
-bf16 conv3 kernels, on the CPU.
+"""Launch plans and summation orders of the band-attention and q/k/v-trio
+kernels, on the CPU.
 
-csrc/band_attention.cu, csrc/qkv_depthwise_ln.cu and the bf16 kernel of
-csrc/conv3_ln_act.cu take a launch plan (time columns per block; band
-attention also lanes per query; conv3 its tiling, grid and where its weights
-live) that the wrappers choose from the shapes. These tests hold every plan
-the wrappers choose at the served FPN lengths and at edge lengths to the
-kernels' constraints, and walk the kernels' thread-to-(column, dim) mapping
-to show each output element has exactly one owner. The bf16 conv3 kernel's
-data path (staging, ldmatrix lane addresses, mma fragments, epilogue
-mapping) is walked lane by lane in numpy and held against the conv. They also emulate, in f32 torch, the order in which the
+csrc/band_attention.cu and csrc/qkv_depthwise_ln.cu take a launch plan
+(time columns per block; band attention also lanes per query) that the
+wrappers choose from the shapes. These tests hold every plan the wrappers choose at the served FPN
+lengths and at edge lengths to the kernels' constraints, and walk the
+kernels' thread-to-(column, dim) mapping to show each output element has
+exactly one owner. They also emulate, in f32 torch, the order in which the
 kernels sum (band attention's D split over lanes and its xor-shuffle tree;
 the trio's channel split over 4 lanes and its two-pass LN with y
 recomputed) and hold
@@ -104,7 +101,7 @@ def test_qkv_depthwise_ln_bf16_plan_owns_every_column(T):
     part = lane // 8; 2 * tile threads."""
     tile = tfc.qkv_depthwise_ln_plan(T, torch.bfloat16)
     assert tile % 16 == 0 and 2 * tile <= MAX_THREADS
-    assert tile <= tfc.QKV_BF16_MAX_TILE
+    assert tile <= tfc.QKV_MAX_TILE
     n_tiles = -(-T // tile)
     assert (n_tiles - 1) * tile < T <= n_tiles * tile
     C = 128
@@ -250,238 +247,3 @@ def test_trio_channel_split_order_matches_xla(C, T):
                                       for p in (ws, lws, lbs)])
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-5)
-
-
-# ------------------------------------------------------- bf16 conv3 kernel
-
-def _conv3_walk(B, T, plan):
-    """How many (block, warp, n8 tile, lane) slots write each (row, column)
-    of the bf16 conv3 kernel's output, by its mapping: block blk walks tiles
-    blk, blk + grid, ... < B * ceil(T / n_tile) (row it // per_row, columns
-    from (it % per_row) * n_tile); column warp wn owns n8 tiles wn * nw ..
-    (nw = ceil(n_tile / 8 / WN)) before the tile's end and T; lane (g, q)
-    writes columns 2q, 2q + 1 of each."""
-    WN, NW, WK = tfc.CONV3_BF16_TILINGS[plan.tiling]
-    assert plan.n_tile % 8 == 0 and 0 < plan.n_tile <= WN * NW * 8
-    per_row = -(-T // plan.n_tile)
-    tiles = B * per_row
-    n8 = plan.n_tile // 8
-    nw = -(-n8 // WN)
-    assert nw <= NW
-    owned = np.zeros((B, T), np.int64)
-    for blk in range(plan.grid):
-        for it in range(blk, tiles, plan.grid):
-            b, t0 = it // per_row, (it % per_row) * plan.n_tile
-            n8v = min(n8, (T - t0 + 7) // 8)
-            for wn in range(WN):
-                nv = max(0, min(nw, n8v - wn * nw))
-                for nt in range(nv):
-                    t = t0 + (wn * nw + nt) * 8 + np.arange(8)
-                    np.add.at(owned[b], t[t < T], 1)
-    return owned
-
-
-SERVED_C = [128, 160]
-
-
-@pytest.mark.parametrize("sms", SMS)
-@pytest.mark.parametrize("B,T,C", [(64, T, C) for T in SERVED_T for C in SERVED_C]
-                         + [(4, T, 160) for T in [1000, 301, 36, 17, 9, 4, 3]])
-def test_conv3_bf16_plan_owns_every_column(B, T, C, sms):
-    plan = tfc.conv3_bf16_plan(B, T, C, C, sms)
-    assert tfc.conv3_bf16_smem(C, C, plan.tiling, plan.resident) <= tfc.SMEM_PER_BLOCK
-    assert (_conv3_walk(B, T, plan) == 1).all()
-    if plan.resident:   # a resident block walks tiles; no block left idle
-        assert plan.grid <= sms * plan.per_sm
-    assert plan.grid <= B * -(-T // plan.n_tile)
-
-
-@pytest.mark.parametrize("C", SERVED_C)
-@pytest.mark.parametrize("level", [3, 4, 5, 6])
-def test_conv3_bf16_plan_fills_the_card_at_short_levels(level, C):
-    """Levels 3-6 of the served decode put at least one block on each of an
-    H100's 132 SMs."""
-    plan = tfc.conv3_bf16_plan(64, 2304 >> level, C, C, 132)
-    assert min(plan.grid, 132 * plan.per_sm) >= 132
-
-
-@pytest.mark.parametrize("c_in,c_out", [(16, 24), (128, 128), (160, 160),
-                                        (200, 256)])
-def test_conv3_bf16_smem_fits_one_block(c_in, c_out):
-    """Every plan offered for a width the kernel takes (C_out <= 256) fits a
-    block's shared memory and the SM holds per_sm of them; the served widths
-    can keep their weights resident, the widest cannot."""
-    plans = [p for _, p in tfc.conv3_bf16_plans(64, 2304, c_in, c_out, 132)]
-    assert plans
-    for p in plans:
-        smem = tfc.conv3_bf16_smem(c_in, c_out, p.tiling, p.resident)
-        assert smem <= tfc.SMEM_PER_BLOCK
-        assert p.per_sm * (smem + tfc.SMEM_RESERVED) <= tfc.SMEM_PER_SM
-    assert any(p.resident for p in plans) == ((c_in, c_out) != (200, 256))
-
-
-def _bf16(a):
-    return torch.from_numpy(np.ascontiguousarray(a, np.float32)) \
-        .to(torch.bfloat16).float().numpy()
-
-
-def _ldmatrix(xt, addrs, n):
-    """ldmatrix .x{n} on a (rows, 40) staged chunk: lane l gives (row, col)
-    of row l % 8 of matrix l // 8; lane (g, q) receives row g, elements
-    2q, 2q + 1 of each matrix."""
-    regs = np.zeros((32, n, 2))
-    for mi in range(n):
-        mat = np.stack([xt[r, c:c + 8] for r, c in addrs[8 * mi:8 * mi + 8]])
-        for lane in range(32):
-            regs[lane, mi] = mat[lane // 4, 2 * (lane % 4):2 * (lane % 4) + 2]
-    return regs
-
-
-def _land_row(n_max):
-    """csrc/conv3_ln_act.cu land_row: n_max + 16, padded to an odd number of
-    16-byte units."""
-    return n_max + 16 if ((n_max + 16) // 8) % 2 else n_max + 24
-
-
-def _conv3_bf16_data_path(x, mask, w, plan):
-    """The conv sums (B, C_out, T) the bf16 kernel's accumulators hold before
-    its epilogue, walked as the kernel walks them: each chunk of 32 input
-    channels landed as x lies (column j holding time t0 - 8 + j, zero past
-    C_in and outside [0, T)), transposed into rows of 40 by each warp's
-    ldmatrix.trans / stmatrix ops at the kernel's lane addresses with the
-    column mask ANDed in, and the halo columns by threads 0-31 (rows never
-    staged stay NaN, so a read of one shows); B fragments by ldmatrix from
-    the kernel's lane addresses; A fragments from conv3_bf16_fragments at the
-    kernel's index; the mma by the PTX fragment layouts; the K halves of the
-    short tiling summed."""
-    B, C_in, T = x.shape
-    C_out = w.shape[0]
-    frag = tfc.conv3_bf16_fragments(torch.from_numpy(w)).float().numpy()
-    MT = frag.shape[2]
-    MW = MT // 2
-    WN, NW, WK = tfc.CONV3_BF16_TILINGS[plan.tiling]
-    n_max = WN * NW * 8
-    warps = 2 * WN * WK
-    LS, OPS = _land_row(n_max), -(-(n_max // 8) // warps)
-    assert (LS // 8) % 2 == 1
-    n_chunks, n_tile = -(-C_in // 32), plan.n_tile
-    per_row, n8 = -(-T // n_tile), n_tile // 8
-    nw = -(-n8 // WN)
-    xr = _bf16(x)
-    out = np.full((B, C_out, T), np.nan)
-    for blk in range(plan.grid):
-        for it in range(blk, B * per_row, plan.grid):
-            b, t0 = it // per_row, (it % per_row) * n_tile
-            n8v = min(n8, (T - t0 + 7) // 8)
-            acc = np.zeros((warps, MW, NW, 32, 4))
-            on = lambda t: 0 <= t < T and mask[b, t]  # noqa: E731
-            for k in range(n_chunks):
-                land = np.full((32, LS), np.nan)
-                for r in range(32):
-                    for j in range(8 * (n8 + 2)):
-                        c, t = 32 * k + r, t0 - 8 + j
-                        land[r, j] = xr[b, c, t] if c < C_in and 0 <= t < T else 0.0
-                xt = np.full((n_max + 2, 40), np.nan)
-                for warp in range(warps):
-                    for jj in range(OPS):
-                        tb = warp + warps * jj
-                        if tb >= n8:
-                            break
-                        # ldmatrix.x4.trans: lane l addresses landing row
-                        # 8 (l // 8) + l % 8 at column 8 + 8 tb
-                        src = [(8 * (ln // 8) + ln % 8, 8 + 8 * tb) for ln in range(32)]
-                        mats = [np.stack([land[r, c:c + 8] for r, c in src[8 * i:8 * i + 8]])
-                                for i in range(4)]
-                        # stmatrix.x4: lane l addresses xt row 1 + 8 tb + l % 8,
-                        # column 8 (l // 8)
-                        dst = [(1 + 8 * tb + ln % 8, 8 * (ln // 8)) for ln in range(32)]
-                        for lane in range(32):
-                            g, q = lane // 4, lane % 4
-                            keep = on(t0 + 8 * tb + g)
-                            for i in range(4):
-                                row, col = dst[8 * i + g]
-                                for e in range(2):   # transposed: element (2q + e, g)
-                                    v = mats[i][2 * q + e, g]
-                                    xt[row, col + 2 * q + e] = v if keep else 0.0
-                for tid in range(32):
-                    pr, side = tid % 16, tid // 16
-                    col = 8 + n_tile if side else 7
-                    for e in range(2):
-                        v = land[2 * pr + e, col]
-                        xt[n_tile + 1 if side else 0, 2 * pr + e] = \
-                            v if on(t0 - 8 + col) else 0.0
-                for warp in range(warps):
-                    wm, wn, wk = warp % 2, (warp // 2) % WN, (warp // 2) // WN
-                    w0 = wn * nw
-                    nv = max(0, min(nw, n8v - w0))
-                    for kh in ([wk] if WK == 2 else [0, 1]):
-                        bfr = {}
-                        for tap in range(3):
-                            for p in range((NW + 1) // 2):
-                                if 2 * p >= nv:
-                                    break
-                                addrs = [((w0 + 2 * p + (lane // 8) // 2) * 8
-                                          + lane % 8 + tap,
-                                          16 * kh + 8 * ((lane // 8) % 2))
-                                         for lane in range(32)]
-                                r = _ldmatrix(xt, addrs, 4 if 2 * p + 1 < NW else 2)
-                                for i in range(r.shape[1] // 2):
-                                    bfr[tap, 2 * p + i] = r[:, 2 * i:2 * i + 2]
-                        for mt in range(MW):
-                            for tap in range(3):
-                                a = frag[2 * k + kh, tap, wm * MW + mt]
-                                A = np.zeros((16, 16))
-                                for lane in range(32):
-                                    g, q = lane // 4, lane % 4
-                                    for i, (dr, dc) in enumerate(
-                                            [(0, 0), (0, 1), (8, 0), (8, 1),
-                                             (0, 8), (0, 9), (8, 8), (8, 9)]):
-                                        A[g + dr, 2 * q + dc] = a[lane, i]
-                                for nt in range(nv):
-                                    Bm = np.zeros((16, 8))
-                                    for lane in range(32):
-                                        g, q = lane // 4, lane % 4
-                                        Bm[2 * q:2 * q + 2, g] = bfr[tap, nt][lane, 0]
-                                        Bm[8 + 2 * q:10 + 2 * q, g] = bfr[tap, nt][lane, 1]
-                                    D = A @ Bm
-                                    for lane in range(32):
-                                        g, q = lane // 4, lane % 4
-                                        for i in range(4):
-                                            acc[warp, mt, nt, lane, i] += \
-                                                D[g + 8 * (i // 2), 2 * q + i % 2]
-            for warp in range(2 * WN):      # the K-half-0 warps hold the sums
-                wm, wn = warp % 2, warp // 2
-                w0 = wn * nw
-                nv = max(0, min(nw, n8v - w0))
-                a = acc[warp] + (acc[warp + 2 * WN] if WK == 2 else 0.0)
-                for mt in range(MW):
-                    for nt in range(nv):
-                        for lane in range(32):
-                            g, q = lane // 4, lane % 4
-                            for i in range(4):
-                                co = (wm * MW + mt) * 16 + g + 8 * (i // 2)
-                                t = t0 + (w0 + nt) * 8 + 2 * q + i % 2
-                                if co < C_out and t < T:
-                                    out[b, co, t] = a[mt, nt, lane, i]
-    return out
-
-
-@pytest.mark.parametrize("tiling,resident", [("mid", True), ("mid", False),
-                                             ("short", True), ("short", False)])
-@pytest.mark.parametrize("B,C_in,C_out,T", [(2, 40, 24, 37), (2, 13, 40, 20)])
-def test_conv3_bf16_data_path_matches_conv(B, C_in, C_out, T, tiling, resident):
-    rng = np.random.RandomState(C_in + T)
-    x = rng.randn(B, C_in, T).astype(np.float32)
-    mask = rng.rand(B, T) < 0.8
-    mask[-1, T // 2:] = False
-    w = rng.randn(C_out, C_in, 3).astype(np.float32)
-    xm = np.pad(_bf16(x) * mask[:, None, :], ((0, 0), (0, 0), (1, 1)))
-    want = sum(np.einsum("oc,bct->bot", _bf16(w)[:, :, tap], xm[:, :, tap:tap + T])
-               for tap in range(3))
-    # the cheapest plan of this tiling and weight home, at 2 SMs so that
-    # blocks walk several tiles
-    plan = min((cp for cp in tfc.conv3_bf16_plans(B, T, C_in, C_out, 2)
-                if (cp[1].tiling, cp[1].resident) == (tiling, resident)),
-               key=lambda cp: cp[0])[1]
-    got = _conv3_bf16_data_path(x, mask, w, plan)
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

@@ -166,41 +166,6 @@ def test_bf16_conv3_ln_act_widths(card, c_in, c_out, bias, affine, act, T):
     assert float(((got - want).abs() / want.abs().clamp_min(1.0)).max()) <= TOL_BF16
 
 
-# every branch of the bf16 conv3 plan: the mid tiling and the short one (K
-# split over two warps), each with its weights in shared memory or streamed;
-# at the short served levels (64 rows, T = 72 and 36), T % 8 != 0, x off 16
-# bytes, C_in not a multiple of 16 (13) or of 32 (40), an all-masked row
-@pytest.mark.cuda
-@pytest.mark.parametrize("tiling,resident", [("mid", True), ("mid", False),
-                                             ("short", True), ("short", False)])
-@pytest.mark.parametrize("rows,c_in,c_out,T,how", [
-    (64, 160, 160, 36, "as_is"), (64, 128, 128, 72, "as_is"),
-    (4, 160, 160, 301, "offset"), (4, 13, 40, 17, "as_is"),
-    (4, 40, 24, 1000, "offset"), (4, 160, 160, 3, "as_is")])
-def test_bf16_conv3_every_plan_matches_plain(card, tiling, resident, rows, c_in,
-                                            c_out, T, how):
-    g = torch.Generator(device=card).manual_seed(rows + c_in + T)
-
-    def rn(*shape):
-        return torch.randn(*shape, generator=g, device=card)
-
-    x = moved(rn(rows, c_in, T).bfloat16(), how)
-    mask = _mask(([T, max(T - 3, 1), T // 2, 0] * rows)[:rows], T, card)
-    args = (x, mask, rn(c_out, c_in, 3) / math.sqrt(3 * c_in), rn(c_out),
-            1 + 0.1 * rn(c_out, 1), 0.1 * rn(c_out, 1))
-    plans = [p for _, p in fused_conv.conv3_bf16_plans(
-        rows, T, c_in, c_out, cuda.sm_count(card))
-        if (p.tiling, p.resident) == (tiling, resident)]
-    with cuda.plain_versions():
-        want = ops.conv3_ln_act(*args).float()
-    for plan in (plans[0], plans[-1]):    # the widest and narrowest tiles
-        got = fused_conv.launch_conv3_ln_act_bf16(*args, "relu", 1e-5, plan)
-        torch.cuda.synchronize()
-        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
-        err = ((got.float() - want).abs() / want.abs().clamp_min(1.0)).max()
-        assert float(err) <= TOL_BF16, plan
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile", [16, 64, 128])
 @pytest.mark.parametrize("T,how", [(2304, "as_is"), (301, "offset"), (36, "as_is")])
