@@ -23,7 +23,9 @@ Phases, each printing one JSON line:
            version and, for band attention, SDPA in bf16 (bounds at 2 bytes
            per activation element, conv3's products at the dense bf16 rate),
            each served level beside the f32 kernel's time;
-           (after the http phase) the bf16 compute mode, tpu.compute_dtype
+  card_tests (after it) the bf16 autograd card cases of
+           tests/test_torch_kernels.py through pytest in a subprocess;
+  bf16     (after the http phase) the bf16 compute mode, tpu.compute_dtype
            bfloat16: GroundingService with the serve phase's weights on 8
            videos x 8 queries at T = 2304 (44 / 7 / 1 launches of the bf16
            kernels per decode call and none of the f32 ones; logits2 and
@@ -81,7 +83,17 @@ Phases, each printing one JSON line:
            policy's peak memory and step wall times; then ("leg":
            "remat_mad") one step of the mad task (configs/mad.yaml) at
            T = 32768, 4 synthetic movies x 2 queries = 8 rows in one
-           microbatch, remat off and "nothing", with the peak memory of each;
+           microbatch, remat off and "nothing", with the peak memory of each,
+           and ("leg": "remat_mad_bf16") the same in bf16. Its bf16 leg
+           ("leg": "bf16") runs the train CLI's entry point again with
+           --set tpu.compute_dtype bfloat16: 44 / 7 / 1 launches of the bf16
+           kernels per forward microbatch and per eval decode call (the
+           train-time eval runs in bf16) and none of the f32 kernels, finite
+           losses and f32 weights that move from step 2, each op's bf16
+           backward against plain autograd, one microbatch's loss and
+           gradients against the plain versions in bf16 by the relative-L2
+           rule at the bf16 noise floor (beside the f32 distance), and the
+           step walls, busy share and peak memory beside the f32 run's;
   variants every other architecture of make_model at the Ego4D-NLQ width,
            full depth, seeded random weights: iter2 (second fusion), early
            and early2 (early fusion, one classification head), default (late
@@ -109,9 +121,17 @@ Phases, each printing one JSON line:
            decode call and the ground step against the plain versions; times
            the H2D copy, the transform, each stage, the encode+ground wall
            (video-seconds per second) and the reference's offline structure
-           (the expert over all clips), and reports the peak memory. Then
-           the encode CLI over two synthetic frame files (~100 clips at
-           224^2) and the port's Evaluator over the features it wrote;
+           (the expert over all clips), profiles one encode+ground (busy
+           share, top device kernels), and reports the peak memory. Its
+           bf16 leg ("leg": "bf16") runs the sidekick with dtype bf16 and
+           the ViT on bf16 frames, grounding with the bf16 phase's service:
+           the selected clips against the f32 leg's (differences only in
+           bins tied within the bf16 shift of the saliency), the features
+           against the f32 leg's, 44 / 7 / 1 bf16 launches per decode call,
+           ms per expert clip, the encode+ground wall, video-seconds per
+           second and peak memory beside f32. Then the encode CLI over two
+           synthetic frame files (~100 clips at 224^2) and the port's
+           Evaluator over the features it wrote;
   multi    data parallelism, each leg launched by ``python -m
            torch.distributed.run --standalone --nproc_per_node N`` in a
            subprocess, killed with its ranks at a timeout; every rank runs
@@ -135,7 +155,8 @@ Phases, each printing one JSON line:
 Then one {"kernels": [...]} line (the three f32 kernels with their launches
 summed over the serve, eval, http, train, remat, variants, encode, encode
 CLI and multi paths, and the three bf16 variants with theirs over the bf16
-phase's serve, eval and http paths, each with the breakdown; the bf16
+phase's serve, eval and http paths, the bf16 train, MAD remat and encode
+legs, each with the breakdown; the bf16
 records also carry ptxas's registers, spills and shared memory of their
 kernels, conv3's HMMA count, and the f32 kernel's time), the nvidia-smi
 name/power-limit line, and last {"ok": true, "device": {...}}. Any failed check raises: the
@@ -144,6 +165,7 @@ script exits non-zero and prints no result. Without CUDA it exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1087,6 +1109,31 @@ def run_bf16_kernels(dev, rec32):
     return rec
 
 
+# the card test step: the bf16 autograd cases of the kernel tests
+CARD_TESTS = ("tests/test_torch_kernels.py", "bf16_autograd", 9)
+CARD_TESTS_TIMEOUT_S = 600
+
+
+def run_card_tests():
+    """``python -m pytest --noconftest`` over the card cases of
+    tests/test_torch_kernels.py that CARD_TESTS selects (each op's bf16
+    forward and backward under autograd against plain bf16 autograd), in a
+    subprocess killed at CARD_TESTS_TIMEOUT_S; all of them must pass."""
+    path, select, count = CARD_TESTS
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-q",
+                           "-p", "no:cacheprovider", path, "-k", select],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=CARD_TESTS_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    passed = re.search(r"(\d+) passed", lines[-1] if lines else "")
+    emit({"phase": "card_tests", "tests": f"{path} -k {select}", "rc": proc.returncode,
+          "summary": lines[-1] if lines else proc.stderr[-2000:],
+          "seconds": time.perf_counter() - t0})
+    assert proc.returncode == 0 and passed and int(passed.group(1)) == count, (
+        proc.stdout[-4000:], proc.stderr[-2000:])
+
+
 def floor_rule(kern16, plain16, f32):
     """The bf16 noise-floor rule on flattened outputs: (mean, max) of
     |kernels - plain| in bf16 against those of |plain bf16 - f32 kernels|."""
@@ -1122,7 +1169,7 @@ def run_bf16(dev, service32, logdir, eval_base, requests):
     entry point over the eval phase's 12 videos (launches; R@k count flips
     and top-1 agreement against the f32 run, printed, not gated: with random
     weights the scores are near flat); one /ground over HTTP. Returns the
-    bf16 kernel launches of those paths."""
+    bf16 kernel launches of those paths and the bf16 service."""
     from http.server import ThreadingHTTPServer
 
     from decafnet_tpu_torch import ops
@@ -1269,7 +1316,7 @@ def run_bf16(dev, service32, logdir, eval_base, requests):
           "seconds": time.perf_counter() - t_phase})
     assert calls > 0 and http_launches == want, (http_launches, want)
     return {"bf16_serve": launches, "bf16_eval": eval_launches,
-            "bf16_http": http_launches}
+            "bf16_http": http_launches}, service
 
 
 # ----------------------------------------------------------------- variants
@@ -1559,19 +1606,24 @@ def grads_rel_l2(got, want, top=4):
                                 for r, n in leaves[:top]]
 
 
-def op_backward_check(dev, rows=32):
+def op_backward_check(dev, rows=32, dtype=torch.float32):
     """Each kernel op under autograd at the level-0 train shape (32 rows,
-    T = 2304): the forward launches the kernel once and the backward
-    launches nothing; its gradients, given the same output gradient, equal
-    those of autograd through the plain version (cuDNN's deterministic
-    algorithms), max |diff| within OP_GRAD_RTOL of the largest |g|."""
+    T = 2304), activations in ``dtype`` (f32 parameters, as training runs
+    them): the forward launches the kernel of that dtype once and the
+    backward launches nothing; its gradients, given the same output
+    gradient, equal those of autograd through the plain version (cuDNN's
+    deterministic algorithms), max |diff| within OP_GRAD_RTOL of the
+    largest |g|."""
     from decafnet_tpu_torch import ops
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     lens = [VIDEO_LENS[i % len(VIDEO_LENS)] for i in range(rows)]
-    cases = {"conv3_ln_act": conv3_case(dev, g, rows, EMBD + RDIM, T0, lens),
-             "qkv_depthwise_ln": trio_case(dev, g, rows, EMBD, T0, lens),
-             "band_attention": band_case(dev, g, rows, T0, lens)}
+    cases = {"conv3_ln_act": conv3_case(dev, g, rows, EMBD + RDIM, T0, lens,
+                                        dtype=dtype),
+             "qkv_depthwise_ln": trio_case(dev, g, rows, EMBD, T0, lens,
+                                           dtype=dtype),
+             "band_attention": band_case(dev, g, rows, T0, lens, dtype=dtype)}
+    count = "launches_bf16" if dtype == torch.bfloat16 else "launches"
 
     def leaf(a):
         if isinstance(a, list):
@@ -1596,27 +1648,30 @@ def op_backward_check(dev, rows=32):
             runs = []
             for fn in (op, plain):
                 leaves = [leaf(a) for a in args]
-                before = op.launches
+                ops.reset_launch_counts()
                 outs = fn(*leaves, **kw)
                 outs = outs if isinstance(outs, tuple) else (outs,)
-                fwd = op.launches - before
+                fwd = getattr(op, count)
                 gen = torch.Generator(device=dev).manual_seed(1)
                 torch.autograd.backward(outs, [torch.randn(
-                    o.shape, generator=gen, device=dev) for o in outs])
-                runs.append(((fwd, op.launches - before - fwd), grads(leaves)))
+                    o.shape, generator=gen, device=dev).to(o.dtype) for o in outs])
+                other = op.launches + op.launches_bf16 - getattr(op, count)
+                runs.append(((fwd, getattr(op, count) - fwd, other), grads(leaves)))
             (launched, got), (plain_launched, want) = runs
             err = max(float((a - b).abs().max()) / float(b.abs().max())
                       for a, b in zip(got, want, strict=True))
-            report[name] = {"launches_forward_backward": launched,
+            report[name] = {"launches_forward_backward_otherdtype": launched,
+                            "grad_dtypes": sorted({str(a.dtype) for a in got}),
                             "max_rel_diff": err}
-            assert launched == (1, 0) and plain_launched == (0, 0), (
+            assert launched == (1, 0, 0) and plain_launched == (0, 0, 0), (
                 name, launched, plain_launched)
+            assert all(a.dtype == b.dtype for a, b in zip(got, want)), name
             assert err <= OP_GRAD_RTOL, (name, err)
     finally:
         torch.backends.cudnn.deterministic = False
     emit({"phase": "train", "check": "each op's backward vs autograd of its "
-          "plain version, 32 rows at T=2304", "ops": report,
-          "tol_rel": OP_GRAD_RTOL})
+          "plain version, 32 rows at T=2304", "dtype": str(dtype),
+          "ops": report, "tol_rel": OP_GRAD_RTOL})
 
 
 def profile_step(step_fn, batch, top=12):
@@ -1657,10 +1712,7 @@ def run_train(root, cfg_file):
     from decafnet_tpu_torch.train.__main__ import build_trainer, train
     from decafnet_tpu_torch.train.trainer import _to_device
 
-    argv = ["--cfg", os.path.join(REPO, "configs", "ego4d_nlq.yaml"), cfg_file,
-            "--set", "log.root", os.path.join(root, "log"), "seed", str(SEED),
-            "train.epochs", "1", "train.warmup_epochs", "1",
-            "aux.eval_run", "1", "aux.log_interval", "1"]
+    argv = train_phase_argv(root, cfg_file, "log")
     t0 = time.perf_counter()
     trainer = build_trainer(argv)
     cfg, model = trainer.cfg, trainer.model
@@ -1803,13 +1855,14 @@ def run_train(root, cfg_file):
 
     kernel_ms, plain_ms = step_ms(False), step_ms(True)
     prof = profile_step(probe.step_fn, batch)
+    timing = {"run_step_ms": [r["ms"] for r in probe.records],
+              "median_run_step_ms": float(np.median([r["ms"] for r in probe.records])),
+              "kernels_step_ms": kernel_ms, "median_kernels_step_ms":
+              float(np.median(kernel_ms)), "plain_step_ms": plain_ms,
+              "median_plain_step_ms": float(np.median(plain_ms)),
+              "peak_mem_gb": peak_gb, "profile": prof}
     emit({"phase": "train", "timing": "one step of 16 videos x 2 queries at "
-          "2304 clips", "run_step_ms": [r["ms"] for r in probe.records],
-          "median_run_step_ms": float(np.median([r["ms"] for r in probe.records])),
-          "kernels_step_ms": kernel_ms, "median_kernels_step_ms":
-          float(np.median(kernel_ms)), "plain_step_ms": plain_ms,
-          "median_plain_step_ms": float(np.median(plain_ms)),
-          "peak_mem_gb": peak_gb, "profile": prof})
+          "2304 clips", **timing})
 
     # dropout off: two microbatches of 8 give the gradients of one of 16,
     # elementwise at rtol 1e-3 + 1e-4 of each leaf's max. In f64 through
@@ -1834,6 +1887,179 @@ def run_train(root, cfg_file):
           "worst_leaves": top,
           "f32_worst_over_tol": grads_close(grads_f32_2, grads_f32_1)[0]})
     assert abs(loss_2 - loss_1) <= LOSS_RTOL_TRAIN * abs(loss_1) and worst <= 1.0
+    f32 = {"peak_mem_gb": peak_gb, "median_run_step_ms": timing["median_run_step_ms"],
+           "median_kernels_step_ms": timing["median_kernels_step_ms"],
+           "device_busy_ms": prof["device_busy_ms"], "busy_share": prof["busy_share"],
+           "kernels_vs_plain_rel_l2_all": rel_all, "run_s": run_s}
+    return launches, f32
+
+
+def train_phase_argv(root, cfg_file, log):
+    """The train phase's CLI arguments: configs/ego4d_nlq.yaml plus the
+    synthetic data file, logs under ``root/log``, two epochs (one in
+    warmup), train-time eval after each."""
+    return ["--cfg", os.path.join(REPO, "configs", "ego4d_nlq.yaml"), cfg_file,
+            "--set", "log.root", os.path.join(root, log), "seed", str(SEED),
+            "train.epochs", "1", "train.warmup_epochs", "1",
+            "aux.eval_run", "1", "aux.log_interval", "1"]
+
+
+def run_train_bf16(root, cfg_file, f32):
+    """The train phase in bf16: the train CLI's entry point (``build_trainer``
+    + ``train``) with ``--set tpu.compute_dtype bfloat16`` at the same shape
+    (16 videos x 2 queries per step, T = 2304, two epochs, train-time eval
+    of the EMA, also in bf16). Checks 44 / 7 / 1 launches of the bf16
+    kernels per forward microbatch and per eval decode call and none of the
+    f32 kernels (so none from the backward), finite losses and weights
+    (f32), the weights moving from step 2, the checkpoint files, each op's
+    bf16 backward against plain autograd; one microbatch's loss and
+    gradients, kernels vs plain versions in bf16 with the same dropout
+    masks, by the relative-L2 rule at the bf16 noise floor (BF16_MEAN_X
+    times the distance of the plain versions in bf16 from the same weights
+    in f32, and at least the f32 rule's limits), with the f32 distance of
+    kernels vs plain versions beside it; step walls, busy share and peak
+    memory beside the f32 run's ``f32``. Returns the bf16 kernel launches
+    of the train run."""
+    import gc
+
+    from decafnet_tpu_torch import ops
+    from decafnet_tpu_torch.ops import cuda
+    from decafnet_tpu_torch.train.__main__ import build_trainer, train
+    from decafnet_tpu_torch.train.trainer import _to_device
+
+    bf = torch.bfloat16
+    argv = train_phase_argv(root, cfg_file, "log_bf16") + ["tpu.compute_dtype", "bfloat16"]
+    t0 = time.perf_counter()
+    trainer = build_trainer(argv)
+    cfg, model = trainer.cfg, trainer.model
+    assert trainer.device.type == "cuda" and model.compute_dtype == bf
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    n_micro = max(cfg.train.batch_size // trainer.micro, 1)
+    setup_s = time.perf_counter() - t0
+
+    # the main path: counts to 0 just before, read just after
+    probe = StepProbe(trainer)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    train(trainer)
+    run_s = time.perf_counter() - t0
+    launches, launches_f32 = ops.launch_counts(bf), ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps, evals = trainer.step, trainer.evaluator.decoder.decode_calls
+    want = {n: c * (steps * n_micro + evals) for n, c in PER_DECODE.items()}
+    logdir = cfg.aux.logdir
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    emit({"phase": "train", "leg": "bf16", "argv": argv, "setup_s": setup_s,
+          "run_s": run_s, "steps": steps, "forward_microbatches": steps * n_micro,
+          "eval_decode_calls": evals, "launches_bf16": launches,
+          "launches_f32": launches_f32, "expected": want,
+          "per_step": probe.records, "logged": logged, "peak_mem_gb": peak_gb})
+    assert steps == trainer.num_epochs * trainer.itrs_per_epoch >= 4, steps
+    assert launches == want and not any(launches_f32.values()), (launches, launches_f32)
+    assert trainer.evaluator.model.compute_dtype == bf
+    assert all(np.isfinite([r[k] for k in ("cls", "reg", "total")]).all()
+               for r in probe.records)
+    assert all(np.isfinite(r[f"train/{k}"]) for r in logged
+               for k in ("cls", "reg", "total")) and len(logged) == steps
+    assert probe.records[0]["lr"] == 0.0 and probe.records[0]["max_weight_change"] == 0.0
+    assert probe.records[1]["max_weight_change"] > 0.0
+    for module in (model, trainer.ema):
+        assert all(p.dtype == torch.float32 and torch.isfinite(p).all()
+                   for p in module.parameters())
+    assert trainer.loss_norm.dtype == torch.float32
+    assert all(m.dtype == torch.float32 for v in trainer.optimizer.state.values()
+               for m in v)
+    for rel in ("opt.yaml", "finished", "models/last.pth", "states/last.pt"):
+        assert os.path.exists(os.path.join(logdir, rel)), rel
+
+    op_backward_check(trainer.device, dtype=bf)
+
+    # one microbatch's loss and gradients with the same dropout masks:
+    # kernels and plain versions in bf16, then the same weights in f32 (the
+    # model's compute dtype switched off) through both
+    trainer.loader.set_epoch(0)
+    batch = _to_device(trainer.loader.transform(
+        [trainer.dataset[i] for i in range(cfg.train.batch_size)]), trainer.device)
+
+    def loss_and_grads(plain, dtype):
+        model.compute_dtype = dtype
+        trainer.generator.manual_seed(SEED)
+        try:
+            with cuda.plain_versions() if plain else contextlib.nullcontext():
+                out = trainer.accumulate(batch)
+        finally:
+            model.compute_dtype = bf
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        assert all(g.dtype == torch.float32 for g in grads.values())
+        return float(out["total"]), grads
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        (loss_k, grads_k), (loss_p, grads_p) = (loss_and_grads(False, bf),
+                                                loss_and_grads(True, bf))
+        (loss_k32, grads_k32), (loss_p32, grads_p32) = (loss_and_grads(False, None),
+                                                        loss_and_grads(True, None))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # leaves noise-sized in the f32 run (the attention key biases, whose
+    # exact gradient is 0) carry bf16 rounding noise only: skipped per leaf
+    live = {n for n, g in grads_p32.items() if float(g.abs().max()) > 1e-8}
+    rel_all, _ = grads_rel_l2(grads_k, grads_p)
+    floor_all, _ = grads_rel_l2(grads_p, grads_p32)
+    leaves = []
+    for n in sorted(live):
+        a, b, c = grads_k[n], grads_p[n], grads_p32[n]
+        leaves.append((float((a - b).norm() / b.norm()), float((b - c).norm() / c.norm()), n))
+    leaves.sort(reverse=True)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    loss_floor = abs(loss_p - loss_p32) / abs(loss_p32)
+    lim_all = max(GRAD_REL_L2_ALL, BF16_MEAN_X * floor_all)
+    lim_loss = max(LOSS_RTOL_TRAIN, BF16_MEAN_X * loss_floor)
+    over_leaf = [(r, f, n) for r, f, n in leaves
+                 if r > max(GRAD_REL_L2_LEAF, BF16_MEAN_X * f)]
+    emit({"phase": "train", "leg": "bf16", "check": "one microbatch of 16 videos, "
+          "kernels vs plain versions in bf16, same dropout masks",
+          "loss": {"kernels_bf16": loss_k, "plain_bf16": loss_p,
+                   "kernels_f32": loss_k32, "plain_f32": loss_p32},
+          "loss_rel": loss_rel, "loss_floor_bf16_vs_f32": loss_floor,
+          "rel_l2_all": rel_all, "floor_rel_l2_all_bf16_vs_f32": floor_all,
+          "f32_kernels_vs_plain_rel_l2_all": grads_rel_l2(grads_k32, grads_p32)[0],
+          "f32_leg_kernels_vs_plain_rel_l2_all": f32["kernels_vs_plain_rel_l2_all"],
+          "worst_leaves": [{"leaf": n, "rel_l2": r, "floor": f}
+                           for r, f, n in leaves[:4]],
+          "leaves": len(live), "noise_sized_skipped": len(grads_p32) - len(live),
+          "tol": {"loss": lim_loss, "rel_l2_all": lim_all,
+                  "rel_l2_leaf": f"max({GRAD_REL_L2_LEAF}, {BF16_MEAN_X} x floor)"}})
+    assert loss_rel <= lim_loss, (loss_rel, lim_loss)
+    assert rel_all <= lim_all, (rel_all, lim_all)
+    assert not over_leaf, over_leaf[:4]
+
+    def step_ms(plain, n=3):
+        out = []
+        for _ in range(n):
+            with cuda.plain_versions() if plain else contextlib.nullcontext():
+                out.append(synced_ms(lambda: probe.step_fn(batch))[0])
+        return out
+
+    kernel_ms, plain_ms = step_ms(False), step_ms(True)
+    prof = profile_step(probe.step_fn, batch)
+    run_ms = [r["ms"] for r in probe.records]
+    emit({"phase": "train", "leg": "bf16", "timing": "one step of 16 videos x 2 "
+          "queries at 2304 clips, bf16 beside f32", "run_step_ms": run_ms,
+          "median_run_step_ms": float(np.median(run_ms)),
+          "kernels_step_ms": kernel_ms, "median_kernels_step_ms": float(np.median(kernel_ms)),
+          "plain_step_ms": plain_ms, "median_plain_step_ms": float(np.median(plain_ms)),
+          "peak_mem_gb": peak_gb, "profile": prof, "f32": f32,
+          "peak_vs_f32": peak_gb / f32["peak_mem_gb"],
+          "busy_vs_f32": prof["device_busy_ms"] / f32["device_busy_ms"]})
+    # the probe and the trainer refer to each other: free them here, so
+    # the remat leg's peaks count what they counted before this leg
+    del trainer, model, probe, batch
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1874,15 +2100,17 @@ def write_mad_data(root):
     return path
 
 
-def remat_runs(argv, tag, policies, compare):
+def remat_runs(argv, tag, policies, compare, dtype=torch.float32):
     """For each remat policy (None: off), a Trainer from the train CLI's
     ``build_trainer(argv + remat settings)`` (the same seeded weights), one
     batch of the first Trainer's data, and: the microbatch losses and
     gradients of ``accumulate`` with the generator at the seed (cuDNN's
     deterministic algorithms), its peak memory above what was allocated
-    before it and the kernel launches per forward microbatch; then
-    ``train_step`` three times, timed. Returns ({policy: record}, the
-    launches of every run, the gradients of each policy when ``compare``)."""
+    before it and the launches per forward microbatch of the kernels for
+    ``dtype`` activations (``argv`` sets the compute dtype; none of the
+    other dtype's kernels may launch); then ``train_step`` three times,
+    timed. Returns ({policy: record}, the launches of every run, the
+    gradients of each policy when ``compare``)."""
     import gc
 
     from decafnet_tpu_torch import ops
@@ -1905,6 +2133,8 @@ def remat_runs(argv, tag, policies, compare):
                 [trainer.dataset[i] for i in range(cfg.train.batch_size)]),
                 trainer.device)
         trainer.generator.manual_seed(SEED)
+        other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+        assert trainer.model.compute_dtype == (dtype if dtype == torch.bfloat16 else None)
         torch.cuda.synchronize()
         base_gb = torch.cuda.memory_allocated() / 2 ** 30
         torch.cuda.reset_peak_memory_stats()
@@ -1915,20 +2145,21 @@ def remat_runs(argv, tag, policies, compare):
         finally:
             torch.backends.cudnn.deterministic = False
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        counts = ops.launch_counts()
+        counts = ops.launch_counts(dtype)
         if compare:
             grads[label] = {n: p.grad.detach().clone() for n, p in
                             trainer.model.named_parameters() if p.grad is not None}
         torch.cuda.reset_peak_memory_stats()
-        before = ops.launch_counts()
+        before = ops.launch_counts(dtype)
         step_ms = [synced_ms(lambda: trainer.train_step(batch))[0]
                    for _ in range(3)]
         step_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-        after = ops.launch_counts()
+        after = ops.launch_counts(dtype)
         per = PER_FORWARD["remat" if policy else "iter"]
         assert counts == {n: n_micro * c for n, c in per.items()}, (label, counts)
         assert {n: after[n] - before[n] for n in after} == {
             n: 3 * n_micro * c for n, c in per.items()}, (label, before, after)
+        assert not any(ops.launch_counts(other).values()), (label, "other dtype")
         launches = {n: launches[n] + after[n] for n in launches}
         records[label] = {
             "loss": float(metrics["total"]), "cls": float(metrics["cls"]),
@@ -1955,8 +2186,9 @@ def run_remat(root, cfg_file):
     relative L2 rule of the unwrapped step, peak memory and step wall time
     of each, launches 44 / 14 / 2 per forward microbatch with remat. Then
     one step of the mad task at T = 32768 (8 rows in one microbatch), remat
-    off and "nothing": peak memory of each. Returns the kernel launches of
-    both legs."""
+    off and "nothing": peak memory of each, in f32 and then in bf16. Returns
+    the f32 kernel launches of the f32 legs and the bf16 kernel launches of
+    the bf16 MAD leg."""
     argv = ["--cfg", os.path.join(REPO, "configs", "ego4d_nlq.yaml"), cfg_file,
             "--set", "seed", str(SEED), "aux.eval_run", "0"]
     records, launches, grads = remat_runs(argv, os.path.join(root, "remat"),
@@ -1989,7 +2221,19 @@ def run_remat(root, cfg_file):
           f"x 2 queries = 8 rows at T={MAD_T}, one microbatch, configs/mad.yaml",
           "runs": mad})
     assert mad["off"]["T"] == MAD_T and mad["off"]["rows"] == 2 * MAD_VIDEOS
-    return {n: launches[n] + mad_launches[n] for n in launches}
+
+    # the same step in bf16 (tpu.compute_dtype bfloat16), remat off and on
+    mad16, mad16_launches, _ = remat_runs(
+        argv + ["tpu.compute_dtype", "bfloat16"], os.path.join(root, "remat_mad_bf16"),
+        (None, "nothing"), compare=False, dtype=torch.bfloat16)
+    for label, r in mad16.items():
+        r["peak_vs_f32"] = r["peak_gb"] / mad[label]["peak_gb"]
+    emit({"phase": "train", "leg": "remat_mad_bf16", "shape": f"{MAD_VIDEOS} movies "
+          f"x 2 queries = 8 rows at T={MAD_T}, one microbatch, configs/mad.yaml, "
+          "tpu.compute_dtype bfloat16", "runs": mad16,
+          "f32_peak_gb": {label: r["peak_gb"] for label, r in mad.items()}})
+    assert mad16["off"]["T"] == MAD_T and mad16["off"]["rows"] == 2 * MAD_VIDEOS
+    return {n: launches[n] + mad_launches[n] for n in launches}, mad16_launches
 
 
 # ------------------------------------------------------------------- encode
@@ -2096,7 +2340,7 @@ def run_encode_cli(dev, root, smi):
     return launches
 
 
-def run_encode(dev, service, smi, root):
+def run_encode(dev, service, smi, root, service16):
     """The on-device front end at full width: raw frames through the eval
     transform on the card, the sidekick over every clip, salient-clip
     selection, the EgoVLP ViT-B over the k selected clips only, then
@@ -2104,8 +2348,10 @@ def run_encode(dev, service, smi, root):
     queries. Checks the card's features against the CPU's, delegated
     against encode-all-then-gate, the detections and the kernel launches;
     times the stages, the encode+ground wall and the reference's offline
-    structure (the expert over every clip). Returns the kernel launches of
-    the counted encode+ground run and of the CLI run."""
+    structure (the expert over every clip). Then the same front end in bf16
+    (:func:`run_encode_bf16`, grounding with ``service16``). Returns the
+    kernel launches of the counted encode+ground run, of the CLI run and the
+    bf16 kernel launches of the bf16 encode+ground run."""
     import copy
 
     from decafnet_tpu_torch import ops
@@ -2229,20 +2475,149 @@ def run_encode(dev, service, smi, root):
                      service.decoder.cfg.nms.max_num_segs)
     med = float(np.median(walls))
     video_s = ENC_T * CLIP_STRIDE_S
-    emit({"phase": "encode", "encode_ground_wall_ms": walls,
-          "video_seconds_per_s": video_s / (med / 1e3),
-          "video_seconds": video_s,
-          "stages_ms": {"sidekick_all_clips": sk_ms, "select": sel_ms,
-                        "gather_k_clips": gather_ms, "expert_k_clips": ex_ms,
-                        "ground_8_queries": ground_ms},
-          "ms_per_clip": {"sidekick": float(np.median(sk_ms)) / ENC_T,
-                          "expert": float(np.median(ex_ms)) / k},
-          "offline_expert_all_clips_wall_ms": offline_ms,
-          "offline_over_delegated": float(np.median(offline_ms)) / med,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+    f32 = {"encode_ground_wall_ms": walls,
+           "video_seconds_per_s": video_s / (med / 1e3),
+           "video_seconds": video_s,
+           "stages_ms": {"sidekick_all_clips": sk_ms, "select": sel_ms,
+                         "gather_k_clips": gather_ms, "expert_k_clips": ex_ms,
+                         "ground_8_queries": ground_ms},
+           "ms_per_clip": {"sidekick": float(np.median(sk_ms)) / ENC_T,
+                           "expert": float(np.median(ex_ms)) / k},
+           "offline_expert_all_clips_wall_ms": offline_ms,
+           "offline_over_delegated": float(np.median(offline_ms)) / med,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "profile": profile_step(lambda _: encode_and_ground(), None)}
+    emit({"phase": "encode", **f32, "card": smi})
+    del clips
+    launches16 = run_encode_bf16(
+        dev, service16, smi, run_e, sidekick_cpu, frames_e, frames_s, text_cls,
+        request, f32, sidekick, streams["vid"])
+    del frames_e, frames_s
+    return launches, run_encode_cli(dev, root, smi), launches16
+
+
+def saliency_bins(sidekick, text_cls, sn):
+    """Per-bin means of the sidekick / query-CLS correlation (the scores
+    delegation ranks) of a (C, T) stream, T a multiple of ``sn``."""
+    from decafnet_tpu_torch.ops.delegation import saliency_correlation
+
+    correl = saliency_correlation(sidekick[None].float(), text_cls[None].float())[0]
+    return correl.reshape(-1, sn).mean(dim=1)
+
+
+def run_encode_bf16(dev, service16, smi, run_e, sidekick_cpu, frames_e, frames_s,
+                    text_cls, request, f32, sidekick32, expert32):
+    """The encode phase in bf16 at the same width: the factorized sidekick
+    with ``dtype`` bf16 (its output f32) and the ViT on the frames rounded
+    to bf16 (a bf16 ViT), then the bf16 GroundingService of the bf16 phase.
+    Checks the selected clips against the f32 leg's (they may differ only
+    in bins whose f32 saliency lies within twice the largest bf16-vs-f32
+    bin-score shift of the selection boundary; the differing indices are
+    counted), prints the features against the f32 leg's (|diff| / max(1,
+    |f32|)), the launches of the bf16 kernels per decode call (none of the
+    f32 ones), the detections; times the expert per clip, the
+    encode+ground wall and video-seconds per second beside the f32 leg's
+    ``f32``, the peak memory and a profile of one encode+ground (busy share,
+    top device kernels). Returns the bf16 kernel launches of the counted
+    encode+ground run."""
+    import copy
+
+    from decafnet_tpu_torch import ops
+    from decafnet_tpu_torch.encode import (ClipEncoderRunner, encode_delegate_ground,
+                                           expert_budget, select_salient_clips)
+
+    bf = torch.bfloat16
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk16 = copy.deepcopy(sidekick_cpu)
+    sk16.dtype = bf
+    run_s16 = ClipEncoderRunner(sk16.to(dev))
+    frames_e16, frames_s16 = frames_e.to(bf), frames_s.to(bf)
+    k = expert_budget(ENC_T, ENC_SN, ENC_RATIO)
+
+    def encode_and_ground():
+        expert, sidekick, weight = encode_delegate_ground(
+            run_e, run_s16, frames_e16, frames_s16, text_cls[0], ENC_SN, ENC_RATIO)
+        streams = dict(vid=expert.cpu().numpy(), shallow_vid=sidekick.cpu().numpy(),
+                       **request)
+        return service16.ground(**streams), streams, weight
+
+    encode_and_ground()      # warm-up outside the count
+    # the main path in bf16: counts to 0 just before, read just after
+    dec = service16.decoder
+    calls0 = dec.decode_calls
+    ops.reset_launch_counts()
+    walls, (answers, streams, weight) = walls_ms(encode_and_ground, 3)
+    launches, launches_f32 = ops.launch_counts(bf), ops.launch_counts()
+    calls = dec.decode_calls - calls0
+    want = {n: c * calls for n, c in PER_DECODE.items()}
+    emit({"phase": "encode", "leg": "bf16", "decode_calls": calls,
+          "launches_bf16": launches, "launches_f32": launches_f32,
+          "expected": want, "selected_clips": int(weight.sum())})
+    assert launches == want and calls > 0 and not any(launches_f32.values()), (
+        launches, launches_f32)
+    check_detections(answers, dict(request, vid=np.zeros((256, ENC_T))),
+                     dec.cfg.nms.max_num_segs)
+
+    # the selection and the features against the f32 leg
+    sidekick16 = torch.from_numpy(streams["shallow_vid"]).to(dev)
+    tc = text_cls[0].to(dev)
+    idx32, w32 = select_salient_clips(sidekick32, tc, ENC_SN, ENC_RATIO, k)
+    idx16, w16 = select_salient_clips(sidekick16, tc, ENC_SN, ENC_RATIO, k)
+    s32, s16 = saliency_bins(sidekick32, tc, ENC_SN), saliency_bins(sidekick16, tc, ENC_SN)
+    shift = float((s16 - s32).abs().max())
+    kept = int(w32.reshape(-1, ENC_SN)[:, 0].sum())
+    top = torch.sort(s32, descending=True).values
+    boundary = float(top[kept - 1] + top[kept]) / 2
+    b32, b16 = w32.reshape(-1, ENC_SN)[:, 0] > 0, w16.reshape(-1, ENC_SN)[:, 0] > 0
+    swapped = torch.nonzero(b32 != b16).flatten()
+    tied = all(abs(float(s32[b]) - boundary) <= 2 * shift for b in swapped.tolist())
+    differing = int((idx16.cpu() != idx32.cpu()).sum())
+    exp16 = torch.from_numpy(streams["vid"])
+    exp32 = torch.from_numpy(expert32)
+    both = (w16 > 0).cpu() & (w32 > 0).cpu()
+
+    def rel(a, b):
+        d = (a - b).abs() / b.abs().clamp_min(1.0)
+        return {"max": float(d.max()), "mean": float(d.mean())}
+
+    emit({"phase": "encode", "leg": "bf16", "check": "selection and features vs "
+          "the f32 leg", "differing_indices": differing,
+          "bins_swapped": swapped.tolist(), "bins_kept": kept,
+          "bf16_bin_score_shift_max": shift, "boundary": boundary,
+          "swapped_bins_f32_distance_to_boundary": [
+              abs(float(s32[b]) - boundary) for b in swapped.tolist()],
+          "sidekick_vs_f32": rel(sidekick16.cpu(), sidekick32.cpu()),
+          "expert_vs_f32_on_clips_selected_in_both": rel(exp16[:, both], exp32[:, both]),
+          "clips_selected_in_both": int(both.sum())})
+    assert tied, (swapped.tolist(), shift, boundary)
+    assert torch.isfinite(exp16).all() and torch.isfinite(sidekick16).all()
+
+    # the stages, each between syncs
+    sk_ms, _ = walls_ms(lambda: run_s16.encode(frames_s16), 3)
+    clips = frames_e16.index_select(0, idx16)
+    ex_ms, feats = walls_ms(lambda: run_e.encode(clips), 3)
+    assert feats.dtype == bf
+    med = float(np.median(walls))
+    f32_med = float(np.median(f32["encode_ground_wall_ms"]))
+    record = {"encode_ground_wall_ms": walls,
+              "video_seconds_per_s": f32["video_seconds"] / (med / 1e3),
+              "stages_ms": {"sidekick_all_clips": sk_ms, "expert_k_clips": ex_ms},
+              "ms_per_clip": {"sidekick": float(np.median(sk_ms)) / ENC_T,
+                              "expert": float(np.median(ex_ms)) / k},
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "profile": profile_step(lambda _: encode_and_ground(), None)}
+    emit({"phase": "encode", "leg": "bf16", **record,
+          "f32": {key: f32[key] for key in ("encode_ground_wall_ms",
+                                            "video_seconds_per_s", "ms_per_clip",
+                                            "peak_mem_gb")},
+          "busy_vs_f32": (record["profile"]["device_busy_ms"]
+                          / f32["profile"]["device_busy_ms"]),
+          "wall_vs_f32": med / f32_med,
+          "expert_ms_per_clip_vs_f32": (record["ms_per_clip"]["expert"]
+                                        / f32["ms_per_clip"]["expert"]),
           "card": smi})
-    del frames_e, frames_s, clips
-    return launches, run_encode_cli(dev, root, smi)
+    return launches
 
 
 # -------------------------------------------------------------------- multi
@@ -2585,9 +2960,12 @@ def main():
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "tf32": [torch.backends.cuda.matmul.allow_tf32,
-                   torch.backends.cudnn.allow_tf32]})
+                   torch.backends.cudnn.allow_tf32],
+          "bf16_reduced_precision_reduction":
+              torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction})
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
 
     t0 = time.perf_counter()
     path, compile_s = cuda.build()
@@ -2604,18 +2982,21 @@ def main():
 
     rec = run_kernels(dev)
     rec16 = run_bf16_kernels(dev, rec)
+    run_card_tests()
     by_path = {}
     by_path["serve"], service, requests = run_serve(dev)
     with tempfile.TemporaryDirectory() as root:
         by_path["eval"], logdir, eval_base = run_eval(root)
         by_path["http"] = run_http(logdir, service, requests)
-        by_path16 = run_bf16(dev, service, logdir, eval_base, requests)
+        by_path16, service16 = run_bf16(dev, service, logdir, eval_base, requests)
         cfg_file = write_train_data(root)
-        by_path["train"] = run_train(root, cfg_file)
-        by_path["remat"] = run_remat(root, cfg_file)
+        by_path["train"], train32 = run_train(root, cfg_file)
+        by_path16["bf16_train"] = run_train_bf16(root, cfg_file, train32)
+        by_path["remat"], by_path16["bf16_remat_mad"] = run_remat(root, cfg_file)
         by_path["variants"] = run_variants(dev, root)
-        by_path["encode"], by_path["encode_cli"] = run_encode(dev, service, smi, root)
-        del service
+        by_path["encode"], by_path["encode_cli"], by_path16["bf16_encode"] = run_encode(
+            dev, service, smi, root, service16)
+        del service, service16
         by_path["multi"] = run_multi(root, cfg_file, logdir, eval_base, smi)
     launches = {n: sum(p[n] for p in by_path.values()) for n in PER_DECODE}
 

@@ -280,10 +280,12 @@ def _base_nms():
 
 def _base_tpu():
     """The JAX package's runtime knobs, kept so its snapshots parse. Of
-    these the port reads ``compute_dtype`` ("auto" and "float32" run f32;
-    "bfloat16" runs the eval and serve paths with bf16 activations and f32
-    parameters and statistics, and the Trainer and the encoders raise on it:
-    ROADMAP items 12b-c), ``remat`` / ``remat_policy``
+    these the port reads ``compute_dtype`` ("auto" and "float32" run f32,
+    "auto" in every mode (bf16 as the card's eval default is ROADMAP item
+    12d); "bfloat16" or "bf16" runs the eval, serve and train paths with
+    bf16 activations and f32 parameters, statistics, losses and optimizer
+    state; the encode stage takes its dtype from the encoder options
+    instead), ``remat`` / ``remat_policy``
     (activation checkpointing of the video encoders in training),
     ``shard_time`` (sequence parallelism, raises: ROADMAP item 11) and
     ``video_major_train``. Data-parallel training needs no key here: it

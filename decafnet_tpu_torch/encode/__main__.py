@@ -16,9 +16,12 @@ W, 3), uint8 or float32 in [0, 1]; each becomes a (num_clips, C) float32
 encoders on the device, a runner's clip cap at a time. With a checkpoint
 the space-time ViT loads an EgoVLP state dict (a factorized encoder loads
 its own state dict); without one the encoder runs seeded synthetic weights
-and says so: such features are well-formed but carry no meaning. Runs on
-the CUDA card unless ``--device`` says otherwise; raises where there is
-none.
+and says so: such features are well-formed but carry no meaning. A
+``"dtype": "bfloat16"`` in ``--expert_opt`` / ``--sidekick_opt`` runs a
+factorized encoder in bf16 (its features are written f32); the space-time
+ViT has no ``dtype`` field and drops it, as ``encode.py`` does, so it runs
+in f32. Runs on the CUDA card unless ``--device`` says otherwise; raises
+where there is none.
 """
 
 from __future__ import annotations
@@ -40,7 +43,9 @@ from .transforms import eval_transform, normalize
 
 
 def build_runner(kind, opt, ckpt, input_res, frames, seed, device):
-    """(runner, weights label) of one encoder on ``device``."""
+    """(runner, weights label) of one encoder on ``device``. ``opt`` keys the
+    encoder does not take are dropped: ``dtype`` reaches the factorized
+    encoder only."""
     fields = {"img_size": input_res, "frames": frames, **opt}
     if kind == "spacetime":
         allowed = set(inspect.signature(SpaceTimeViT).parameters)

@@ -10,6 +10,17 @@ GELU (the expert ``SpaceTimeViT`` uses torch's eps 1e-5 and exact GELU).
 Parameter names are the flax module names, so a flax params tree loads by
 transposing Dense kernels and renaming LayerNorm ``scale``
 (:func:`.import_vit.clip_encoder_params_to_state_dict`).
+
+Compute dtype: ``ClipEncoder(dtype=torch.bfloat16)`` rounds where the flax
+module with ``dtype=jnp.bfloat16`` rounds (decafnet_tpu/encode/encoder.py):
+parameters stay f32 and are cast at each use (:func:`ops.params.cast`);
+each Dense rounds its product to bf16 before adding the bf16 bias; the
+embedding sum is f32 and then rounded, so the residual stream is bf16; the
+LayerNorms take f32 statistics and emit bf16, but the final ``norm`` has no
+dtype in flax and emits f32; attention logits and softmax are f32, the
+weights rounded to v's dtype for the second product; the mean is f32, the
+head a bf16 Dense, the output f32. The helpers :func:`dense` and
+:func:`layer_norm` serve the expert ViT too.
 """
 
 from __future__ import annotations
@@ -22,7 +33,34 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.params import cast
+
 FLAX_LN_EPS = 1e-6
+
+# the compute dtypes an encoder takes (None: f32), by the names the JAX
+# options and the port use
+ENCODER_DTYPES = {None: None, "float32": None, torch.float32: None,
+                  np.float32: None, "bfloat16": torch.bfloat16,
+                  "bf16": torch.bfloat16, torch.bfloat16: torch.bfloat16}
+
+
+def dense(x, layer):
+    """``layer`` (an ``nn.Linear``) applied in x's dtype, as flax's Dense with
+    a ``dtype`` and the JAX ViT's ``TorchLinear`` apply theirs: the f32
+    parameters cast to x's dtype, and below f32 the product rounded to x's
+    dtype before the bias is added (two XLA ops)."""
+    if x.dtype == torch.float32:
+        return F.linear(x, layer.weight, layer.bias)
+    return F.linear(x, cast(layer.weight, x.dtype)) + cast(layer.bias, x.dtype)
+
+
+def layer_norm(x, norm, dtype=None):
+    """``norm`` (an ``nn.LayerNorm``) with f32 statistics and f32 affine,
+    the result in ``dtype`` (default x's dtype): flax's LayerNorm and the JAX
+    ViT's ``TorchLayerNorm`` compute in f32 whatever x's dtype."""
+    y = F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias,
+                     norm.eps)
+    return y.to(dtype or x.dtype)
 
 
 @torch.no_grad()
@@ -56,10 +94,11 @@ class MHA(nn.Module):
         h = self.heads
         d = x.shape[-1] // h
         q, k, v = (t.unflatten(-1, (h, d)).transpose(-2, -3)
-                   for t in self.qkv(x).chunk(3, dim=-1))
-        logits = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(d)
-        out = torch.matmul(torch.softmax(logits, dim=-1), v)
-        return self.proj(out.transpose(-2, -3).flatten(-2))
+                   for t in dense(x, self.qkv).chunk(3, dim=-1))
+        # f32 logits of bf16 q and k (their products are exact in f32)
+        logits = torch.matmul(q.float(), k.float().transpose(-2, -1)) / math.sqrt(d)
+        out = torch.matmul(torch.softmax(logits, dim=-1).to(v.dtype), v)
+        return dense(out.transpose(-2, -3).flatten(-2), self.proj)
 
 
 class Block(nn.Module):
@@ -78,20 +117,26 @@ class Block(nn.Module):
         self.fc2 = nn.Linear(int(dim * mlp_ratio), dim)
 
     def forward(self, x):
-        x = x + self.attn_t(self.norm_t(x).transpose(1, 2)).transpose(1, 2)
-        x = x + self.attn_s(self.norm_s(x))
-        y = F.gelu(self.fc1(self.norm_m(x)), approximate="tanh")
-        return x + self.fc2(y)
+        x = x + self.attn_t(layer_norm(x, self.norm_t).transpose(1, 2)).transpose(1, 2)
+        x = x + self.attn_s(layer_norm(x, self.norm_s))
+        y = F.gelu(dense(layer_norm(x, self.norm_m), self.fc1), approximate="tanh")
+        return x + dense(y, self.fc2)
 
 
 class ClipEncoder(nn.Module):
     """Frames of one clip -> one feature vector: (B, F, H, W, 3) normalized
     frames in, (B, out_dim) f32 out. The patch and frame counts follow the
-    input (``frames`` and ``img_size`` size the embeddings)."""
+    input (``frames`` and ``img_size`` size the embeddings). ``dtype`` is the
+    compute dtype (None: f32, or ``torch.bfloat16``; see the module
+    docstring); the output is f32 either way."""
 
     def __init__(self, patch_size=16, dim=384, depth=6, heads=6, out_dim=256,
-                 frames=4, img_size=224):
+                 frames=4, img_size=224, dtype=None):
         super().__init__()
+        if dtype not in ENCODER_DTYPES:
+            raise ValueError(f"dtype={dtype!r}: the port's encoders compute in "
+                             f"float32 or bfloat16 (bf16)")
+        self.dtype = ENCODER_DTYPES[dtype]
         self.patch_size = patch_size
         self.depth = depth
         n = (img_size // patch_size) ** 2
@@ -111,24 +156,21 @@ class ClipEncoder(nn.Module):
         p = self.patch_size
         assert H % p == 0 and W % p == 0, (H, W, p)
         nh, nw = H // p, W // p
+        # flax's Dense without a dtype computes in the promoted input dtype
+        dt = self.dtype or torch.promote_types(frames.dtype, torch.float32)
         x = frames.reshape(B, Fr, nh, p, nw, p, C).permute(0, 1, 2, 4, 3, 5, 6)
-        x = self.patch_embed(x.reshape(B, Fr, nh * nw, p * p * C))
-        x = x + self.pos_embed + self.time_embed
+        x = dense(x.reshape(B, Fr, nh * nw, p * p * C).to(dt), self.patch_embed)
+        x = (x.float() + self.pos_embed + self.time_embed).to(dt)
         for i in range(self.depth):
             x = getattr(self, f"block{i}")(x)
-        x = self.norm(x).mean(dim=(1, 2))               # frame + patch pooling
-        return self.head(x).float()
+        x = layer_norm(x, self.norm, torch.float32).mean(dim=(1, 2))  # frame + patch pooling
+        return dense(x.to(dt), self.head).float()
 
 
 def make_clip_encoder(opt):
     """``ClipEncoder`` from an options dict (keys it does not take are
-    ignored, as the JAX factory does). The port's encoders compute in f32:
-    a bf16 ``dtype`` raises (the encode stage in bf16 is ROADMAP item
-    12c)."""
-    dtype = opt.get("dtype")
-    if dtype not in (None, "float32", torch.float32, np.float32):
-        raise ValueError(f"dtype={dtype!r}: the port's encoders compute in "
-                         f"f32; a bf16 encode stage is ROADMAP item 12c")
+    ignored, as the JAX factory does). ``dtype`` is f32 (None, "float32") or
+    bf16 ("bfloat16", "bf16", ``torch.bfloat16``); any other raises."""
     fields = set(inspect.signature(ClipEncoder).parameters)
     return ClipEncoder(**{k: v for k, v in opt.items() if k in fields})
 
@@ -149,8 +191,10 @@ class ClipEncoderRunner:
 
     @torch.no_grad()
     def encode(self, frames):
-        """(T, F, H, W, 3) float tensor on any device -> (out_dim, T) f32 on
-        the runner's device."""
+        """(T, F, H, W, 3) float tensor on any device -> (out_dim, T) on the
+        runner's device, in the encoder's output dtype for the frames' dtype
+        (as the JAX runner passes its array through): f32 from a
+        ``ClipEncoder``, bf16 from a ``SpaceTimeViT`` given bf16 frames."""
         feats = [self.encoder(frames[i:i + self.max_clips].to(self.device))
                  for i in range(0, frames.shape[0], self.max_clips)]
         return torch.cat(feats).T.contiguous()

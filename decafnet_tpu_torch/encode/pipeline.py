@@ -49,19 +49,24 @@ def select_salient_clips(sidekick_feats, text_cls, sn, ratio, k, normalize=False
     return order[:k], weight
 
 
-def gather_clips(frames, idx):
-    """frames[idx] along the clip axis, on the frames' device."""
-    return frames.index_select(0, idx.to(frames.device))
+def gather_clips(frames, idx, dtype=None):
+    """frames[idx] along the clip axis, on the frames' device, in ``dtype``
+    (default the frames' dtype; e.g. ``torch.bfloat16`` for a bf16
+    encoder). A one-hot selection picks each value exactly, so the JAX
+    one-hot product in ``dtype`` gives the same array."""
+    return frames.index_select(0, idx.to(frames.device)).to(dtype or frames.dtype)
 
 
 def delegated_encode(expert_runner, idx, weight, frames):
     """Expert-encode only the clips ``idx`` of ``frames`` (T, F, H, W, 3)
-    and scatter them into the dense, weight-gated (out_dim, T) stream on
-    the runner's device. ``idx`` must be unique."""
+    and scatter them into the dense, weight-gated (out_dim, T) f32 stream on
+    the runner's device. ``idx`` must be unique. A bf16 expert output enters
+    the f32 stream exactly, as numpy's promotion of the JAX runner's bf16
+    array by the f32 one-hot scatter gives it."""
     feats_k = expert_runner.encode(gather_clips(frames, idx))    # (C, k)
     weight = weight.to(feats_k.device)
     dense = torch.zeros(feats_k.shape[0], weight.shape[0], device=feats_k.device)
-    dense.index_copy_(1, idx.to(feats_k.device), feats_k)
+    dense.index_copy_(1, idx.to(feats_k.device), feats_k.float())
     return dense * weight[None, :]
 
 

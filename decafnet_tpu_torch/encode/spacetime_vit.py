@@ -21,8 +21,17 @@ layouts, so a Frozen-in-Time / EgoVLP state dict loads with
     q is scaled before the splice;
   * the output is the final-LN CLS token, projected when ``out_dim`` is set.
 
-Attention is ``softmax(q k^T) v`` in f32 through ``torch.matmul``, as the
-JAX package computes it outside any Pallas kernel. Eval only: no dropout.
+Attention is ``softmax(q k^T) v`` through ``torch.matmul``, as the JAX
+package computes it outside any Pallas kernel. Eval only: no dropout.
+
+Compute dtype: the ViT computes in its input's dtype, as the JAX module
+does (it has no dtype field): bf16 frames run it in bf16 and give a bf16
+output. Its f32 parameters are cast to x's dtype at each use
+(:func:`ops.params.cast`; the linears round their product before adding
+the bias, :func:`.encoder.dense`), the LayerNorms take f32 statistics and
+return x's dtype (:func:`.encoder.layer_norm`), the attention logits,
+softmax and weighted sum are f32 and rounded to v's dtype, and the CLS
+token and the embeddings are cast to x's dtype before they are added.
 """
 
 from __future__ import annotations
@@ -31,12 +40,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .encoder import seeded_init
+from ..ops.params import cast
+from .encoder import dense, layer_norm, seeded_init
 
 
 def _attend(q, k, v):
-    """softmax(q k^T) v over the last two axes; ``q`` is pre-scaled."""
-    return torch.matmul(torch.softmax(torch.matmul(q, k.transpose(-2, -1)), dim=-1), v)
+    """softmax(q k^T) v over the last two axes; ``q`` is pre-scaled. The
+    logits are f32 (bf16 q and k are upcast: their products are exact in
+    f32), the softmax is f32, and its weights are rounded to v's dtype for
+    the second product, which accumulates in f32 and rounds to v's dtype."""
+    s = torch.matmul(q.float(), k.float().transpose(-2, -1))
+    return torch.matmul(torch.softmax(s, dim=-1).to(v.dtype), v)
 
 
 class VarAttention(nn.Module):
@@ -57,7 +71,7 @@ class VarAttention(nn.Module):
         h = self.heads
         d = D // h
         q, k, v = (t.reshape(B, N, h, d).transpose(1, 2)
-                   for t in self.qkv(x).chunk(3, dim=-1))      # (B, h, N, d)
+                   for t in dense(x, self.qkv).chunk(3, dim=-1))   # (B, h, N, d)
         q = q * d ** -0.5       # every query, CLS included (F-i-T order)
 
         cls_out = _attend(q[:, :, :1], k, v)                    # (B, h, 1, d)
@@ -74,7 +88,7 @@ class VarAttention(nn.Module):
         if self.group == "time":
             out = out.transpose(2, 3)                           # back to (f, n)
         out = torch.cat([cls_out, out.reshape(B, h, frames * n, d)], dim=2)
-        return self.proj(out.transpose(1, 2).reshape(B, N, D))
+        return dense(out.transpose(1, 2).reshape(B, N, D), self.proj)
 
 
 class Mlp(nn.Module):
@@ -84,7 +98,7 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return dense(F.gelu(dense(x, self.fc1)), self.fc2)
 
 
 class SpaceTimeBlock(nn.Module):
@@ -98,9 +112,9 @@ class SpaceTimeBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x, frames, n):
-        time_residual = x + self.timeattn(self.norm3(x), frames, n)
-        space_residual = x + self.attn(self.norm1(time_residual), frames, n)
-        return space_residual + self.mlp(self.norm2(space_residual))
+        time_residual = x + self.timeattn(layer_norm(x, self.norm3), frames, n)
+        space_residual = x + self.attn(layer_norm(time_residual, self.norm1), frames, n)
+        return space_residual + self.mlp(layer_norm(space_residual, self.norm2))
 
 
 class Conv2dPatchProj(nn.Module):
@@ -113,9 +127,11 @@ class Conv2dPatchProj(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
-        """x: (B, N, p*p*C) unfolded patches in pixel order (ph, pw, c)."""
-        w = self.weight.permute(2, 3, 1, 0).reshape(-1, self.weight.shape[0])
-        return torch.matmul(x, w) + self.bias
+        """x: (B, N, p*p*C) unfolded patches in pixel order (ph, pw, c); the
+        product in x's dtype, rounded before the bias is added."""
+        w = cast(self.weight, x.dtype)
+        w = w.permute(2, 3, 1, 0).reshape(-1, w.shape[0])
+        return torch.matmul(x, w) + cast(self.bias, x.dtype)
 
 
 class PatchEmbed(nn.Module):
@@ -138,8 +154,8 @@ class SpaceTimeViT(nn.Module):
     """Frozen-in-Time SpaceTimeTransformer with EgoVLP's projection.
 
     Input (B, F, H, W, 3) channel-last normalized frames; output (B,
-    out_dim), the projected CLS feature (the raw one when ``out_dim`` is
-    None)."""
+    out_dim) in the frames' dtype, the projected CLS feature (the raw one
+    when ``out_dim`` is None)."""
 
     def __init__(self, img_size=224, patch_size=16, dim=768, depth=12,
                  heads=12, frames=4, mlp_ratio=4.0, out_dim=256):
@@ -164,11 +180,12 @@ class SpaceTimeViT(nn.Module):
         assert Fr == self.frames, (Fr, self.frames)
         n = self.n_patches
         x = self.patch_embed(frames)                              # (B, F*n, D)
-        x = torch.cat([self.cls_token.expand(B, -1, -1), x], dim=1)
-        tile_pos = self.pos_embed[:, 1:].repeat(1, Fr, 1)
-        tile_time = self.temporal_embed.repeat_interleave(n, dim=1)
-        x = x + torch.cat([self.pos_embed[:, :1], tile_pos + tile_time], dim=1)
+        pe, te = cast(self.pos_embed, x.dtype), cast(self.temporal_embed, x.dtype)
+        x = torch.cat([cast(self.cls_token, x.dtype).expand(B, -1, -1), x], dim=1)
+        tile_pos = pe[:, 1:].repeat(1, Fr, 1)
+        tile_time = te.repeat_interleave(n, dim=1)
+        x = x + torch.cat([pe[:, :1], tile_pos + tile_time], dim=1)
         for blk in self.blocks:
             x = blk(x, Fr, n)
-        x = self.norm(x)[:, 0]
-        return self.proj(x) if self.proj is not None else x
+        x = layer_norm(x, self.norm)[:, 0]
+        return dense(x, self.proj) if self.proj is not None else x

@@ -22,7 +22,9 @@ serving forward.
 ``compute_dtype`` (``torch.bfloat16``, or None for f32) is the activations'
 dtype after delegation, which stays f32, as in the JAX models: the video
 and text inputs are cast at entry, the parameters stay f32 and are cast at
-each use (nn/blocks.py), and the outputs come in the compute dtype.
+each use (nn/blocks.py), and the outputs come in the compute dtype. In
+training the casts are differentiable (``ops.params.cast``), so the
+gradients of the f32 parameters come back in f32.
 """
 
 from __future__ import annotations
@@ -353,8 +355,10 @@ def resolve_compute_dtype(cfg):
     ``eval.reference_exact``, and the JAX function gives "bfloat16" only for
     eval and serving on a TPU backend: on any other backend, a GPU included,
     it gives "float32", and so does the port, in every mode (so it takes no
-    ``eval_mode``). Making bf16 the card's eval default waits for its own
-    numerics study on the card (ROADMAP item 12d)."""
+    ``eval_mode``): an explicit "bfloat16" trains, evaluates and serves in
+    bf16, "auto" runs all three in f32. Making bf16 the card's eval default
+    waits for its own numerics study on the card, on checkpoints the bf16
+    trainer can now make there (ROADMAP item 12d)."""
     tpu = cfg.get("tpu") or {}
     value = tpu.get("compute_dtype", "float32")
     return "float32" if value == "auto" else value

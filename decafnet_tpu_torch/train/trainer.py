@@ -17,6 +17,16 @@ global batch), the metrics and the positive-point count are summed before
 the loss-norm EMA, and only the lead rank writes logs, checkpoints and runs
 the train-time eval; the result equals the single-process run's.
 
+Compute dtype: ``tpu.compute_dtype: bfloat16`` (or ``bf16``) trains as the
+JAX package does with an explicit bf16 (``auto`` is f32 for training, as
+the JAX ``resolve_compute_dtype(eval_mode=False)`` gives): bf16 activations,
+f32 master weights cast at each use (:func:`ops.params.cast` takes the
+differentiable ``p.to(bf16)`` under autograd, so every gradient arrives in
+f32), the kernel ops' bf16 kernels in the forward with their backward
+recomputed through the bf16 plain versions, the losses on f32 logits and
+offsets, and the AdamW moments, the EMA and the loss-norm EMA in f32. The
+train-time eval of the EMA runs in bf16 too.
+
 Checkpoints: ``models/{last,<epoch>-<itr>}.pth`` hold ``{model, model_ema}``
 state dicts in the reference layout (what ``load_pth`` and the JAX
 ``load_torch_checkpoint`` read); ``states/last.pt`` holds the optimizer
@@ -41,8 +51,7 @@ from torch.nn.parallel import DistributedDataParallel
 
 from .. import parallel
 from ..data import DataLoader, batchify_train, make_dataset
-from ..models import (init_random, load_pth, make_model, require_two_heads,
-                      resolve_compute_dtype)
+from ..models import init_random, load_pth, make_model, require_two_heads
 from ..models.points import fpn_lengths, generate_points, select_points
 from ..utils.logging import AverageMeter, Logger, time_str
 from ..utils.tracking import MetricsSink
@@ -58,10 +67,6 @@ def check_supported(cfg):
     ROADMAP item, instead of running something else; and for the
     forward-only model variants."""
     require_two_heads(cfg, "Trainer")
-    if resolve_compute_dtype(cfg) != "float32":
-        raise NotImplementedError(
-            f"tpu.compute_dtype={cfg.tpu.compute_dtype!r}: training computes "
-            f"in f32; bf16 training is not in the port yet (ROADMAP item 12b)")
     if cfg.tpu.get("shard_time"):
         raise NotImplementedError(
             "tpu.shard_time: sequence-parallel training is not in the port "

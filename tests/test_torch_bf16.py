@@ -18,7 +18,9 @@ f32 statistics.
   the fixture's noise floor, with bf16-tied top scores interchangeable (see
   the test).
 - The HTTP endpoint serving with ``--set tpu.compute_dtype bfloat16``;
-  ``resolve_compute_dtype`` against JAX's; the refusals.
+  ``resolve_compute_dtype`` against JAX's; unknown dtypes raise; the
+  Trainer takes bf16 (tests/test_torch_train_bf16.py trains in it) and
+  still refuses ``tpu.shard_time``.
 
 Inputs come from numpy seeds and are cast to bf16 on both sides; weights
 are the flax init's, loaded through ``state_dict_from_params``."""
@@ -54,6 +56,8 @@ from decafnet_tpu_torch.utils import EvalResults
 from test_torch_eval import _configs, experiment, setup  # noqa: F401  (fixtures)
 from test_torch_http import _as_json, _call, _request
 from test_torch_model import _inputs, cfg_pair, flax_params
+from test_torch_train import cfg_pair as train_cfg_pair
+from test_torch_train_step import synth  # noqa: F401  (fixture)
 
 # one intra-op thread per test process: the suite runs several processes
 # side by side, and torch's default (one thread per core) in each of them
@@ -324,10 +328,19 @@ def test_bf16_service_answers_over_http(experiment):  # noqa: F811
     assert max(counts) <= service.decoder.cfg.nms.max_num_segs
 
 
-def test_trainer_refuses_bf16():
-    cfg = get_cfg_defaults("grounder")
-    cfg.model.name = "iter"
-    cfg = update_opt(cfg)
-    cfg.tpu.compute_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        Trainer(cfg, device="cpu")
+def test_trainer_takes_bf16_and_refuses_shard_time(synth, tmp_path):  # noqa: F811
+    """An explicit bf16 builds a Trainer whose model (and EMA) computes in
+    bf16 on f32 weights; ``auto`` trains in f32; ``tpu.shard_time`` still
+    raises, naming ROADMAP item 11."""
+    def cfg_of(dtype, **tpu):
+        _, cfg = train_cfg_pair(synth, str(tmp_path / dtype))
+        cfg.tpu.update(compute_dtype=dtype, **tpu)
+        return cfg
+
+    for dtype in ("bfloat16", "bf16"):
+        trainer = Trainer(cfg_of(dtype), device="cpu")
+        assert trainer.model.compute_dtype == trainer.ema.compute_dtype == torch.bfloat16
+        assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
+    assert Trainer(cfg_of("auto"), device="cpu").model.compute_dtype is None
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        Trainer(cfg_of("bfloat16", shard_time=True), device="cpu")

@@ -270,14 +270,18 @@ def _call_args(args):
             else a for a in args]
 
 
-def _grads(args):
+def _grad_tensors(args):
     flat = []
     for a in args:
         for x in (a if isinstance(a, list) else [a]):
             x = x.base if isinstance(x, _HeadView) else x
             if torch.is_tensor(x) and x.requires_grad:
-                flat.append(x.grad)
+                flat.append(x)
     return flat
+
+
+def _grads(args):
+    return [x.grad for x in _grad_tensors(args)]
 
 
 @pytest.mark.cuda
@@ -307,6 +311,46 @@ def test_kernel_backward_matches_plain_autograd(card, name, T):
         assert torch.isfinite(a).all()
         scale = float(b.abs().max())
         assert float((a - b).abs().max()) <= 1e-5 * max(scale, 1.0)
+
+
+# bf16 ops under autograd vs plain bf16 autograd: the relative L2 distance
+# of each gradient leaf. The backward recomputes through the same plain
+# version, so only a rounding step of the weight gradients' sums (cuDNN's
+# order) can move a leaf: one bf16 step everywhere would be 2**-8
+BF16_GRAD_REL_L2 = 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [2304, 301, 9])
+@pytest.mark.parametrize("name", KERNELS)
+def test_bf16_autograd_matches_plain_autograd(card, name, T):
+    """bf16 activations and f32 parameters, as bf16 training runs the ops:
+    the forward launches the bf16 kernel once (no f32 one) and the backward
+    launches nothing; each gradient has its leaf's dtype (f32 for the
+    parameters) and lies within BF16_GRAD_REL_L2 of plain bf16 autograd's
+    for the same output gradient."""
+    C = 160 if name == "conv3_ln_act" else 128
+    args = _case(name, T, card, C=C, B=8, dtype=torch.bfloat16)
+    op, plain = getattr(ops, name), getattr(ops, name + "_torch")
+    runs = []
+    for fn in (op, plain):
+        leaves = _grad_leaves(name, args)
+        ops.reset_launch_counts()
+        outs = _flat(fn(*_call_args(leaves)))
+        fwd = (op.launches, op.launches_bf16)
+        assert all(o.dtype == torch.bfloat16 for o in outs)
+        g = torch.Generator(device=card).manual_seed(1)
+        torch.autograd.backward(outs, [torch.randn(o.shape, generator=g, device=card)
+                                       .to(torch.bfloat16) for o in outs])
+        runs.append((fwd, (op.launches, op.launches_bf16), _grads(leaves),
+                     [x.dtype for x in _grad_tensors(leaves)]))
+    (k_fwd, k_all, k_grads, k_dtypes), (p_fwd, p_all, p_grads, _) = runs
+    assert (k_fwd, k_all, p_fwd, p_all) == ((0, 1), (0, 1), (0, 0), (0, 0))
+    assert len(k_grads) == len(p_grads) > 0
+    for a, b, dtype in zip(k_grads, p_grads, k_dtypes, strict=True):
+        assert a.dtype == b.dtype == dtype and torch.isfinite(a).all()
+        rel = float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+        assert rel <= BF16_GRAD_REL_L2, (name, T, rel)
 
 
 @pytest.mark.cuda

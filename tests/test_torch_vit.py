@@ -195,8 +195,15 @@ def test_seeded_weights_repeat(cls):
     assert np.isfinite(ya).all() and not np.allclose(ya, yc)
 
 
-def test_make_clip_encoder_takes_jax_options_and_refuses_bf16():
+def test_make_clip_encoder_takes_jax_options_and_bf16():
     enc = make_clip_encoder(dict(CLIP, img_size=32, unknown_key=1, dtype=None))
     assert isinstance(enc, ClipEncoder) and enc.depth == CLIP["depth"]
-    with pytest.raises(ValueError, match="ROADMAP item 12"):
-        make_clip_encoder(dict(CLIP, dtype="bfloat16"))
+    for name in ("float32", torch.float32, np.float32):
+        assert make_clip_encoder(dict(CLIP, dtype=name)).dtype is enc.dtype is None
+    for name in ("bfloat16", "bf16", torch.bfloat16):
+        enc16 = make_clip_encoder(dict(CLIP, img_size=32, unknown_key=1, dtype=name))
+        assert isinstance(enc16, ClipEncoder) and enc16.dtype == torch.bfloat16
+    with torch.no_grad():
+        assert enc16(torch.zeros(1, CLIP["frames"], 32, 32, 3)).dtype == torch.float32
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        make_clip_encoder(dict(CLIP, dtype="float16"))
