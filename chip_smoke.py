@@ -151,10 +151,24 @@ Phases, each printing one JSON line:
            dumps' detections and annotated-recall table equal the eval
            phase's); stack, eval.shard_videos 4 in this process against
            V = 1 (the same checks, launches per stacked decode call, wall
-           per video).
+           per video). Then sequence parallelism, each video's time axis
+           split over two gloo ranks sharing the card: seq2, training with
+           tpu.shard_time at ddp2's shape and by its rules against the
+           one-process Trainer, with each rank's peak memory and step walls,
+           then one more forward and backward of a step's batch profiled on
+           rank 0 (the device time of the halo exchanges and of the halos'
+           copies, and the exchanges per step);
+           seq2_mad, one step of the remat_mad leg's MAD task (T = 32768, 8
+           rows, dropout as configured, drawn from one seed), remat off and
+           "nothing", with each rank's peak memory beside the one-process
+           peak of the remat_mad leg and its loss at rtol 1e-4; evalseq2, the eval CLI
+           with eval.shard_time 2 over the eval phase's experiment: every
+           rank's table equals the eval phase's, the lead's detections and
+           annotated-recall table too, 44 / 7 / 1 launches per decode call
+           on each rank.
 Then one {"kernels": [...]} line (the three f32 kernels with their launches
 summed over the serve, eval, http, train, remat, variants, encode, encode
-CLI and multi paths, and the three bf16 variants with theirs over the bf16
+CLI, multi, seq2, seq2_mad and evalseq2 paths, and the three bf16 variants with theirs over the bf16
 phase's serve, eval and http paths, the bf16 train, MAD remat and encode
 legs, each with the breakdown; the bf16
 records also carry ptxas's registers, spills and shared memory of their
@@ -2187,8 +2201,9 @@ def run_remat(root, cfg_file):
     of each, launches 44 / 14 / 2 per forward microbatch with remat. Then
     one step of the mad task at T = 32768 (8 rows in one microbatch), remat
     off and "nothing": peak memory of each, in f32 and then in bf16. Returns
-    the f32 kernel launches of the f32 legs and the bf16 kernel launches of
-    the bf16 MAD leg."""
+    the f32 kernel launches of the f32 legs, the bf16 kernel launches of
+    the bf16 MAD leg, and the f32 MAD step's argv and records per policy
+    (the multi phase's seq2_mad leg holds its two ranks against them)."""
     argv = ["--cfg", os.path.join(REPO, "configs", "ego4d_nlq.yaml"), cfg_file,
             "--set", "seed", str(SEED), "aux.eval_run", "0"]
     records, launches, grads = remat_runs(argv, os.path.join(root, "remat"),
@@ -2233,7 +2248,8 @@ def run_remat(root, cfg_file):
           "tpu.compute_dtype bfloat16", "runs": mad16,
           "f32_peak_gb": {label: r["peak_gb"] for label, r in mad.items()}})
     assert mad16["off"]["T"] == MAD_T and mad16["off"]["rows"] == 2 * MAD_VIDEOS
-    return {n: launches[n] + mad_launches[n] for n in launches}, mad16_launches
+    return ({n: launches[n] + mad_launches[n] for n in launches},
+            mad16_launches, (argv, mad))
 
 
 # ------------------------------------------------------------------- encode
@@ -2674,24 +2690,58 @@ def rank_worker(kind, report, argv):
     ``kind`` (train or eval) CLI's ``main`` runs on ``argv`` (its
     ``build_trainer`` + ``train``, or ``build_evaluator`` + ``run``), then
     this rank's ``{report}.r<rank>.json`` (rank, world size, backend, kernel
-    launches, peak memory, wall, and the run's steps or decode calls,
-    videos, queries and table) before it leaves the group."""
+    launches, peak memory, wall, and the run's steps and their synchronised
+    walls, or decode calls, videos, queries and table) before it leaves the
+    group. ``seqtrain`` is ``train`` and then one more forward and backward
+    of a step's batch, profiled on rank 0 (:func:`seq_profile`);
+    ``mad`` builds the Trainer and runs the remat_mad leg's one step (its
+    batch, the generator at the seed, cuDNN's deterministic algorithms):
+    loss, peak memory and walls."""
     sys.path.insert(0, REPO)
     from decafnet_tpu_torch import ops, parallel
 
     t0 = time.perf_counter()
     try:
-        if kind == "train":
+        if kind in ("train", "seqtrain"):
             from decafnet_tpu_torch.train.__main__ import build_trainer, train
+            from decafnet_tpu_torch.train.trainer import _to_device
 
-            trainer = train(build_trainer(argv))
-            fields = {"steps": trainer.step, "device": str(trainer.device)}
+            trainer = build_trainer(argv)
+            step_fn, step_ms = trainer.train_step, []
+
+            def timed(batch):
+                ms, out = synced_ms(lambda: step_fn(batch))
+                step_ms.append(ms)
+                return out
+            trainer.train_step = timed
+            train(trainer)
+            fields = {"steps": trainer.step, "device": str(trainer.device),
+                      "time_sharded": trainer.shard is not None,
+                      "step_ms": step_ms}
+            if kind == "seqtrain":
+                # one more forward and backward of a step's batch after
+                # training, profiled on rank 0 (every rank runs it: the
+                # exchanges are collectives); the launches are the run's
+                fields["launches"] = ops.launch_counts()
+                batch = _to_device(trainer.loader.transform(
+                    [trainer.dataset[i]
+                     for i in range(trainer.cfg.train.batch_size)]),
+                    trainer.device)
+                def run():
+                    trainer.accumulate(batch)
+                if parallel.rank() == 0:
+                    fields["profile"] = seq_profile(run)
+                else:
+                    run()
+        elif kind == "mad":
+            fields = mad_step(argv)
         else:
             from decafnet_tpu_torch.eval.__main__ import build_evaluator
 
             ev = build_evaluator(argv)
             metrics = ev.run()
             fields = {"device": str(ev.device),
+                      "time_sharded": ev.shard is not None,
                       "decode_calls": ev.decoder.decode_calls,
                       "videos": len(ev.loader), "recall": metrics.tolist(),
                       "queries": ev.meter.text_cnt}
@@ -2721,6 +2771,96 @@ def update_rel_l2(got, want, start):
         for k in start)}
 
 
+def seq_profile(fn):
+    """``fn()`` under torch.profiler: its wall, the device busy time, and the
+    calls, host time and device time of the sequence-parallel ranges
+    (``seq.halo``, ``seq.halo_backward``, ``seq.gather``, ``seq.crop``:
+    the exchanges and the halos' copies, parallel/seq.py)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    # the host-side ranges, each with the device time of the kernels
+    # launched inside it (the profiler also emits a device-side span of
+    # each range, which runs from its first kernel to its last and so
+    # holds the waits for the other rank: not counted)
+    ranges = {}
+    for e in prof.events():
+        if e.name.startswith("seq.") and e.device_type == DeviceType.CPU:
+            r = ranges.setdefault(e.name, {"calls": 0, "host_ms": 0.0,
+                                           "device_ms": 0.0})
+            r["calls"] += 1
+            r["host_ms"] += e.cpu_time_total / 1e3
+            r["device_ms"] += e.device_time_total / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "ranges": ranges}
+
+
+def mad_step(argv):
+    """One step of the remat_mad leg's task from the train CLI's
+    ``build_trainer``, with tpu.remat off and then "nothing" (the remat
+    settings go into ``argv``'s ``--set`` list): the first
+    ``train.batch_size`` samples, the generator at the seed, cuDNN's
+    deterministic algorithms, as :func:`remat_runs` takes it. Returns, per
+    policy, the loss terms, the peak memory of ``accumulate``, the launches
+    of the kernels in it, its wall and the optimizer update's."""
+    import gc
+
+    cut = argv.index("--device") if "--device" in argv else len(argv)
+    out = {}
+    for policy in (None, "nothing"):
+        label = policy or "off"
+        out[label] = mad_policy_step(argv[:cut] + [
+            "tpu.remat", str(policy is not None), "tpu.remat_policy",
+            policy or "nothing"] + argv[cut:])
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"policies": out, "time_sharded": all(
+        p["time_sharded"] for p in out.values()),
+        "launches": {n: sum(p["launches"][n] for p in out.values())
+                     for n in out["off"]["launches"]}}
+
+
+def mad_policy_step(argv):
+    """:func:`mad_step` for one remat policy."""
+    from decafnet_tpu_torch import ops
+    from decafnet_tpu_torch.train.__main__ import build_trainer
+    from decafnet_tpu_torch.train.trainer import _to_device
+
+    trainer = build_trainer(argv)
+    cfg = trainer.cfg
+    trainer.loader.set_epoch(0)
+    batch = _to_device(trainer.loader.transform(
+        [trainer.dataset[i] for i in range(cfg.train.batch_size)]),
+        trainer.device)
+    trainer.generator.manual_seed(SEED)
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.backends.cudnn.deterministic = True
+    try:
+        acc_ms, metrics = synced_ms(lambda: trainer.accumulate(batch))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = ops.launch_counts()
+    update_ms, _ = synced_ms(lambda: trainer.update(metrics))
+    return {"remat": trainer.model.vid_net.remat, "launches": launches,
+            "loss": float(metrics["total"]), "cls": float(metrics["cls"]),
+            "reg": float(metrics["reg"]), "rows": int(batch["text"].shape[0]),
+            "T": int(batch["vid"].shape[-1]), "peak_gb": peak_gb,
+            "peak_above_start_gb": peak_gb - base_gb, "accumulate_ms": acc_ms,
+            "update_ms": update_ms, "time_sharded": trainer.shard is not None,
+            "device": str(trainer.device)}
+
+
 def merged_results(shards, order):
     """The ranks' result dumps as one, videos in ``order`` (vid ids)."""
     from decafnet_tpu_torch.utils import EvalResults
@@ -2732,7 +2872,7 @@ def merged_results(shards, order):
     return out
 
 
-def run_multi(root, cfg_file, eval_logdir, eval_base, smi):
+def run_multi(root, cfg_file, eval_logdir, eval_base, smi, mad_ref):
     """Data parallelism on the card, each leg launched by ``python -m
     torch.distributed.run``, its ranks running the CLI's own functions
     (:func:`rank_worker`):
@@ -2756,10 +2896,22 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi):
            annotated-recall table of the ranks' merged dumps;
     stack  ``eval.shard_videos`` 4 in this process through the eval CLI's
            build_evaluator, against V = 1: the same checks, the launches per
-           stacked decode call and the wall per video at V = 4 and V = 1.
+           stacked decode call and the wall per video at V = 4 and V = 1;
+    seq2   ddp2 with ``tpu.shard_time``: each rank holds half of every
+           video's time axis (parallel/seq.py), by ddp2's rules against
+           the one-process run; then one more forward and backward of a
+           step's batch, rank 0's profiled (the exchanges' and the halos'
+           copies' device time);
+    seq2_mad  one step of the remat_mad leg (``mad_ref``: its argv and its
+           records) as two gloo ranks, remat off and "nothing": each rank's
+           peak memory beside the one-process peak, the loss at rtol 1e-4;
+    evalseq2  eval2 with ``eval.shard_time`` 2 instead: every rank decodes
+           every video, one time block of each; the same checks, the lead's
+           dump against the eval phase's.
 
-    Returns the launches of the four legs (every rank's, and the V = 4
-    run's)."""
+    Returns the launches of each path: "multi" (the four legs above seq2:
+    every rank's, and the V = 4 run's), "seq2", "seq2_mad" and
+    "evalseq2" (every rank's)."""
     from decafnet_tpu_torch import ops
     from decafnet_tpu_torch.eval.__main__ import build_evaluator
     from decafnet_tpu_torch.train.__main__ import build_trainer, train
@@ -2809,10 +2961,12 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi):
     assert steps == 2 and n_micro == 1, (steps, n_micro)
     launches = {n: 0 for n in PER_DECODE}
 
-    for leg, nproc, extra in (("ddp1", 1, []),
-                              ("ddp2", 2, ["--device", "cuda:0",
-                                           "--dist-backend", "gloo"])):
-        reports, out, wall = torchrun(nproc, "train", train_argv(leg) + extra,
+    on_card = ["--device", "cuda:0", "--dist-backend", "gloo"]
+    paths = {"multi": launches}
+    for leg, nproc, extra in (("ddp1", 1, []), ("ddp2", 2, on_card),
+                              ("seq2", 2, ["tpu.shard_time", "True", *on_card])):
+        kind = "seqtrain" if leg == "seq2" else "train"
+        reports, out, wall = torchrun(nproc, kind, train_argv(leg) + extra,
                                       os.path.join(mroot, leg))
         logdir = ref_dir.replace(os.path.join(mroot, "ref"),
                                  os.path.join(mroot, leg))
@@ -2833,8 +2987,15 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi):
         backend = "nccl" if leg == "ddp1" else "gloo"
         emit({"phase": "multi", "leg": leg, "launch": f"python -m "
               f"torch.distributed.run --standalone --nproc_per_node {nproc} "
-              f"chip_smoke.py --rank-worker train (decafnet_tpu_torch.train's "
+              f"chip_smoke.py --rank-worker {kind} (decafnet_tpu_torch.train's "
               f"build_trainer + train)", "backend": backend,
+              **({"tpu.shard_time": True, "videos_per_rank":
+                  ref.cfg.train.batch_size, "T_per_rank":
+                  ref.cfg.data.max_vid_len // nproc,
+                  "peak_mem_gb": [r["peak_mem_gb"] for r in reports],
+                  "rank_step_ms": [r["step_ms"] for r in reports],
+                  "profile_rank0_microbatch": reports[0]["profile"]}
+                 if leg == "seq2" else {}),
               "videos_per_rank": ref.cfg.train.batch_size // nproc,
               "steps": steps, "losses": [{k: g[k] for k in g if k.startswith(
                   "train/")} for g in got],
@@ -2854,13 +3015,64 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi):
                       "update_rel_l2_leaf": GRAD_REL_L2_LEAF}})
         assert [(r["rank"], r["world_size"], r["backend"]) for r in reports] \
             == [(i, nproc, backend) for i in range(nproc)], reports
+        assert all(r["time_sharded"] == (leg == "seq2") for r in reports)
+        path = "seq2" if leg == "seq2" else "multi"
+        paths.setdefault(path, {n: 0 for n in PER_DECODE})
         for r in reports:
             assert r["launches"] == want, (leg, r["launches"], want)
-            launches = {n: launches[n] + r["launches"][n] for n in PER_DECODE}
+            paths[path] = {n: paths[path][n] + r["launches"][n]
+                           for n in PER_DECODE}
         assert loss_rel <= MULTI_LOSS_RTOL, (leg, loss_rel)
         for what, u in upd.items():
             assert u["update_rel_l2_all"] <= GRAD_REL_L2_ALL and \
                 u["worst_leaves"][0]["rel_l2"] <= GRAD_REL_L2_LEAF, (leg, what, u)
+
+    # one MAD step with each movie's time axis over the two ranks, remat
+    # off and "nothing" (the recompute exchanges halos in the backward)
+    mad_argv, mad_one = mad_ref
+    reports, out, wall = torchrun(
+        2, "mad", mad_argv + ["log.root", os.path.join(mroot, "seq2_mad"),
+                              "tpu.shard_time", "True", *on_card],
+        os.path.join(mroot, "seq2_mad"))
+    per = {}
+    for label, one in mad_one.items():
+        got = [r["policies"][label] for r in reports]
+        per[label] = {
+            "peak_gb_per_rank": [g["peak_gb"] for g in got],
+            "one_process_peak_gb": one["peak_gb"],
+            "peak_per_rank_vs_one_process": [g["peak_gb"] / one["peak_gb"]
+                                             for g in got],
+            "loss": [g["loss"] for g in got], "one_process_loss": one["loss"],
+            "loss_max_rel": max(abs(g["loss"] - one["loss"]) / abs(one["loss"])
+                                for g in got),
+            "accumulate_ms": [g["accumulate_ms"] for g in got],
+            "one_process_accumulate_ms": one["accumulate_ms"],
+            "launches_per_rank": [g["launches"] for g in got]}
+    emit({"phase": "multi", "leg": "seq2_mad", "launch": "python -m "
+          "torch.distributed.run --standalone --nproc_per_node 2 chip_smoke.py "
+          "--rank-worker mad (decafnet_tpu_torch.train's build_trainer, one "
+          "accumulate + update per remat policy)", "backend": "gloo",
+          "tpu.shard_time": True,
+          "shape": f"{MAD_VIDEOS} movies x 2 queries = 8 rows at T={MAD_T} "
+          f"({MAD_T // 2} per rank), one microbatch",
+          "policies": per, "ranks": reports, "wall_s": wall, "card": smi,
+          "note": "two ranks share one card: no speed is read from these "
+                  "walls", "tol": {"loss_rtol": 1e-4}})
+    paths["seq2_mad"] = {n: 0 for n in PER_DECODE}
+    for r in reports:
+        assert r["time_sharded"], r
+        for label, g in r["policies"].items():
+            assert g["T"] == MAD_T and g["remat"] == (label != "off"), g
+            assert g["launches"] == PER_FORWARD["remat" if g["remat"]
+                                                else "iter"], (label, g)
+            assert np.isfinite([g["loss"], g["cls"], g["reg"]]).all(), g
+        assert r["launches"] == {n: PER_FORWARD["iter"][n]
+                                 + PER_FORWARD["remat"][n]
+                                 for n in PER_DECODE}, r["launches"]
+        paths["seq2_mad"] = {n: paths["seq2_mad"][n] + r["launches"][n]
+                             for n in PER_DECODE}
+    for label, p in per.items():
+        assert p["loss_max_rel"] <= 1e-4, (label, p)
 
     # process-sharded eval over the eval phase's experiment
     base_m, base_r, base_l = eval_base
@@ -2874,6 +3086,17 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi):
     eval2 = merged_results(shards, order)
     runs = {"device_nms": eval_base,
             "eval2": (None, eval2, [l for v in eval2.videos for l in v["losses"]])}
+
+    # time-sharded eval over the same experiment: the lead dumps every video
+    seq_reports, _, seq_wall = torchrun(
+        2, "eval",
+        ["--name", eval_logdir, "--device", "cuda:0", "--dist-backend", "gloo",
+         "--set", "eval.save_results", "True", "eval.shard_time", "2"],
+        os.path.join(mroot, "evalseq2"))
+    evalseq2 = merged_results([EvalResults.load(os.path.join(
+        eval_logdir, "results_last.pk"))], order)
+    runs["evalseq2"] = (None, evalseq2,
+                        [l for v in evalseq2.videos for l in v["losses"]])
 
     # stacked videos in this process: V = 4 (the path) and V = 1, in turns
     stack = {}
@@ -2900,11 +3123,12 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi):
         assert counts == {n: c * calls for n, c in PER_DECODE.items()}, (V, counts)
         assert np.array_equal(metrics, base_m), (V, metrics, base_m)
         if V == 4:
-            launches = {n: launches[n] + counts[n] for n in PER_DECODE}
+            paths["multi"] = {n: paths["multi"][n] + counts[n]
+                              for n in PER_DECODE}
     annotated, n_q = annotated_recall(runs, tuple(ev.cfg.eval.ranks),
                                       tuple(ev.cfg.eval.iou_threshs))
     checks = {}
-    for mode in ("eval2", "stack4", "stack1"):
+    for mode in ("eval2", "evalseq2", "stack4", "stack1"):
         _, results, losses = runs[mode]
         seg_d, sc_d = same_detections(eval_answers(base_r), eval_answers(results))
         loss_d = max(abs(a[k] - b[k]) / (LOSS_ATOL / LOSS_RTOL + abs(b[k]))
@@ -2918,6 +3142,16 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi):
           "recall": base_m.tolist(), "annotated_base":
           annotated["device_nms"].tolist(), "check": checks["eval2"],
           "wall_s": wall, "card": smi})
+    emit({"phase": "multi", "leg": "evalseq2", "launch": "python -m "
+          "torch.distributed.run --standalone --nproc_per_node 2 chip_smoke.py "
+          "--rank-worker eval (decafnet_tpu_torch.eval's build_evaluator + "
+          "run) --set eval.shard_time 2", "backend": "gloo",
+          "ranks": seq_reports, "launches_per_decode_call": [
+              {n: r["launches"][n] / r["decode_calls"] for n in PER_DECODE}
+              for r in seq_reports],
+          "recall": base_m.tolist(), "check": checks["evalseq2"],
+          "wall_s": seq_wall, "card": smi,
+          "note": "two ranks share one card: no speed is read from the wall"})
     emit({"phase": "multi", "leg": "stack", "shard_videos": 4,
           "runs": "V = 4, 1, 1, 4 in turns; phase_s of the last run of each",
           "decode_calls": {V: stack[V]["calls"] for V in stack},
@@ -2932,14 +3166,22 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi):
         assert r["recall"] == base_m.tolist() and r["queries"] == 48, r
         assert r["launches"] == {n: c * r["decode_calls"]
                                  for n, c in PER_DECODE.items()}, r
-        launches = {n: launches[n] + r["launches"][n] for n in PER_DECODE}
+        paths["multi"] = {n: paths["multi"][n] + r["launches"][n]
+                          for n in PER_DECODE}
     assert sorted(r["videos"] for r in reports) == [6, 6], reports
+    for r in seq_reports:
+        assert r["time_sharded"] and r["videos"] == 12, r
+        assert r["recall"] == base_m.tolist() and r["queries"] == 48, r
+        assert r["decode_calls"] == 12 and r["launches"] == {
+            n: c * r["decode_calls"] for n, c in PER_DECODE.items()}, r
+    paths["evalseq2"] = {n: sum(r["launches"][n] for r in seq_reports)
+                         for n in PER_DECODE}
     assert stack[4]["calls"] < stack[1]["calls"] == 12, stack
     for mode, c in checks.items():
         assert np.array_equal(annotated[mode], annotated["device_nms"]), mode
         assert c["seg_s"] <= SEG_TOL_S and c["score"] <= SCORE_TOL, (mode, c)
         assert c["loss_rel"] <= LOSS_RTOL, (mode, c)
-    return launches
+    return paths
 
 
 def main():
@@ -2992,12 +3234,14 @@ def main():
         cfg_file = write_train_data(root)
         by_path["train"], train32 = run_train(root, cfg_file)
         by_path16["bf16_train"] = run_train_bf16(root, cfg_file, train32)
-        by_path["remat"], by_path16["bf16_remat_mad"] = run_remat(root, cfg_file)
+        by_path["remat"], by_path16["bf16_remat_mad"], mad_ref = run_remat(
+            root, cfg_file)
         by_path["variants"] = run_variants(dev, root)
         by_path["encode"], by_path["encode_cli"], by_path16["bf16_encode"] = run_encode(
             dev, service, smi, root, service16)
         del service, service16
-        by_path["multi"] = run_multi(root, cfg_file, logdir, eval_base, smi)
+        by_path.update(run_multi(root, cfg_file, logdir, eval_base, smi,
+                                 mad_ref))
     launches = {n: sum(p[n] for p in by_path.values()) for n in PER_DECODE}
 
     sources = {"conv3_ln_act": ("decafnet_tpu_torch/csrc/conv3_ln_act.cu",

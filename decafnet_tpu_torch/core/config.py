@@ -5,10 +5,9 @@ dotted-key overrides (``merge_from_list``: unknown keys raise ``KeyError``).
 ``get_cfg_defaults(task)`` builds the task's default tree key for key as the
 JAX package does, ``tpu`` section included, so an ``opt.yaml`` written by
 the JAX trainer loads and takes ``--set`` overrides. Of the ``tpu`` section
-the port reads ``compute_dtype`` (``models.resolve_compute_dtype``; bf16
-serves and evaluates, training refuses it), ``remat`` and ``remat_policy``
-(``models.make_model``), and ``shard_time`` and ``video_major_train``
-(the Trainer).
+the port reads ``compute_dtype`` (``models.resolve_compute_dtype``),
+``remat`` and ``remat_policy`` (``models.make_model``), and ``shard_time``,
+``mesh_shape`` and ``video_major_train`` (the Trainer).
 
 ``update_opt`` derives the dependent fields, ``update_eval_data`` backfills
 ``eval.data`` from ``data``, ``update_from`` backfills a frozen snapshot
@@ -262,7 +261,7 @@ def _base_eval(data):
     ev.reference_exact = False  # host C++ SoftNMS per query
     ev.save_results = False     # dump per-video detections for analysis
     ev.shard_videos = 0         # V > 1: decode groups of V videos per call
-    ev.shard_time = 0           # > 1 raises (ROADMAP item 11)
+    ev.shard_time = 0           # S > 1: each video's time axis over S ranks
     ev.shard_processes = True   # in a process group: per-rank video shards
     return ev
 
@@ -287,7 +286,8 @@ def _base_tpu():
     state; the encode stage takes its dtype from the encoder options
     instead), ``remat`` / ``remat_policy``
     (activation checkpointing of the video encoders in training),
-    ``shard_time`` (sequence parallelism, raises: ROADMAP item 11) and
+    ``shard_time`` (sequence parallelism over the ``torchrun`` ranks; with
+    ``mesh_shape`` only to refuse a 2-D one, ROADMAP item 11d) and
     ``video_major_train``. Data-parallel training needs no key here: it
     runs under ``torchrun``."""
     tpu = CfgNode()

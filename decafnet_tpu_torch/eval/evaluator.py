@@ -23,6 +23,11 @@ call), fills the ``RecallMeter`` and prints the Rank@k / IoU@t table and the
 mean losses. In a process group (``eval.shard_processes``) each rank
 evaluates its rank-strided share of the videos and the counts and loss sums
 are summed over the ranks, so every rank ends with the global table.
+With ``eval.shard_time`` S equal to the group's world size (sequence
+parallelism, the JAX ``time`` mesh) every rank loads every video instead,
+the model runs on this rank's block of each video's time axis
+(:mod:`parallel.seq`), each level's outputs are gathered, and the decode,
+SoftNMS and table run on every rank as in one process; the lead writes.
 """
 
 from __future__ import annotations
@@ -37,9 +42,11 @@ import torch
 from ..core import (CfgNode, get_cfg_defaults, update_eval_data, update_from,
                     update_opt)
 from ..data import DataLoader, batchify_eval, make_dataset, min_chunk_size
-from ..models import load_params, load_pth, make_model, require_two_heads
+from ..models import (check_time_sharding, load_params, load_pth, make_model,
+                      require_two_heads)
 from ..models.points import fpn_lengths, generate_points, select_points
 from .. import parallel
+from ..parallel import seq
 from ..ops.masked import max_pool1d
 from ..ops.nms import batched_nms_device, batched_nms_host
 from ..train.annotate import annotate_points
@@ -98,10 +105,14 @@ class Decoder:
     ``cfg`` is a full config tree; ``model`` a
     :class:`~decafnet_tpu_torch.models.DeCafNetIterative` on ``device``.
     ``cfg.eval.reference_exact`` selects the host SoftNMS.
-    ``decode_calls`` counts model forwards (one per decoded group)."""
+    ``decode_calls`` counts model forwards (one per decoded group). With a
+    time ``shard`` (:class:`parallel.TimeShard`) the forward runs on this
+    rank's block of the video and its outputs are gathered before the
+    decode."""
 
-    def __init__(self, cfg, model, device):
+    def __init__(self, cfg, model, device, shard=None):
         self.cfg, self.model, self.device = cfg, model, torch.device(device)
+        self.shard = shard
         self.all_points = generate_points(
             cfg.model.vid_net.max_seq_len * 10, cfg.pt_gen.num_fpn_levels,
             cfg.pt_gen.regression_range, cfg.pt_gen.sigma)
@@ -177,9 +188,8 @@ class Decoder:
         ``scores`` and ``valid``, each (R, P). With ``targets`` (R, 2) it
         adds the per-row ``cls_loss`` and ``reg_loss`` (R,)."""
         self.decode_calls += 1
-        _, logits2, offsets, masks = self.model(
-            vid, shallow, vid_masks, text, text_cls, text_masks,
-            pe_interp=pe_interp, queries_per_video=Q)
+        logits2, offsets, masks = self.level_outputs(
+            vid, shallow, vid_masks, text, text_cls, text_masks, pe_interp, Q)
         scores = torch.cat(modulated_level_scores(logits2, masks, ext_scores), 1)
         offs = torch.cat(offsets, dim=2)                       # (R, 2, P)
         pmask = torch.cat(masks, dim=1)                        # (R, P)
@@ -225,6 +235,28 @@ class Decoder:
             out["reg_loss"] = calc_iou_loss(offs, gt_offsets, pos,
                                             reg_loss="iou") / norm
         return out
+
+    def level_outputs(self, vid, shallow, vid_masks, text, text_cls,
+                      text_masks, pe_interp, Q):
+        """The model's per-level (cls_head2 logits, offsets, masks), what
+        the decode and the eval losses read, over the whole video.
+        Time-sharded, the model runs on this rank's block of the video
+        tensors (``pe_interp`` stays global) and every rank gathers the
+        levels' outputs in one collective."""
+        if self.shard is None:
+            return self.model(vid, shallow, vid_masks, text, text_cls,
+                              text_masks, pe_interp=pe_interp,
+                              queries_per_video=Q)[1:]
+        check_time_sharding(self.cfg, vid.shape[-1], self.shard.size)
+        vid, shallow, vid_masks = (self.shard.shard(a)
+                                   for a in (vid, shallow, vid_masks))
+        with seq.sharding(self.shard):
+            outs = self.model(vid, shallow, vid_masks, text, text_cls,
+                              text_masks, pe_interp=pe_interp,
+                              queries_per_video=Q)[1:]
+        flat = self.shard.gather(*[x for level in outs for x in level])
+        L = len(outs[0])
+        return [list(flat[i * L:(i + 1) * L]) for i in range(3)]
 
     def decode_group(self, items, losses=False):
         """Decode V same-bucket items (V videos x Q query rows) in one call.
@@ -309,19 +341,24 @@ class Decoder:
         return {"segments": segs, "scores": np.asarray(scores).reshape(-1)}
 
 
-def check_supported(cfg):
+def check_supported(cfg, train_time=False):
     """Raise for eval settings the port does not have yet, naming the
     ROADMAP item, instead of running something else; and for the
-    combinations the JAX Evaluator refuses."""
-    ev = cfg.eval
-    V, S = int(ev.get("shard_videos") or 1), int(ev.get("shard_time") or 1)
+    combinations the JAX Evaluator refuses. The trainer's evaluator
+    (``train_time``) never shards the time axis."""
+    ev, world = cfg.eval, parallel.world_size()
+    V = int(ev.get("shard_videos") or 1)
+    S = 1 if train_time else int(ev.get("shard_time") or 1)
     if V > 1 and S > 1:
         raise ValueError("eval.shard_videos and eval.shard_time are exclusive")
     if S > 1:
-        raise NotImplementedError(
-            f"eval.shard_time={ev.shard_time}: sequence-parallel eval is not "
-            f"in the port yet (ROADMAP item 11)")
-    if V > 1 and parallel.world_size() > 1:
+        check_time_sharding(cfg, cfg.data.max_vid_len, S)
+        if S != world:
+            raise ValueError(
+                f"eval.shard_time={S} shards each video's time axis over the "
+                f"ranks of the process group, which has {world}: launch "
+                f"{S} ranks with torchrun (or set eval.shard_time {world})")
+    if V > 1 and world > 1:
         raise ValueError(
             f"eval.shard_videos={V} stacks videos within one process; in a "
             f"multi-process group use eval.shard_processes (per-process "
@@ -345,18 +382,23 @@ class Evaluator:
     In a process group of W > 1 ranks with ``eval.shard_processes`` (the
     default), rank r loads and evaluates videos r, r + W, ... and
     :meth:`run` sums the counts and losses over the ranks; only the lead
-    writes the log. The trainer's evaluator (``train_time``) runs on the
-    lead alone and never shards."""
+    writes the log. With ``eval.shard_time`` W every rank evaluates every
+    video instead, one time block of it each (``shard``), and ends with the
+    whole table. The trainer's evaluator (``train_time``) runs on the lead
+    alone and never shards."""
 
     def __init__(self, cfg, params=None, device=None, train_time=False):
         require_two_heads(cfg, "Evaluator")
-        check_supported(cfg)
+        check_supported(cfg, train_time)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dataset = make_dataset(cfg, is_training=False)
+        self.shard = (seq.TimeShard() if not train_time
+                      and int(cfg.eval.get("shard_time") or 1) > 1 else None)
         # the rank shard is taken before any feature IO: the loader reads
         # only this rank's videos
         self.shard_proc = (parallel.world_size() > 1 and not train_time
+                           and self.shard is None
                            and bool(cfg.eval.get("shard_processes", True)))
         self.proc_rank, self.proc_world = ((parallel.rank(), parallel.world_size())
                                            if self.shard_proc else (0, 1))
@@ -376,7 +418,7 @@ class Evaluator:
             load_pth(model, checkpoint_path(cfg.aux.logdir,
                                             cfg.aux.get("ckpt", "last")))
         self.model = model.to(self.device).eval()
-        self.decoder = Decoder(cfg, self.model, self.device)
+        self.decoder = Decoder(cfg, self.model, self.device, self.shard)
         self.meter = RecallMeter(tuple(cfg.eval.ranks), cfg.eval.iou_threshs)
 
         self.tag = cfg.aux.get("ckpt", "eval")

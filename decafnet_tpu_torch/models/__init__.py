@@ -2,8 +2,8 @@
 decafnet_tpu.models)."""
 
 from .decafnet import (TWO_HEAD_NAMES, DeCafNetEarlyFusion, DeCafNetIterative,
-                       DeCafNetLateFusion, init_random, make_model,
-                       require_two_heads, resolve_compute_dtype)
+                       DeCafNetLateFusion, check_time_sharding, init_random,
+                       make_model, require_two_heads, resolve_compute_dtype)
 from .import_torch import (load_params, load_pth, params_from_state_dict,
                            save_pth, state_dict_from_params)
 from .points import fpn_lengths, generate_points, select_points

@@ -25,6 +25,13 @@ and text inputs are cast at entry, the parameters stay f32 and are cast at
 each use (nn/blocks.py), and the outputs come in the compute dtype. In
 training the casts are differentiable (``ops.params.cast``), so the
 gradients of the f32 parameters come back in f32.
+
+Time-sharded (:mod:`parallel.seq`: the Trainer's ``tpu.shard_time``, the
+Evaluator's ``eval.shard_time``), the video inputs are this rank's block of
+each video's time axis and the outputs the block's points: the text net
+runs whole on every rank, delegation ranks its bins over the gathered
+correlation, and every op that reads past its own column exchanges halos
+with the neighbouring ranks. :func:`check_time_sharding` holds the rules.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from ..nn.blocks import MaskedConv1D, dropout, reset_parameters
 from ..ops.delegation import delegate, delegation_weights
 from ..ops.masked import interpolate_nearest_1d, masked_max_pool1d
 from ..ops.params import cast
+from ..parallel import seq
 from .fusion import XAttNFusion
 from .heads import ClsHead, RegHead
 from .tcn import TCN
@@ -234,12 +242,14 @@ class DeCafNetIterative(nn.Module):
                 msf=m.get("msf", False), scat=m.get("scat", False),
                 sfonly=m.get("sfonly", False) and not self.training)
             vid = dropout(_to_compute(vid, self.compute_dtype), self.cdrop,
-                          generator, self.training, shape=vid.shape[:2] + (1,))
+                          generator, self.training, shape=vid.shape[:2] + (1,),
+                          time_axis=None)
             vid, vm = self.vid_map(vid, vid_masks[:, None, :])
 
-        text_enc, text_mask_enc = self.text_net(
-            _to_compute(text, self.compute_dtype), text_masks,
-            generator=generator)
+        with seq.replicated():     # every rank encodes the whole text
+            text_enc, text_mask_enc = self.text_net(
+                _to_compute(text, self.compute_dtype), text_masks,
+                generator=generator)
         vid, vm = self.fusion(vid, vm, text_enc, text_mask_enc,
                               generator=generator)
         fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp,
@@ -279,7 +289,8 @@ class _OneHeadModel(nn.Module):
             ratio=m.get("sratio", 0.0), normalize=m.get("norm", False),
             msf=m.get("msf", False), scat=m.get("scat", False), sfonly=sfonly)
         vid = dropout(_to_compute(vid, self.compute_dtype), self.cdrop,
-                      generator, self.training, shape=vid.shape[:2] + (1,))
+                      generator, self.training, shape=vid.shape[:2] + (1,),
+                      time_axis=None)
         return vid, vid_masks[:, None, :]
 
     def _heads(self, fpn, fpn_masks):
@@ -306,9 +317,10 @@ class DeCafNetEarlyFusion(_OneHeadModel):
         vid, vm = self._delegate(vid, shallow_vid, vid_masks, text_cls,
                                  queries_per_video, sfonly, generator)
         vid, vm = self.vid_map(vid, vm)
-        text_enc, text_mask_enc = self.text_net(
-            _to_compute(text, self.compute_dtype), text_masks,
-            generator=generator)
+        with seq.replicated():     # every rank encodes the whole text
+            text_enc, text_mask_enc = self.text_net(
+                _to_compute(text, self.compute_dtype), text_masks,
+                generator=generator)
         vid, vm = self.fusion(vid, vm, text_enc, text_mask_enc,
                               generator=generator)
         fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp,
@@ -335,9 +347,10 @@ class DeCafNetLateFusion(_OneHeadModel):
                                  queries_per_video, False, generator)
         fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp,
                                       generator=generator)
-        text_enc, text_mask_enc = self.text_net(
-            _to_compute(text, self.compute_dtype), text_masks,
-            generator=generator)
+        with seq.replicated():     # every rank encodes the whole text
+            text_enc, text_mask_enc = self.text_net(
+                _to_compute(text, self.compute_dtype), text_masks,
+                generator=generator)
         fpn, fpn_masks = self.fusion(fpn, fpn_masks, text_enc, text_mask_enc,
                                      generator=generator)
         return self._heads(fpn, fpn_masks)
@@ -406,6 +419,36 @@ def require_two_heads(cfg, who):
             f"one classification head, but the decode and the training losses "
             f"read two (cls_head and cls_head2): only {TWO_HEAD_NAMES} run "
             f"here; {name!r} is a forward-only model")
+
+
+def check_time_sharding(cfg, T, S):
+    """Raise unless a video of ``T`` input columns splits over ``S`` ranks
+    for the model of ``cfg``, naming the rule: T a multiple of
+    S * vid_net.stride * 2^(L-1) (every FPN level's blocks start on even
+    columns of the level before, and block edges align across levels), no
+    halo longer than a block at any level (band attention's
+    ``mha_win_size // 2``, the convs' 1, the TCN's dilation 2^(L-1) at level
+    0), and banded video attention (a global one would need every rank's
+    keys, ROADMAP item 11d)."""
+    vn = cfg.model["vid_net"]
+    L, win = vn["arch"][-1], vn["mha_win_size"]
+    if win <= 0:
+        raise NotImplementedError(
+            "time sharding with global video self-attention "
+            "(vid_net.mha_win_size <= 0) is not in the port (ROADMAP item 11d)")
+    unit = S * vn.get("stride", 1) * 2 ** (L - 1)
+    if T % unit:
+        raise ValueError(f"time sharding: a video of {T} columns must be a "
+                         f"multiple of S * vid_net.stride * 2^(L-1) = {unit} "
+                         f"(S = {S} ranks, L = {L} FPN levels)")
+    for lvl in range(L):
+        block = T // (S * vn.get("stride", 1) * 2 ** lvl)
+        need = max(1, win // 2, 2 ** (L - 1) if lvl == 0 else 0)
+        if need > block:
+            raise ValueError(
+                f"time sharding: a halo of {need} columns at FPN level {lvl} "
+                f"is longer than a rank's block of {block} (T = {T}, S = {S}): "
+                f"a halo may reach the neighbouring rank only")
 
 
 def init_random(model, seed):

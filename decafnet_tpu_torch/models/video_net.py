@@ -14,6 +14,7 @@ from torch.utils import checkpoint as ckpt
 from ..nn.blocks import LayerNorm, MaskedConv1D, TransformerEncoder
 from ..ops.fused_conv import conv3_ln_act
 from ..ops.masked import interpolate_linear_1d, sinusoid_encoding
+from ..parallel import seq
 
 
 # what a "dots" checkpoint saves: the outputs of matrix products and
@@ -121,7 +122,11 @@ class VideoTransformer(nn.Module):
         """``pe_interp``: optional (lo, hi, w) tensors of shape (t,) or
         (B, t): linear-interpolation plans of the PE table onto the
         reference's padded length (data/batching.py:pe_interp_arrays).
-        In training an input longer than the PE table raises."""
+        In training an input longer than the PE table raises.
+
+        Time-sharded (:func:`parallel.seq.active`), ``x`` and ``mask`` are
+        this rank's block and ``pe_interp`` stays global: the block adds its
+        own columns of the PE."""
         if mask.ndim == 2:
             mask = mask[:, None, :]
         x, _ = self.embd_fc(x, mask)
@@ -135,7 +140,11 @@ class VideoTransformer(nn.Module):
                 x = torch.relu(norm(x))
 
         if self.use_abs_pe:
+            # time-sharded, the block's columns of the global table
+            shard = seq.active()
             t = x.shape[-1]
+            lo_t, T = (0, t) if shard is None else (shard.offset(t),
+                                                    shard.size * t)
             pe = self.pe
             if pe_interp is not None:
                 lo, hi, w = pe_interp
@@ -144,12 +153,12 @@ class VideoTransformer(nn.Module):
                           + pe[:, hi].permute(1, 0, 2) * w[:, None, :])
                 else:
                     pe = pe[:, lo] * (1.0 - w[None, :]) + pe[:, hi] * w[None, :]
-            elif self.training and t > self.max_seq_len:
-                raise ValueError(f"training video of {t} steps is longer than "
+            elif self.training and T > self.max_seq_len:
+                raise ValueError(f"training video of {T} steps is longer than "
                                  f"the PE table ({self.max_seq_len})")
-            elif t > self.max_seq_len:
-                pe = interpolate_linear_1d(pe, t, align_corners=True)
-            x = x + pe[..., :t].to(x.dtype) * mask.to(x.dtype)
+            elif T > self.max_seq_len:
+                pe = interpolate_linear_1d(pe, T, align_corners=True)
+            x = x + pe[..., lo_t:lo_t + t].to(x.dtype) * mask.to(x.dtype)
 
         remat = self.remat and self.training and torch.is_grad_enabled()
 

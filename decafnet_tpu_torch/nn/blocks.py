@@ -34,6 +34,7 @@ from ..ops.local_attention import band_attention
 from ..ops.masked import (channel_layer_norm, interpolate_nearest_1d,
                           masked_avg_pool1d, masked_max_pool1d)
 from ..ops.params import cast
+from ..parallel import seq
 
 
 def _uniform_(t, bound, generator):
@@ -41,23 +42,34 @@ def _uniform_(t, bound, generator):
         t.copy_(torch.rand(t.shape, generator=generator) * (2 * bound) - bound)
 
 
-def _uniform_like(x, shape, generator):
+def _uniform_like(x, shape, generator, time_axis=None):
+    """A uniform draw of ``shape``. Time-sharded (:func:`parallel.seq.active`)
+    with a ``time_axis``, the draw is of the global shape and this rank's
+    block is kept, so every rank draws what one process draws."""
     if generator is None:
         raise ValueError("dropout in training mode draws from a "
                          "torch.Generator: pass generator=")
-    return torch.rand(shape, generator=generator, device=x.device,
-                      dtype=x.dtype)
+    shard = seq.active() if time_axis is not None else None
+    if shard is None:
+        return torch.rand(shape, generator=generator, device=x.device,
+                          dtype=x.dtype)
+    shape = list(shape)
+    shape[time_axis] *= shard.size
+    u = torch.rand(shape, generator=generator, device=x.device, dtype=x.dtype)
+    return shard.shard(u, time_axis)
 
 
-def dropout(x, p, generator, training, shape=None):
+def dropout(x, p, generator, training, shape=None, time_axis=-1):
     """Inverted dropout as flax's ``nn.Dropout``: in training each entry of
     a uniform draw of ``shape`` (default ``x.shape``; a shape with 1s
     broadcasts the mask, as ``broadcast_dims`` does) keeps ``x`` scaled by
-    1 / (1 - p) where it is below 1 - p, and zeroes it elsewhere."""
+    1 / (1 - p) where it is below 1 - p, and zeroes it elsewhere.
+    ``time_axis`` is the draw's video-time axis (None: it has none), where a
+    time-sharded run draws globally (:func:`_uniform_like`)."""
     if not training or p == 0.0:
         return x
     keep = 1.0 - p
-    kept = _uniform_like(x, shape or x.shape, generator) < keep
+    kept = _uniform_like(x, shape or x.shape, generator, time_axis) < keep
     return torch.where(kept, x / keep, torch.zeros_like(x))
 
 
@@ -99,10 +111,24 @@ class Conv1d(nn.Module):
                 nn.init.constant_(self.bias, self.bias_fill)
 
     def forward(self, x):
+        # time-sharded, a conv wider than one tap reads the neighbours'
+        # columns (zeros past the video's ends: the conv's padding) and
+        # keeps the outputs of this rank's block (blocks start on columns
+        # that are multiples of the stride)
+        pad, shard = self.padding, seq.active()
+        halo = shard is not None and self.kernel_size > 1
+        if halo:
+            t = x.shape[-1]
+            reach = self.dilation * (self.kernel_size - 1)
+            x, = shard.halo(x, left=pad,
+                            right=max(0, reach - pad - self.stride + 1))
+            pad = 0
         # the bias is added to the conv's output in its dtype, as the JAX
         # Conv1d adds it (in bf16 the conv output is rounded first)
         y = F.conv1d(x, cast(self.weight, x.dtype), None, self.stride,
-                     self.padding, self.dilation, self.groups)
+                     pad, self.dilation, self.groups)
+        if halo and y.shape[-1] != t // self.stride:
+            y = y[..., :t // self.stride]
         if self.bias is None:
             return y
         return y + cast(self.bias, y.dtype)[:, None]
@@ -258,7 +284,8 @@ class MaskedMHA(nn.Module):
             attn = torch.where(kv_valid, attn, torch.zeros_like(attn))
             denom = torch.sum(attn, dim=-1, keepdim=True)
             attn = attn / torch.clamp_min(denom, torch.finfo(attn.dtype).tiny)
-            attn = dropout(attn, self.attn_pdrop, generator, self.training)
+            attn = dropout(attn, self.attn_pdrop, generator, self.training,
+                           time_axis=-2)
             out = torch.einsum("bhij,bhjd->bhid", attn.to(vh.dtype).to(acc),
                                vh.to(acc)).to(q.dtype)
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import seq
+
 
 def saliency_correlation(shallow_vid, text_cls, normalize=False):
     """corr[b, t] = shallow_vid[b, :, t] . text_cls[b, :], optionally with
@@ -29,7 +31,17 @@ def delegation_weights(correl, vid_masks, sn, ratio):
 
     Three rules carried from the JAX function: ``int(ratio * nbins)`` comes
     from an f64 table; ``k == 0`` keeps every bin; bins rank by a stable
-    sort, so ties go to the earlier bin."""
+    sort, so ties go to the earlier bin.
+
+    Time-sharded (:func:`parallel.seq.active`), the bins straddle the
+    ranks' blocks: every rank gathers the global correlation and mask,
+    ranks the bins as one process does, and keeps its block of the weights
+    (which carry no gradient)."""
+    shard = seq.active()
+    if shard is not None:
+        correl, vid_masks = shard.gather(correl.detach(), vid_masks)
+        with seq.replicated():
+            return shard.shard(delegation_weights(correl, vid_masks, sn, ratio))
     B, T = correl.shape
     dev = correl.device
     max_bins = -(-T // sn)

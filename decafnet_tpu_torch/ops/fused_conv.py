@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import seq
 from . import cuda
 from .masked import channel_layer_norm
 from .params import cached
@@ -120,7 +121,17 @@ def conv3_ln_act(x, mask, w, bias=None, ln_w=None, ln_b=None, act="relu",
     :func:`conv3_ln_act_torch` and differentiates it: the counterpart of the
     JAX ``custom_vjp``, which recomputes through ``conv3_ln_act_xla``
     (decafnet_tpu/ops/fused_conv.py:209-234). The mask gets no gradient,
-    nor does an absent bias or LN affine."""
+    nor does an absent bias or LN affine.
+
+    Time-sharded (:func:`parallel.seq.active`), the op runs on this rank's
+    block widened by one column of each neighbour (x and mask, zeros and
+    False past the video's ends) and crops the result back to the block."""
+    shard = seq.active()
+    if shard is not None:
+        xh, mh = shard.halo(x, mask, left=1, right=1)
+        with seq.replicated():
+            y = conv3_ln_act(xh, mh, w, bias, ln_w, ln_b, act, eps)
+        return seq.crop(y, 1, 1)
     if cuda.recording(x, w, bias, ln_w, ln_b):
         return _Conv3LnAct.apply(x, mask, w, bias, ln_w, ln_b, act, eps)
     return _conv3_ln_act(x, mask, w, bias, ln_w, ln_b, act, eps)
@@ -236,7 +247,16 @@ def qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps=1e-5):
     Under autograd the same forward runs inside :class:`_QkvDepthwiseLn`,
     whose backward recomputes through :func:`qkv_depthwise_ln_torch`, as the
     JAX ``custom_vjp`` recomputes through ``qkv_depthwise_ln_xla``
-    (decafnet_tpu/ops/fused_conv.py:396-407)."""
+    (decafnet_tpu/ops/fused_conv.py:396-407).
+
+    Time-sharded, the op runs on the block widened by one column of each
+    neighbour and crops the three outputs, as :func:`conv3_ln_act` does."""
+    shard = seq.active()
+    if shard is not None:
+        xh, mh = shard.halo(x, mask, left=1, right=1)
+        with seq.replicated():
+            outs = qkv_depthwise_ln(xh, mh, ws, ln_ws, ln_bs, eps)
+        return tuple(seq.crop(o, 1, 1) for o in outs)
     params = (*ws, *ln_ws, *ln_bs)
     if cuda.recording(x, *params):
         return _QkvDepthwiseLn.apply(x, mask, eps, *params)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import seq
 from . import cuda
 
 
@@ -102,7 +103,21 @@ def band_attention(q, k, v, kv_mask, window_size):
     differentiates it: the counterpart of the JAX ``custom_vjp``, which
     recomputes through ``band_attention_xla``
     (decafnet_tpu/ops/local_attention.py:382-394). The mask gets no
-    gradient."""
+    gradient.
+
+    Time-sharded (:func:`parallel.seq.active`), k, v and the key mask are
+    widened by ``window_size // 2`` columns of each neighbour (masked past
+    the video's ends), q by as many zero columns, whose outputs are cropped:
+    every query of the block sees the keys it sees in one process."""
+    shard = seq.active()
+    if shard is not None:
+        h = window_size // 2
+        kh, vh, mh = shard.halo(k, v, kv_mask[:, None, :, None], left=h,
+                                right=h, axis=-2)
+        qh = F.pad(q, (0, 0, h, h))
+        with seq.replicated():
+            out = band_attention(qh, kh, vh, mh[:, 0, :, 0], window_size)
+        return out[..., h:out.shape[-2] - h, :]
     if cuda.recording(q, k, v):
         return _BandAttention.apply(q, k, v, kv_mask, window_size)
     return _band_attention(q, k, v, kv_mask, window_size)

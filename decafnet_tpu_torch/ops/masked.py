@@ -8,7 +8,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from ..parallel import seq
 
 
 def masked_avg_pool1d(x, mask):
@@ -31,12 +34,27 @@ def masked_max_pool1d(x, mask, kernel_size=3, stride=2):
     """Masked strided max pooling: invalid positions take the per-row
     minimum before pooling and the pooled mask gates the output; the
     minimum is a constant to autograd, as the JAX ``stop_gradient`` makes
-    it. Returns (pooled_x, pooled_mask_bool)."""
+    it. Returns (pooled_x, pooled_mask_bool).
+
+    Time-sharded (:func:`parallel.seq.active`), the minimum is the row's
+    over every rank, and the pools read the columns before this rank's
+    block (-inf past the video's start, the pool's own padding)."""
+    shard = seq.active()
     x_min = torch.amin(x.detach(), dim=-1, keepdim=True)
+    if shard is not None:
+        x_min = shard.all_reduce(x_min, dist.ReduceOp.MIN)
     mask_f = mask.to(x.dtype)
     x = x * mask_f + (1.0 - mask_f) * x_min
-    x = max_pool1d(x, kernel_size, stride)
-    mask_f = max_pool1d(mask_f, kernel_size, stride)
+    if shard is None:
+        x = max_pool1d(x, kernel_size, stride)
+        mask_f = max_pool1d(mask_f, kernel_size, stride)
+        return x * mask_f, mask_f.bool()
+    t, pad = x.shape[-1], (kernel_size - 1) // 2
+    x, mask_f = shard.halo(x, mask_f, left=pad,
+                           right=max(0, kernel_size - pad - stride),
+                           fill=-float("inf"))
+    x = max_pool1d(x, kernel_size, stride, 0)[..., :t // stride]
+    mask_f = max_pool1d(mask_f, kernel_size, stride, 0)[..., :t // stride]
     return x * mask_f, mask_f.bool()
 
 

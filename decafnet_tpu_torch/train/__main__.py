@@ -21,6 +21,8 @@ is the global batch; the lead rank writes ``opt.yaml``, the logs, the
 checkpoints and ``finished``. Only the lead runs the train-time eval while
 the other ranks wait at a barrier, so one eval must take less than
 ``parallel.TIMEOUT_MIN`` (120 minutes), after which the group fails.
+With ``--set tpu.shard_time True`` the ranks split each video's time axis
+instead of the batch (sequence parallelism, ``parallel/seq.py``).
 """
 
 from __future__ import annotations

@@ -17,6 +17,19 @@ global batch), the metrics and the positive-point count are summed before
 the loss-norm EMA, and only the lead rank writes logs, checkpoints and runs
 the train-time eval; the result equals the single-process run's.
 
+Sequence parallelism (``tpu.shard_time: true``, the JAX 1-D ``time`` mesh):
+in a process group of S ranks every rank loads the whole global batch and
+keeps its block of each video's time axis (:mod:`parallel.seq`); the
+forward and backward run inside that shard, so the ops exchange halos and
+delegation gathers its bins; the loss sums the focal and DIoU terms of this
+rank's points only, so nothing replicated counts S times; the gradients are
+summed over the ranks after the backward (no ``DistributedDataParallel``,
+whose bucket all-reduces would interleave with the halo exchanges on the
+same group) and the positive count and metrics before the loss-norm EMA;
+and every rank draws the dropouts from one generator seeded by ``cfg.seed``
+at the global shape, so the step is the single-process step. The 2-D
+``data+time`` mesh raises (ROADMAP item 11d).
+
 Compute dtype: ``tpu.compute_dtype: bfloat16`` (or ``bf16``) trains as the
 JAX package does with an explicit bf16 (``auto`` is f32 for training, as
 the JAX ``resolve_compute_dtype(eval_mode=False)`` gives): bf16 activations,
@@ -50,8 +63,10 @@ import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from .. import parallel
+from ..parallel import seq
 from ..data import DataLoader, batchify_train, make_dataset
-from ..models import init_random, load_pth, make_model, require_two_heads
+from ..models import (check_time_sharding, init_random, load_pth, make_model,
+                      require_two_heads)
 from ..models.points import fpn_lengths, generate_points, select_points
 from ..utils.logging import AverageMeter, Logger, time_str
 from ..utils.tracking import MetricsSink
@@ -67,12 +82,10 @@ def check_supported(cfg):
     ROADMAP item, instead of running something else; and for the
     forward-only model variants."""
     require_two_heads(cfg, "Trainer")
-    if cfg.tpu.get("shard_time"):
-        raise NotImplementedError(
-            "tpu.shard_time: sequence-parallel training is not in the port "
-            "yet (ROADMAP item 11)")
     world, batch = parallel.world_size(), cfg.train.batch_size
-    if batch % world:
+    if cfg.tpu.get("shard_time"):
+        check_time_split(cfg, world)
+    elif batch % world:
         raise ValueError(f"train.batch_size {batch} does not divide over "
                          f"{world} processes")
     if cfg.task not in TASKS:
@@ -80,6 +93,24 @@ def check_supported(cfg):
     if cfg.train.version != 2:
         raise ValueError("only train.version=2 is implemented (set "
                          "`train: {version: 2}`)")
+
+
+def check_time_split(cfg, world):
+    """Raise for a ``tpu.shard_time`` run the port cannot shard over its
+    ``world`` ranks, naming the rule: a 2-D ``tpu.mesh_shape`` (ROADMAP item
+    11d), a 1-D one of another size than the group, and a train length that
+    does not split (:func:`models.check_time_sharding`)."""
+    shape = cfg.tpu.get("mesh_shape")
+    if shape and len(shape) == 2:
+        raise NotImplementedError(
+            f"tpu.mesh_shape {tuple(shape)} with tpu.shard_time: the 2-D "
+            f"data+time mesh is not in the port (ROADMAP item 11d)")
+    if shape and int(np.prod(shape)) != world:
+        raise ValueError(f"tpu.shard_time shards the time axis over the "
+                         f"{world} ranks of the process group, and "
+                         f"tpu.mesh_shape {tuple(shape)} names another count")
+    if world > 1:
+        check_time_sharding(cfg, cfg.data.max_vid_len, world)
 
 
 def build_microbatch_loss(model, cfg):
@@ -132,14 +163,20 @@ def build_microbatch_loss(model, cfg):
     return microbatch_loss
 
 
-def train_points(cfg, device):
-    """(4, P) candidate points of the static train length on ``device``."""
+def train_points(cfg, device, shard=None):
+    """(4, P) candidate points of the static train length on ``device``;
+    with a time ``shard``, each level's block of this rank (the points of
+    the model's sharded outputs)."""
     lens = fpn_lengths(cfg.data.max_vid_len // cfg.model.vid_stride,
                        cfg.model.num_fpn_levels)
     pts = generate_points(cfg.pt_gen.max_seq_len, cfg.pt_gen.num_fpn_levels,
                           cfg.pt_gen.regression_range, cfg.pt_gen.sigma)
+    levels = select_points(pts, lens)
+    if shard is not None:
+        levels = [shard.shard(torch.from_numpy(p), axis=0).numpy()
+                  for p in levels]
     return torch.from_numpy(np.ascontiguousarray(
-        np.concatenate(select_points(pts, lens)).T)).to(device)
+        np.concatenate(levels).T)).to(device)
 
 
 def prune_checkpoints(mdir, keep, exempt_epochs=()):
@@ -208,7 +245,10 @@ class Trainer:
     eval reads), and ``generator`` (on the device, seeded by ``cfg.seed``
     and the rank: :func:`rank_seed`) feeds the dropouts. In a process group
     ``ddp`` is ``model`` under ``DistributedDataParallel`` and runs the
-    forwards; else it is None."""
+    forwards; else it is None. Under ``tpu.shard_time`` in a group of more
+    than one rank, ``shard`` is this rank's :class:`parallel.TimeShard`,
+    ``ddp`` is None and ``generator`` is seeded by ``cfg.seed`` on every
+    rank; else ``shard`` is None."""
 
     def __init__(self, cfg, device=None):
         from ..eval.evaluator import Evaluator, resolve_device
@@ -218,18 +258,24 @@ class Trainer:
         self.device = resolve_device(device)
         self.rank, self.world = parallel.rank(), parallel.world_size()
         self.is_lead = self.rank == 0
+        self.shard = (seq.TimeShard() if cfg.tpu.get("shard_time")
+                      and self.world > 1 else None)
         self.generator = torch.Generator(device=self.device).manual_seed(
-            rank_seed(cfg.seed, self.rank))
+            cfg.seed if self.shard else rank_seed(cfg.seed, self.rank))
 
         self.num_epochs = cfg.train.epochs + cfg.train.warmup_epochs
         self.dataset = make_dataset(cfg, num_epochs=self.num_epochs,
                                     is_training=True,
                                     rng=np.random.RandomState(cfg.seed))
         self.max_num_text = cfg.data.max_num_text or 1
+        # under shard_time every rank loads the whole global batch
+        rows_split = self.world > 1 and self.shard is None
         self.loader = DataLoader(
             self.dataset, cfg.train.batch_size, shuffle=True, seed=cfg.seed,
-            num_threads=cfg.train.num_workers, rank=self.rank,
-            world_size=self.world, shard_within_batch=self.world > 1,
+            num_threads=cfg.train.num_workers,
+            rank=self.rank if rows_split else 0,
+            world_size=self.world if rows_split else 1,
+            shard_within_batch=rows_split,
             transform=lambda samples: batchify_train(
                 samples, cfg.data.max_vid_len, cfg.data.max_text_len,
                 self.max_num_text))
@@ -244,7 +290,7 @@ class Trainer:
             load_pth(model, cfg.model.pretrain, "model")
         self.model = model.to(self.device).train()
         self.ema = copy.deepcopy(self.model).eval().requires_grad_(False)
-        self.points_t = train_points(cfg, self.device)
+        self.points_t = train_points(cfg, self.device, self.shard)
 
         sched_cfg = dict(cfg.scheduler, _base_lr=cfg.optimizer.lr)
         self.optimizer = Optimizer(self.model, cfg.optimizer,
@@ -277,7 +323,12 @@ class Trainer:
         # is broadcast per forward; every parameter gets a gradient in
         # every microbatch, so no unused-parameter search
         self.ddp = None
-        if parallel.initialized():
+        if self.shard is not None:
+            # every rank starts from the lead's weights (its own are the
+            # same seed's, or the same files')
+            for t in list(self.model.parameters()) + list(self.ema.parameters()):
+                dist.broadcast(t.data, 0)
+        elif parallel.initialized():
             self.ddp = DistributedDataParallel(
                 self.model, device_ids=(
                     [self.device.index if self.device.index is not None
@@ -307,10 +358,13 @@ class Trainer:
         ``train.microbatch_size``), summing gradients into ``.grad``
         (cleared first; in a group summed over the ranks after the last
         block). Returns the metrics summed over the blocks and the ranks,
-        0-d device tensors."""
+        0-d device tensors. Time-sharded, ``batch`` is the whole global
+        batch, each block runs on this rank's part of the time axis and the
+        gradients are summed over the ranks after the last block."""
         self.optimizer.zero_grad()
         micro = micro or self.micro
-        n_micro = max(batch["vid"].shape[0] * self.world // micro, 1)
+        rows = batch["vid"].shape[0] * (1 if self.shard else self.world)
+        n_micro = max(rows // micro, 1)
         totals = None
         for i in range(n_micro):
             mb = {}
@@ -320,20 +374,39 @@ class Trainer:
                                      f"into {n_micro} microbatches")
                 n = v.shape[0] // n_micro
                 mb[k] = v[i * n:(i + 1) * n]
+                if self.shard is not None and k in seq.TIME_KEYS:
+                    mb[k] = self.shard.shard(mb[k])
             # DDP sums the gradients in the last block's backward only
             sync = self.ddp is None or i == n_micro - 1
-            with contextlib.nullcontext() if sync else self.ddp.no_sync():
+            with contextlib.nullcontext() if sync else self.ddp.no_sync(), \
+                    seq.sharding(self.shard):
                 loss, metrics = self.loss_fn(mb, self.generator,
                                              self.loss_norm, self.points_t)
                 loss.backward()
             metrics = {k: v.detach() for k, v in metrics.items()}
             totals = metrics if totals is None else {
                 k: totals[k] + metrics[k] for k in totals}
+        if self.shard is not None:
+            self._sum_grads()
         if self.world > 1:
             keys = list(totals)
             summed = parallel.all_reduce_sum(torch.stack([totals[k] for k in keys]))
             totals = dict(zip(keys, summed.unbind()))
         return totals
+
+    def _sum_grads(self):
+        """Every parameter's gradient summed over the ranks (one collective
+        over the flattened gradients)."""
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        parallel.all_reduce_sum(flat)
+        at = 0
+        for p in params:
+            p.grad.copy_(flat[at:at + p.numel()].view_as(p.grad))
+            at += p.numel()
 
     def update(self, metrics):
         """Optimizer step, EMA and loss-norm EMA after :meth:`accumulate`."""

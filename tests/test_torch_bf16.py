@@ -330,8 +330,10 @@ def test_bf16_service_answers_over_http(experiment):  # noqa: F811
 
 def test_trainer_takes_bf16_and_refuses_shard_time(synth, tmp_path):  # noqa: F811
     """An explicit bf16 builds a Trainer whose model (and EMA) computes in
-    bf16 on f32 weights; ``auto`` trains in f32; ``tpu.shard_time`` still
-    raises, naming ROADMAP item 11."""
+    bf16 on f32 weights; ``auto`` trains in f32; ``tpu.shard_time`` in bf16
+    builds one too (one process: nothing to shard;
+    tests/test_torch_seq_train.py runs it over two ranks), and with a 2-D
+    ``tpu.mesh_shape`` still raises, naming ROADMAP item 11d."""
     def cfg_of(dtype, **tpu):
         _, cfg = train_cfg_pair(synth, str(tmp_path / dtype))
         cfg.tpu.update(compute_dtype=dtype, **tpu)
@@ -342,5 +344,8 @@ def test_trainer_takes_bf16_and_refuses_shard_time(synth, tmp_path):  # noqa: F8
         assert trainer.model.compute_dtype == trainer.ema.compute_dtype == torch.bfloat16
         assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
     assert Trainer(cfg_of("auto"), device="cpu").model.compute_dtype is None
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        Trainer(cfg_of("bfloat16", shard_time=True), device="cpu")
+    trainer = Trainer(cfg_of("bfloat16", shard_time=True), device="cpu")
+    assert trainer.shard is None and trainer.model.compute_dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11d"):
+        Trainer(cfg_of("bfloat16", shard_time=True, mesh_shape=(1, 2)),
+                device="cpu")

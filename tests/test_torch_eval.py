@@ -271,11 +271,23 @@ def test_missing_checkpoint_names_both_paths(experiment, tmp_path):
     assert "last.pth" in str(e.value) and "last.msgpack" in str(e.value)
 
 
-@pytest.mark.parametrize("override,error", [
-    (("eval.shard_time", "4"), NotImplementedError),
+@pytest.mark.parametrize("override,error,match", [
+    # eval.shard_time runs under torchrun (tests/test_torch_seq_eval.py);
+    # what of it the port still refuses: global video self-attention
+    # (ROADMAP item 11d), S other than the group's size, a length that does
+    # not split, and stacked videos with it
+    pytest.param(("eval.shard_time", "2", "model.vid_net.mha_win_size", "-1"),
+                 NotImplementedError, "ROADMAP item 11d",
+                 id="override0-NotImplementedError"),
+    pytest.param(("eval.shard_time", "4"), ValueError,
+                 "ranks of the process group", id="shard_time-not-the-group"),
+    pytest.param(("eval.shard_time", "3"), ValueError, "must be a multiple of",
+                 id="shard_time-length-does-not-split"),
+    pytest.param(("eval.shard_time", "2", "eval.shard_videos", "2"),
+                 ValueError, "exclusive", id="shard_time-with-shard_videos"),
 ])
-def test_unported_settings_raise(experiment, override, error):
-    with pytest.raises(error, match="ROADMAP item 11"):
+def test_unported_settings_raise(experiment, override, error, match):
+    with pytest.raises(error, match=match):
         eval_main(["--name", experiment, "--device", "cpu", "--set", *override])
 
 

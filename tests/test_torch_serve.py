@@ -158,7 +158,7 @@ def test_port_imports_no_jax():
         "walked = [m for m in ('data.dataset', 'data.loader', 'eval.__main__', "
         "'train.losses', 'train.optim', 'train.trainer', 'train.__main__', "
         "'utils.analysis', 'utils.tracking', 'serve', 'encode.pipeline', "
-        "'encode.__main__', 'parallel', 'parallel.dist') "
+        "'encode.__main__', 'parallel', 'parallel.dist', 'parallel.seq') "
         "if 'decafnet_tpu_torch.' + m not in sys.modules]\n"
         "assert not walked, walked\n"
         "print('ok', len([k for k in sys.modules "
@@ -172,7 +172,7 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("first", ["utils", "utils.analysis", "eval.metrics",
-                                   "train", "encode"])
+                                   "train", "encode", "parallel.seq"])
 def test_port_module_imports_first_in_a_fresh_process(first):
     # no import cycle depends on which module of the port comes first
     out = subprocess.run([sys.executable, "-c",

@@ -175,17 +175,42 @@ def test_train_time_eval_reads_the_ema(synth, tmp_path):
     np.testing.assert_array_equal(got, Evaluator(tc, device="cpu").run())
 
 
-@pytest.mark.parametrize("setting,value,match", [
-    ("tpu.shard_time", True, "ROADMAP item 11"),
-    ("model.name", "default", "forward-only"),
-    ("train.version", 1, "train.version=2"),
-    ("task", "other", "training knows"),
+@pytest.mark.parametrize("settings,world,match", [
+    # tpu.shard_time trains (tests/test_torch_seq_train.py); what of it the
+    # port still refuses: the 2-D data+time mesh (ROADMAP item 11d), a 1-D
+    # mesh of another size than the group, a train length that does not
+    # split over the ranks, a halo longer than a block, and global video
+    # self-attention
+    pytest.param({"tpu.shard_time": True, "tpu.mesh_shape": (1, 2)}, 2,
+                 "ROADMAP item 11d", id="tpu.shard_time-True-ROADMAP item 11"),
+    pytest.param({"tpu.shard_time": True, "tpu.mesh_shape": (4,)}, 2,
+                 "names another count", id="shard_time-mesh-not-the-group"),
+    pytest.param({"tpu.shard_time": True}, 3, "must be a multiple of",
+                 id="shard_time-length-does-not-split"),
+    pytest.param({"tpu.shard_time": True}, 16, "longer than a rank's block",
+                 id="shard_time-halo-past-the-block"),
+    pytest.param({"tpu.shard_time": True, "model.vid_net.mha_win_size": -1},
+                 2, "ROADMAP item 11d", id="shard_time-global-attention"),
+    pytest.param({"model.name": "default"}, 1, "forward-only",
+                 id="model.name-default-forward-only"),
+    pytest.param({"train.version": 1}, 1, "train.version=2",
+                 id="train.version-1-train.version=2"),
+    pytest.param({"task": "other"}, 1, "training knows",
+                 id="task-other-training knows"),
 ])
-def test_refused_settings(synth, tmp_path, setting, value, match):
+def test_refused_settings(synth, tmp_path, monkeypatch, settings, world, match):
+    """Each refused setting raises naming its rule; ``world`` is the size
+    the process group reports (the rules of shard_time depend on it)."""
+    from decafnet_tpu_torch import parallel
+
     _, tc = small_cfgs(synth, str(tmp_path / "exp"))
-    node, key = (tc, setting) if "." not in setting else (
-        tc[setting.split(".")[0]], setting.split(".")[1])
-    node[key] = value
+    for setting, value in settings.items():
+        *path, key = setting.split(".")
+        node = tc
+        for p in path:
+            node = node[p]
+        node[key] = value
+    monkeypatch.setattr(parallel, "world_size", lambda: world)
     with pytest.raises((NotImplementedError, ValueError), match=match):
         Trainer(tc, device="cpu")
 
