@@ -157,7 +157,16 @@ Phases, each printing one JSON line:
            one-process Trainer, with each rank's peak memory and step walls,
            then one more forward and backward of a step's batch profiled on
            rank 0 (the device time of the halo exchanges and of the halos'
-           copies, and the exchanges per step);
+           copies, and the exchanges per step); dt2x2, the same with
+           tpu.mesh_shape [2, 2] over four gloo ranks (8 videos x 1152
+           columns each, exchanges inside 2-rank time subgroups), by ddp2's
+           rules, its update's distance to ddp2's beside two one-process
+           runs', per-rank peak memory, 44 / 7 / 1 launches per forward
+           microbatch and rank 0's exchanges per forward; seq2_global, seq2
+           with global video self-attention (model.vid_net.mha_win_size
+           -1: the ranks gather every attention's keys) against a
+           one-process run of the same override, 44 / 0 / 1 launches, the
+           per-rank peak beside the one-process peak;
            seq2_mad, one step of the remat_mad leg's MAD task (T = 32768, 8
            rows, dropout as configured, drawn from one seed), remat off and
            "nothing", with each rank's peak memory beside the one-process
@@ -165,10 +174,14 @@ Phases, each printing one JSON line:
            with eval.shard_time 2 over the eval phase's experiment: every
            rank's table equals the eval phase's, the lead's detections and
            annotated-recall table too, 44 / 7 / 1 launches per decode call
-           on each rank.
+           on each rank; evalseq2_global, the same with the global window
+           against a one-process eval of that override (tables equal,
+           detections within 1e-3 s / 1e-4, 44 / 0 / 1 launches per decode
+           call).
 Then one {"kernels": [...]} line (the three f32 kernels with their launches
 summed over the serve, eval, http, train, remat, variants, encode, encode
-CLI, multi, seq2, seq2_mad and evalseq2 paths, and the three bf16 variants with theirs over the bf16
+CLI, multi, seq2, dt2x2, seq2_global, seq2_mad, evalseq2 and evalseq2_global
+paths, and the three bf16 variants with theirs over the bf16
 phase's serve, eval and http paths, the bf16 train, MAD remat and encode
 legs, each with the breakdown; the bf16
 records also carry ptxas's registers, spills and shared memory of their
@@ -224,8 +237,9 @@ SEG_TOL_S, SCORE_TOL = 1e-3, 1e-4
 # by model: conv3 runs in the 2 embedding convs and every trunk layer of the
 # heads (the live model's 3 heads, the one-head variants' 2, x 2 layers x 7
 # levels), band attention once per FPN encoder, the trio in the stride-1
-# encoder; pool_only has no encoders. A remat train microbatch (forward and
-# backward) runs the encoders' kernels again in the recompute
+# encoder; pool_only has no encoders; global video attention
+# (vid_net.mha_win_size -1) runs no band attention. A remat train microbatch
+# (forward and backward) runs the encoders' kernels again in the recompute
 PER_FORWARD = {
     "iter": {"conv3_ln_act": 44, "band_attention": 7, "qkv_depthwise_ln": 1},
     "iter2": {"conv3_ln_act": 44, "band_attention": 7, "qkv_depthwise_ln": 1},
@@ -235,7 +249,10 @@ PER_FORWARD = {
     "identity_pool_only": {"conv3_ln_act": 44, "band_attention": 0,
                            "qkv_depthwise_ln": 0},
     "remat": {"conv3_ln_act": 44, "band_attention": 14, "qkv_depthwise_ln": 2},
+    "global": {"conv3_ln_act": 44, "band_attention": 0, "qkv_depthwise_ln": 1},
 }
+# the override of the global video self-attention legs
+GLOBAL = ["model.vid_net.mha_win_size", "-1"]
 # the serve, eval, http, train and encode paths run the live model
 PER_DECODE = PER_FORWARD["iter"]
 # eval losses, kernels vs plain versions (sums over up to ~4600 points)
@@ -2717,15 +2734,19 @@ def rank_worker(kind, report, argv):
             train(trainer)
             fields = {"steps": trainer.step, "device": str(trainer.device),
                       "time_sharded": trainer.shard is not None,
-                      "step_ms": step_ms}
+                      "data_rank": trainer.data_rank,
+                      "time_rank": trainer.shard.rank if trainer.shard else 0,
+                      "logdir": trainer.cfg.aux.logdir, "step_ms": step_ms}
             if kind == "seqtrain":
-                # one more forward and backward of a step's batch after
-                # training, profiled on rank 0 (every rank runs it: the
-                # exchanges are collectives); the launches are the run's
+                # one more forward and backward of a step's batch (this
+                # rank's data block of it) after training, profiled on rank
+                # 0 (every rank runs it: the exchanges are collectives); the
+                # launches are the run's
                 fields["launches"] = ops.launch_counts()
+                n = trainer.cfg.train.batch_size // trainer.data_world
                 batch = _to_device(trainer.loader.transform(
-                    [trainer.dataset[i]
-                     for i in range(trainer.cfg.train.batch_size)]),
+                    [trainer.dataset[i] for i in range(
+                        trainer.data_rank * n, (trainer.data_rank + 1) * n)]),
                     trainer.device)
                 def run():
                     trainer.accumulate(batch)
@@ -2902,16 +2923,32 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi, mad_ref):
            the one-process run; then one more forward and backward of a
            step's batch, rank 0's profiled (the exchanges' and the halos'
            copies' device time);
+    dt2x2  seq2 with ``tpu.mesh_shape [2, 2]`` over four ranks: rank r holds
+           data block r // 2 (8 videos) and time block r % 2 (1152
+           columns), exchanging inside its 2-rank time subgroup; ddp2's
+           rules against the one-process run, its update's distance to
+           ddp2's beside the one-process runs', per-rank peak memory,
+           launches and rank 0's exchanges per forward;
+    seq2_global  seq2 with ``model.vid_net.mha_win_size -1`` (global video
+           self-attention: the ranks gather each attention's keys), against
+           a one-process run of the same override (another function), with
+           44 / 0 / 1 launches per forward microbatch and each rank's peak
+           memory beside the one-process run's;
     seq2_mad  one step of the remat_mad leg (``mad_ref``: its argv and its
            records) as two gloo ranks, remat off and "nothing": each rank's
            peak memory beside the one-process peak, the loss at rtol 1e-4;
     evalseq2  eval2 with ``eval.shard_time`` 2 instead: every rank decodes
            every video, one time block of each; the same checks, the lead's
-           dump against the eval phase's.
+           dump against the eval phase's;
+    evalseq2_global  evalseq2 with the global window, against a one-process
+           eval of the same override: the tables equal, the detections
+           within 1e-3 s / 1e-4, 44 / 0 / 1 launches per decode call.
 
     Returns the launches of each path: "multi" (the four legs above seq2:
-    every rank's, and the V = 4 run's), "seq2", "seq2_mad" and
-    "evalseq2" (every rank's)."""
+    every rank's, and the V = 4 run's), "seq2", "dt2x2", "seq2_global",
+    "seq2_mad", "evalseq2" and "evalseq2_global" (every rank's)."""
+    import gc
+
     from decafnet_tpu_torch import ops
     from decafnet_tpu_torch.eval.__main__ import build_evaluator
     from decafnet_tpu_torch.train.__main__ import build_trainer, train
@@ -2961,62 +2998,115 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi, mad_ref):
     assert steps == 2 and n_micro == 1, (steps, n_micro)
     launches = {n: 0 for n in PER_DECODE}
 
+    # the global-window model (vid_net.mha_win_size -1) is another function:
+    # its own one-process run, the reference of seq2_global, with the peak
+    # memory of its run (above what this process held before it)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_gb = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref_g = build_trainer(train_argv("ref_global") + GLOBAL)
+    start_g = snapshot(ref_g)
+    train(ref_g)
+    refs = {"window": (ref_log, start, ref_end, ref_s, None),
+            "global": (logged(ref_g.cfg.aux.logdir), start_g, snapshot(ref_g),
+                       time.perf_counter() - t0,
+                       torch.cuda.max_memory_allocated() / 2 ** 30 - base_gb)}
+    assert ref_g.cfg.model.vid_net.mha_win_size == -1 and ref_g.step == steps
+    del ref_g
+    # how far the global-window model's update lies from the window-5 one's
+    # (LayerScale's 1e-4 start keeps the attention branches small)
+    global_vs_window = update_rel_l2(refs["global"][2]["model"],
+                                     ref_end["model"], start["model"])
+
     on_card = ["--device", "cuda:0", "--dist-backend", "gloo"]
+    seq_on = ["tpu.shard_time", "True"]
     paths = {"multi": launches}
-    for leg, nproc, extra in (("ddp1", 1, []), ("ddp2", 2, on_card),
-                              ("seq2", 2, ["tpu.shard_time", "True", *on_card])):
-        kind = "seqtrain" if leg == "seq2" else "train"
-        reports, out, wall = torchrun(nproc, kind, train_argv(leg) + extra,
-                                      os.path.join(mroot, leg))
-        logdir = ref_dir.replace(os.path.join(mroot, "ref"),
-                                 os.path.join(mroot, leg))
+    ends = {}
+    # leg: (ranks, data indices, worker kind, --set pairs, reference)
+    legs = {"ddp1": (1, 1, "train", [], "window"),
+            "ddp2": (2, 2, "train", [], "window"),
+            "seq2": (2, 1, "seqtrain", seq_on, "window"),
+            "dt2x2": (4, 2, "seqtrain", seq_on + ["tpu.mesh_shape", "[2, 2]"],
+                      "window"),
+            "seq2_global": (2, 1, "seqtrain", seq_on + GLOBAL, "global")}
+    for leg, (nproc, n_data, kind, sets, ref_name) in legs.items():
+        want_log, want_start, want_end, want_s, want_peak = refs[ref_name]
+        reports, out, wall = torchrun(
+            nproc, kind, train_argv(leg) + sets + (on_card if nproc > 1 else []),
+            os.path.join(mroot, leg))
+        logdir = reports[0]["logdir"]
         got = logged(logdir)
-        assert [g["itr"] for g in got] == [r["itr"] for r in ref_log]
-        loss_diff = max(abs(g[k] - r[k]) for g, r in zip(got, ref_log)
+        assert [g["itr"] for g in got] == [r["itr"] for r in want_log]
+        loss_diff = max(abs(g[k] - r[k]) for g, r in zip(got, want_log)
                         for k in ("train/cls", "train/reg", "train/total"))
-        loss_rel = max(abs(g[k] - r[k]) / abs(r[k]) for g, r in zip(got, ref_log)
+        loss_rel = max(abs(g[k] - r[k]) / abs(r[k]) for g, r in zip(got, want_log)
                        for k in ("train/cls", "train/reg", "train/total"))
         ckpt = torch.load(os.path.join(logdir, "models", "last.pth"),
                           weights_only=True)
         assert not [k for k in ckpt["model"] if k.startswith("module.")]
-        upd = {"model": update_rel_l2(ckpt["model"], ref_end["model"],
-                                      start["model"]),
-               "ema": update_rel_l2(ckpt["model_ema"], ref_end["ema"],
-                                    start["ema"])}
-        want = {n: c * steps * n_micro for n, c in PER_DECODE.items()}
-        backend = "nccl" if leg == "ddp1" else "gloo"
+        ends[leg] = {"model": ckpt["model"], "ema": ckpt["model_ema"]}
+        upd = {k: update_rel_l2(ends[leg][k], want_end[k], want_start[k])
+               for k in ("model", "ema")}
+        per_forward = PER_FORWARD[ref_name if ref_name == "global" else "iter"]
+        want = {n: c * steps * n_micro for n, c in per_forward.items()}
+        backend = "nccl" if nproc == 1 else "gloo"
+        sharded = kind == "seqtrain"
+        n_time = nproc // n_data
+        extra = {}
+        if sharded:
+            ranges = reports[0]["profile"]["ranges"]
+            extra = {"tpu.shard_time": True, "mesh": [n_data, n_time],
+                     "peak_mem_gb": [r["peak_mem_gb"] for r in reports],
+                     "rank_step_ms": [r["step_ms"] for r in reports],
+                     "exchanges_per_forward_rank0": {
+                         k: ranges.get(k, {}).get("calls", 0)
+                         for k in ("seq.halo", "seq.gather")},
+                     "profile_rank0_microbatch": reports[0]["profile"]}
+        if leg == "dt2x2":
+            extra["update_vs_ddp2"] = {
+                k: update_rel_l2(ends[leg][k], ends["ddp2"][k], want_start[k])
+                for k in ("model", "ema")}
+        if want_peak is not None:
+            extra.update(one_process_peak_gb=want_peak,
+                         one_process_vs_window_5_model=global_vs_window,
+                         peak_per_rank_vs_one_process=[
+                             r["peak_mem_gb"] / want_peak for r in reports])
         emit({"phase": "multi", "leg": leg, "launch": f"python -m "
               f"torch.distributed.run --standalone --nproc_per_node {nproc} "
               f"chip_smoke.py --rank-worker {kind} (decafnet_tpu_torch.train's "
               f"build_trainer + train)", "backend": backend,
-              **({"tpu.shard_time": True, "videos_per_rank":
-                  ref.cfg.train.batch_size, "T_per_rank":
-                  ref.cfg.data.max_vid_len // nproc,
-                  "peak_mem_gb": [r["peak_mem_gb"] for r in reports],
-                  "rank_step_ms": [r["step_ms"] for r in reports],
-                  "profile_rank0_microbatch": reports[0]["profile"]}
-                 if leg == "seq2" else {}),
-              "videos_per_rank": ref.cfg.train.batch_size // nproc,
-              "steps": steps, "losses": [{k: g[k] for k in g if k.startswith(
-                  "train/")} for g in got],
+              "sets": sets, "videos_per_rank": ref.cfg.train.batch_size // n_data,
+              "T_per_rank": ref.cfg.data.max_vid_len // (n_time if sharded else 1),
+              **extra, "steps": steps,
+              "losses": [{k: g[k] for k in g if k.startswith("train/")}
+                         for g in got],
               "ref_losses": [{k: r[k] for k in r if k.startswith("train/")}
-                             for r in ref_log],
+                             for r in want_log],
               "loss_max_abs_diff": loss_diff, "loss_max_rel": loss_rel,
               "weights": upd["model"], "ema": upd["ema"],
               "one_process_twice": noise,
               "ranks": reports, "expected_launches_per_rank": want,
+              "launches_per_forward_microbatch": [
+                  {n: r["launches"][n] / (steps * n_micro) for n in PER_DECODE}
+                  for r in reports],
               "step_ms": [1e3 * g["itr_time"] for g in got],
-              "ref_step_ms": [1e3 * r["itr_time"] for r in ref_log],
-              "ref_run_s": ref_s, "wall_s": wall, "card": smi,
-              "note": "two ranks share one card: no speed is read from "
-                      "these walls" if nproc > 1 else "world 1 over NCCL",
+              "ref_step_ms": [1e3 * r["itr_time"] for r in want_log],
+              "ref_run_s": want_s, "wall_s": wall, "card": smi,
+              "note": f"{nproc} ranks share one card: no speed is read from "
+                      f"these walls" if nproc > 1 else "world 1 over NCCL",
               "tol": {"loss_rtol": MULTI_LOSS_RTOL,
                       "update_rel_l2_all": GRAD_REL_L2_ALL,
                       "update_rel_l2_leaf": GRAD_REL_L2_LEAF}})
         assert [(r["rank"], r["world_size"], r["backend"]) for r in reports] \
             == [(i, nproc, backend) for i in range(nproc)], reports
-        assert all(r["time_sharded"] == (leg == "seq2") for r in reports)
-        path = "seq2" if leg == "seq2" else "multi"
+        assert all(r["time_sharded"] == sharded for r in reports)
+        # rank r at (r // n_time, r % n_time) of the (data, time) mesh
+        assert [(r["data_rank"], r["time_rank"]) for r in reports] == [
+            (i // n_time, i % n_time) if sharded else (i, 0)
+            for i in range(nproc)], reports
+        path = leg if sharded else "multi"
         paths.setdefault(path, {n: 0 for n in PER_DECODE})
         for r in reports:
             assert r["launches"] == want, (leg, r["launches"], want)
@@ -3181,6 +3271,51 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi, mad_ref):
         assert np.array_equal(annotated[mode], annotated["device_nms"]), mode
         assert c["seg_s"] <= SEG_TOL_S and c["score"] <= SCORE_TOL, (mode, c)
         assert c["loss_rel"] <= LOSS_RTOL, (mode, c)
+
+    # global video self-attention over the same checkpoint: one process,
+    # then every video's time axis over two ranks that gather the keys
+    ev = build_evaluator(["--name", eval_logdir, "--set", "eval.save_results",
+                          "True", *GLOBAL])
+    one_m = ev.run()
+    one_r = merged_results([EvalResults.load(os.path.join(
+        eval_logdir, "results_last.pk"))], order)
+    g_reports, _, g_wall = torchrun(
+        2, "eval",
+        ["--name", eval_logdir, "--device", "cuda:0", "--dist-backend", "gloo",
+         "--set", "eval.save_results", "True", "eval.shard_time", "2", *GLOBAL],
+        os.path.join(mroot, "evalseq2_global"))
+    seq_r = merged_results([EvalResults.load(os.path.join(
+        eval_logdir, "results_last.pk"))], order)
+    seg_d, sc_d = same_detections(eval_answers(one_r), eval_answers(seq_r))
+    loss_d = max(abs(a[k] - b[k]) / (LOSS_ATOL / LOSS_RTOL + abs(b[k]))
+                 for a, b in zip([l for v in seq_r.videos for l in v["losses"]],
+                                 [l for v in one_r.videos for l in v["losses"]])
+                 for k in a)
+    # the distance to the window-5 model's detections (printed only)
+    win_seg, win_sc = same_detections(eval_answers(base_r), eval_answers(one_r))
+    check_g = {"seg_s": seg_d, "score": sc_d, "loss_rel": loss_d}
+    emit({"phase": "multi", "leg": "evalseq2_global", "launch": "python -m "
+          "torch.distributed.run --standalone --nproc_per_node 2 chip_smoke.py "
+          "--rank-worker eval (decafnet_tpu_torch.eval's build_evaluator + "
+          "run) --set eval.shard_time 2 model.vid_net.mha_win_size -1",
+          "backend": "gloo", "ranks": g_reports,
+          "launches_per_decode_call": [
+              {n: r["launches"][n] / r["decode_calls"] for n in PER_DECODE}
+              for r in g_reports],
+          "recall": one_m.tolist(), "check": check_g,
+          "vs_window_5_model": {"seg_s": win_seg, "score": win_sc},
+          "wall_s": g_wall, "card": smi,
+          "note": "two ranks share one card: no speed is read from the wall"})
+    for r in g_reports:
+        assert r["time_sharded"] and r["videos"] == 12, r
+        assert r["recall"] == one_m.tolist() and r["queries"] == 48, r
+        assert r["decode_calls"] == 12 and r["launches"] == {
+            n: c * r["decode_calls"]
+            for n, c in PER_FORWARD["global"].items()}, r
+    paths["evalseq2_global"] = {n: sum(r["launches"][n] for r in g_reports)
+                                for n in PER_DECODE}
+    assert seg_d <= SEG_TOL_S and sc_d <= SCORE_TOL, check_g
+    assert loss_d <= LOSS_RTOL, check_g
     return paths
 
 

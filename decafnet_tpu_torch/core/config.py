@@ -286,8 +286,11 @@ def _base_tpu():
     state; the encode stage takes its dtype from the encoder options
     instead), ``remat`` / ``remat_policy``
     (activation checkpointing of the video encoders in training),
-    ``shard_time`` (sequence parallelism over the ``torchrun`` ranks; with
-    ``mesh_shape`` only to refuse a 2-D one, ROADMAP item 11d) and
+    ``shard_time`` (sequence parallelism over the ``torchrun`` ranks),
+    ``mesh_shape`` (with ``shard_time``: None or ``[W]`` shards the time
+    axis over all W ranks; ``[n_data, n_time]`` with n_data * n_time = W
+    composes data and sequence parallelism, as the JAX ``('data',
+    'time')`` mesh does; ``--set tpu.mesh_shape "[2, 2]"``) and
     ``video_major_train``. Data-parallel training needs no key here: it
     runs under ``torchrun``."""
     tpu = CfgNode()

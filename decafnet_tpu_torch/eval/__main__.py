@@ -16,7 +16,8 @@ evaluates its share of the videos (``eval.shard_processes``) and the lead
 prints the global table. ``--set eval.shard_videos V`` decodes same-bucket
 groups of V videos in one call (one process only); ``--set eval.shard_time
 N`` under N ranks splits each video's time axis over them instead
-(sequence parallelism). A rank that finishes
+(sequence parallelism; banded or global video attention; no data+time
+mesh, as in the JAX eval). A rank that finishes
 its share first waits for the others at most ``parallel.TIMEOUT_MIN``
 (120 minutes).
 """

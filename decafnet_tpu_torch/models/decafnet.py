@@ -30,8 +30,9 @@ Time-sharded (:mod:`parallel.seq`: the Trainer's ``tpu.shard_time``, the
 Evaluator's ``eval.shard_time``), the video inputs are this rank's block of
 each video's time axis and the outputs the block's points: the text net
 runs whole on every rank, delegation ranks its bins over the gathered
-correlation, and every op that reads past its own column exchanges halos
-with the neighbouring ranks. :func:`check_time_sharding` holds the rules.
+correlation, a global video self-attention attends over the gathered keys,
+and every op that reads past its own column exchanges halos with the
+neighbouring ranks. :func:`check_time_sharding` holds the rules.
 """
 
 from __future__ import annotations
@@ -428,14 +429,10 @@ def check_time_sharding(cfg, T, S):
     columns of the level before, and block edges align across levels), no
     halo longer than a block at any level (band attention's
     ``mha_win_size // 2``, the convs' 1, the TCN's dilation 2^(L-1) at level
-    0), and banded video attention (a global one would need every rank's
-    keys, ROADMAP item 11d)."""
+    0). A global video attention (``mha_win_size <= 0``) gathers every
+    rank's keys (``nn.blocks.MaskedMHA``) and needs no halo."""
     vn = cfg.model["vid_net"]
     L, win = vn["arch"][-1], vn["mha_win_size"]
-    if win <= 0:
-        raise NotImplementedError(
-            "time sharding with global video self-attention "
-            "(vid_net.mha_win_size <= 0) is not in the port (ROADMAP item 11d)")
     unit = S * vn.get("stride", 1) * 2 ** (L - 1)
     if T % unit:
         raise ValueError(f"time sharding: a video of {T} columns must be a "

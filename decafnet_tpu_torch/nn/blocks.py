@@ -236,10 +236,18 @@ class MaskedMHA(nn.Module):
     (JAX nn/blocks.py:314-329). In training,
     dropout at ``attn_pdrop`` on the global attention weights (the banded
     path has none, as in the JAX module) and at ``proj_pdrop`` on the
-    output projection."""
+    output projection.
+
+    ``gather_keys``: the keys lie on the queries' time axis (a video's
+    self-attention). Time-sharded (:func:`parallel.seq.active`), the global
+    attention then gathers the projected keys, values and key mask of every
+    rank (one differentiable ``TimeShard.gather``) and keeps the rank's
+    queries; the banded one exchanges halos instead (``band_attention``).
+    Off (a cross-attention to the replicated text), nothing is gathered."""
 
     def __init__(self, embd_dim, q_dim=None, kv_dim=None, out_dim=None,
-                 n_heads=4, window_size=0, attn_pdrop=0.0, proj_pdrop=0.0):
+                 n_heads=4, window_size=0, attn_pdrop=0.0, proj_pdrop=0.0,
+                 gather_keys=False):
         super().__init__()
         assert embd_dim % n_heads == 0
         q_dim = q_dim or embd_dim
@@ -247,6 +255,7 @@ class MaskedMHA(nn.Module):
         out_dim = out_dim or q_dim
         self.embd_dim, self.n_heads, self.window_size = embd_dim, n_heads, window_size
         self.attn_pdrop, self.proj_pdrop = attn_pdrop, proj_pdrop
+        self.gather_keys = gather_keys
         self.query = Conv1d(q_dim, embd_dim, 1)
         self.key = Conv1d(kv_dim, embd_dim, 1)
         self.value = Conv1d(kv_dim, embd_dim, 1)
@@ -266,9 +275,15 @@ class MaskedMHA(nn.Module):
         def to_heads(x):  # (bs, c, t) -> (bs, h, t, d), a strided view
             return x.reshape(bs, h, d, x.shape[-1]).transpose(2, 3)
 
+        kp, vp = self.key(k), self.value(v)
+        shard = seq.active()
+        if shard is not None and self.gather_keys and self.window_size <= 0:
+            # every rank's keys, after the projections: no rank projects
+            # another's
+            kp, vp, kv_mask = shard.gather(kp, vp, kv_mask)
         qh = to_heads(self.query(q)) * scale
-        kh = to_heads(self.key(k)) * scale
-        vh = to_heads(self.value(v))
+        kh = to_heads(kp) * scale
+        vh = to_heads(vp)
         mask2d = kv_mask[:, 0, :]
 
         if self.window_size > 0:
@@ -329,9 +344,11 @@ class ConvAttNLayer(nn.Module):
             self.q_norm = LayerNorm(embd_dim)
             self.k_norm = LayerNorm(embd_dim)
             self.v_norm = LayerNorm(embd_dim)
+        # self-attention: its keys are its own time axis
         self.attn = MaskedMHA(embd_dim, out_dim=out_dim or embd_dim,
                               n_heads=n_heads, window_size=window_size,
-                              attn_pdrop=attn_pdrop, proj_pdrop=proj_pdrop)
+                              attn_pdrop=attn_pdrop, proj_pdrop=proj_pdrop,
+                              gather_keys=True)
 
     def forward(self, x, mask, generator=None):
         if self.stride == 1:

@@ -32,6 +32,11 @@ collective that gloo and NCCL both have for CUDA and CPU tensors (gloo has no
 tensors); bf16 and bool travel as f32 (exact), f64 as f64. A failed
 collective raises; nothing falls back.
 
+A 2-D ``tpu.mesh_shape: (n_data, n_time)`` composes this with data
+parallelism (:func:`mesh_shard`): rank r sits at (r // n_time, r % n_time)
+of the JAX package's ``('data', 'time')`` mesh, and its :class:`TimeShard`
+is its time subgroup's, so every exchange stays inside the subgroup.
+
 The ops read the shard of the running computation from :func:`active`: the
 Trainer and the Evaluator enter :func:`sharding` around their sharded
 forward and backward (the backward too: a remat recompute exchanges halos),
@@ -273,6 +278,38 @@ class _Gather(torch.autograd.Function):
             g = shard.all_reduce(g.contiguous().clone())
             out.append(shard.shard(g, axis))
         return (None, None) + tuple(out)
+
+
+def mesh_dims(mesh_shape, world):
+    """``(n_data, n_time)`` of a ``tpu.shard_time`` run over ``world`` ranks:
+    the time axis over every rank for ``mesh_shape`` None or 1-D, a 2-D
+    ``(n_data, n_time)`` as given. Raises for a shape that names another
+    count of ranks than the group's, or more than two axes."""
+    shape = tuple(int(n) for n in mesh_shape or ())
+    if len(shape) > 2:
+        raise ValueError(f"tpu.mesh_shape {shape}: at most two axes, "
+                         f"(n_data, n_time)")
+    if shape and math.prod(shape) != world:
+        raise ValueError(f"tpu.shard_time shards the time axis over the "
+                         f"{world} ranks of the process group, and "
+                         f"tpu.mesh_shape {shape} names another count")
+    return shape if len(shape) == 2 else (1, world)
+
+
+def mesh_shard(mesh_shape):
+    """This rank's place on the data x time mesh of ``mesh_shape`` over the
+    process group (:func:`mesh_dims`): ``(d, n_data, shard)``, ``d`` its
+    data index and ``shard`` the :class:`TimeShard` of the ranks ``d *
+    n_time + i``, as the JAX ``make_mesh`` reshapes the devices to
+    (n_data, n_time). With one data index the shard is the whole group's."""
+    n_data, n_time = mesh_dims(mesh_shape, dist.get_world_size())
+    if n_data == 1:
+        return 0, 1, TimeShard()
+    # every rank creates every subgroup, in the same order
+    groups = [dist.new_group(list(range(d * n_time, (d + 1) * n_time)))
+              for d in range(n_data)]
+    d = dist.get_rank() // n_time
+    return d, n_data, TimeShard(groups[d])
 
 
 # the shard of the running computation: one per process, not per thread,

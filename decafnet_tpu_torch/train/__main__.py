@@ -22,7 +22,11 @@ checkpoints and ``finished``. Only the lead runs the train-time eval while
 the other ranks wait at a barrier, so one eval must take less than
 ``parallel.TIMEOUT_MIN`` (120 minutes), after which the group fails.
 With ``--set tpu.shard_time True`` the ranks split each video's time axis
-instead of the batch (sequence parallelism, ``parallel/seq.py``).
+instead of the batch (sequence parallelism, ``parallel/seq.py``); adding
+``tpu.mesh_shape "[n_data, n_time]"`` (n_data * n_time = N) splits the
+batch over n_data groups of n_time ranks and each video's time axis within
+a group, e.g. ``torchrun --nproc_per_node 4 ... --set tpu.shard_time True
+tpu.mesh_shape "[2, 2]"``.
 """
 
 from __future__ import annotations

@@ -27,8 +27,14 @@ summed over the ranks after the backward (no ``DistributedDataParallel``,
 whose bucket all-reduces would interleave with the halo exchanges on the
 same group) and the positive count and metrics before the loss-norm EMA;
 and every rank draws the dropouts from one generator seeded by ``cfg.seed``
-at the global shape, so the step is the single-process step. The 2-D
-``data+time`` mesh raises (ROADMAP item 11d).
+at the global shape, so the step is the single-process step. A 2-D
+``tpu.mesh_shape: (n_data, n_time)`` composes both, as the JAX
+``data+time`` mesh does (:func:`parallel.seq.mesh_shard`): rank r loads
+data block ``d = r // n_time`` of the global batch and keeps time block
+``r % n_time`` of it, every exchange runs in its time subgroup, the
+gradients and metrics are summed over the whole group, and the dropouts
+draw from the generator of data rank ``d`` (:func:`rank_seed`) at the
+global time shape, so the step is the ``n_data``-rank DDP step.
 
 Compute dtype: ``tpu.compute_dtype: bfloat16`` (or ``bf16``) trains as the
 JAX package does with an explicit bf16 (``auto`` is f32 for training, as
@@ -78,9 +84,9 @@ TASKS = ("grounder", "mad", "charades")
 
 
 def check_supported(cfg):
-    """Raise for training settings the port does not have, naming their
-    ROADMAP item, instead of running something else; and for the
-    forward-only model variants."""
+    """Raise for training settings the port cannot run, naming the rule,
+    instead of running something else; and for the forward-only model
+    variants."""
     require_two_heads(cfg, "Trainer")
     world, batch = parallel.world_size(), cfg.train.batch_size
     if cfg.tpu.get("shard_time"):
@@ -97,20 +103,18 @@ def check_supported(cfg):
 
 def check_time_split(cfg, world):
     """Raise for a ``tpu.shard_time`` run the port cannot shard over its
-    ``world`` ranks, naming the rule: a 2-D ``tpu.mesh_shape`` (ROADMAP item
-    11d), a 1-D one of another size than the group, and a train length that
-    does not split (:func:`models.check_time_sharding`)."""
-    shape = cfg.tpu.get("mesh_shape")
-    if shape and len(shape) == 2:
-        raise NotImplementedError(
-            f"tpu.mesh_shape {tuple(shape)} with tpu.shard_time: the 2-D "
-            f"data+time mesh is not in the port (ROADMAP item 11d)")
-    if shape and int(np.prod(shape)) != world:
-        raise ValueError(f"tpu.shard_time shards the time axis over the "
-                         f"{world} ranks of the process group, and "
-                         f"tpu.mesh_shape {tuple(shape)} names another count")
-    if world > 1:
-        check_time_sharding(cfg, cfg.data.max_vid_len, world)
+    ``world`` ranks, naming the rule: a ``tpu.mesh_shape`` of another count
+    than the group (:func:`parallel.seq.mesh_dims`), a global batch that
+    does not split over its ``n_data`` data indices, and a train length
+    that does not split over its ``n_time`` time ranks
+    (:func:`models.check_time_sharding`)."""
+    n_data, n_time = seq.mesh_dims(cfg.tpu.get("mesh_shape"), world)
+    if cfg.train.batch_size % n_data:
+        raise ValueError(f"train.batch_size {cfg.train.batch_size} does not "
+                         f"divide over the {n_data} data indices of "
+                         f"tpu.mesh_shape")
+    if n_time > 1:
+        check_time_sharding(cfg, cfg.data.max_vid_len, n_time)
 
 
 def build_microbatch_loss(model, cfg):
@@ -246,9 +250,11 @@ class Trainer:
     and the rank: :func:`rank_seed`) feeds the dropouts. In a process group
     ``ddp`` is ``model`` under ``DistributedDataParallel`` and runs the
     forwards; else it is None. Under ``tpu.shard_time`` in a group of more
-    than one rank, ``shard`` is this rank's :class:`parallel.TimeShard`,
-    ``ddp`` is None and ``generator`` is seeded by ``cfg.seed`` on every
-    rank; else ``shard`` is None."""
+    than one rank, ``shard`` is this rank's :class:`parallel.TimeShard`
+    (of its time subgroup under a 2-D ``tpu.mesh_shape``), ``ddp`` is None
+    and ``generator`` is seeded as data rank ``data_rank`` of
+    ``data_world``; else ``shard`` is None and the data ranks are the
+    group's."""
 
     def __init__(self, cfg, device=None):
         from ..eval.evaluator import Evaluator, resolve_device
@@ -258,24 +264,26 @@ class Trainer:
         self.device = resolve_device(device)
         self.rank, self.world = parallel.rank(), parallel.world_size()
         self.is_lead = self.rank == 0
-        self.shard = (seq.TimeShard() if cfg.tpu.get("shard_time")
-                      and self.world > 1 else None)
+        self.shard = None
+        self.data_rank, self.data_world = self.rank, self.world
+        if cfg.tpu.get("shard_time") and self.world > 1:
+            self.data_rank, self.data_world, self.shard = seq.mesh_shard(
+                cfg.tpu.get("mesh_shape"))
         self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.seed if self.shard else rank_seed(cfg.seed, self.rank))
+            rank_seed(cfg.seed, self.data_rank))
 
         self.num_epochs = cfg.train.epochs + cfg.train.warmup_epochs
         self.dataset = make_dataset(cfg, num_epochs=self.num_epochs,
                                     is_training=True,
                                     rng=np.random.RandomState(cfg.seed))
         self.max_num_text = cfg.data.max_num_text or 1
-        # under shard_time every rank loads the whole global batch
-        rows_split = self.world > 1 and self.shard is None
+        # every rank loads its data block of the global batch (under
+        # shard_time each rank of a time subgroup the same block)
         self.loader = DataLoader(
             self.dataset, cfg.train.batch_size, shuffle=True, seed=cfg.seed,
-            num_threads=cfg.train.num_workers,
-            rank=self.rank if rows_split else 0,
-            world_size=self.world if rows_split else 1,
-            shard_within_batch=rows_split,
+            num_threads=cfg.train.num_workers, rank=self.data_rank,
+            world_size=self.data_world,
+            shard_within_batch=self.data_world > 1,
             transform=lambda samples: batchify_train(
                 samples, cfg.data.max_vid_len, cfg.data.max_text_len,
                 self.max_num_text))
@@ -358,12 +366,13 @@ class Trainer:
         ``train.microbatch_size``), summing gradients into ``.grad``
         (cleared first; in a group summed over the ranks after the last
         block). Returns the metrics summed over the blocks and the ranks,
-        0-d device tensors. Time-sharded, ``batch`` is the whole global
-        batch, each block runs on this rank's part of the time axis and the
-        gradients are summed over the ranks after the last block."""
+        0-d device tensors. Time-sharded, ``batch`` is this rank's data
+        block (the whole global batch on a 1-D mesh), each block runs on
+        this rank's part of the time axis and the gradients are summed over
+        the ranks after the last block."""
         self.optimizer.zero_grad()
         micro = micro or self.micro
-        rows = batch["vid"].shape[0] * (1 if self.shard else self.world)
+        rows = batch["vid"].shape[0] * self.data_world
         n_micro = max(rows // micro, 1)
         totals = None
         for i in range(n_micro):

@@ -333,7 +333,8 @@ def test_trainer_takes_bf16_and_refuses_shard_time(synth, tmp_path):  # noqa: F8
     bf16 on f32 weights; ``auto`` trains in f32; ``tpu.shard_time`` in bf16
     builds one too (one process: nothing to shard;
     tests/test_torch_seq_train.py runs it over two ranks), and with a 2-D
-    ``tpu.mesh_shape`` still raises, naming ROADMAP item 11d."""
+    ``tpu.mesh_shape`` of more ranks than the one process raises, naming
+    the rule."""
     def cfg_of(dtype, **tpu):
         _, cfg = train_cfg_pair(synth, str(tmp_path / dtype))
         cfg.tpu.update(compute_dtype=dtype, **tpu)
@@ -346,6 +347,6 @@ def test_trainer_takes_bf16_and_refuses_shard_time(synth, tmp_path):  # noqa: F8
     assert Trainer(cfg_of("auto"), device="cpu").model.compute_dtype is None
     trainer = Trainer(cfg_of("bfloat16", shard_time=True), device="cpu")
     assert trainer.shard is None and trainer.model.compute_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11d"):
+    with pytest.raises(ValueError, match="names another count"):
         Trainer(cfg_of("bfloat16", shard_time=True, mesh_shape=(1, 2)),
                 device="cpu")

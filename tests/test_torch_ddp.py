@@ -218,7 +218,8 @@ def test_accumulate_refuses_an_uneven_rank_block(synth, tmp_path):
     trainer = Trainer(tc, device="cpu")
     trainer.loader.set_epoch(0)
     batch = {k: torch.from_numpy(v) for k, v in next(iter(trainer.loader)).items()}
-    trainer.world = 2     # as a rank of 2: 2 rows in 4 global microbatches
+    # as a rank of 2: 2 rows in 4 global microbatches
+    trainer.world = trainer.data_world = 2
     with pytest.raises(ValueError, match="do not split into 4 microbatches"):
         trainer.accumulate(batch)
 

@@ -272,12 +272,12 @@ def test_missing_checkpoint_names_both_paths(experiment, tmp_path):
 
 
 @pytest.mark.parametrize("override,error,match", [
-    # eval.shard_time runs under torchrun (tests/test_torch_seq_eval.py);
-    # what of it the port still refuses: global video self-attention
-    # (ROADMAP item 11d), S other than the group's size, a length that does
-    # not split, and stacked videos with it
+    # eval.shard_time runs under torchrun (tests/test_torch_seq_eval.py),
+    # global video self-attention too; what of it the port refuses: S other
+    # than the group's size (banded or global), a length that does not
+    # split, and stacked videos with it
     pytest.param(("eval.shard_time", "2", "model.vid_net.mha_win_size", "-1"),
-                 NotImplementedError, "ROADMAP item 11d",
+                 ValueError, "ranks of the process group",
                  id="override0-NotImplementedError"),
     pytest.param(("eval.shard_time", "4"), ValueError,
                  "ranks of the process group", id="shard_time-not-the-group"),

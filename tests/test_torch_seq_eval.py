@@ -2,7 +2,9 @@
 CLI's ``build_evaluator`` + ``run`` as two gloo ranks on the CPU, each
 video's time axis split over the ranks, in the three cases of
 tests/test_time_sharded_eval.py: plain, per-query external scores and
-``eval.reference_exact``. Four synthetic videos, shorter and longer than
+``eval.reference_exact``; and with global video self-attention
+(``model.vid_net.mha_win_size -1``: the ranks gather each attention's
+keys). Four synthetic videos, shorter and longer than
 ``max_seq_len`` (so the PE interpolation plans run sharded too). On every
 rank the R@k counts and the query count must equal both the JAX
 Evaluator's ``eval.shard_time`` run on a 2-device CPU mesh and the port's
@@ -40,7 +42,8 @@ from test_torch_ddp import finish, spawn
 # oversubscribes the CPU
 torch.set_num_threads(1)
 
-MODES = ("plain", "ext_scores", "reference_exact")
+MODES = ("plain", "ext_scores", "reference_exact", "global")
+GLOBAL = ["model.vid_net.mha_win_size", "-1"]
 
 WORKER = textwrap.dedent("""
     import json, sys
@@ -53,7 +56,8 @@ WORKER = textwrap.dedent("""
     torch.set_num_threads(1)
     logdir, ext_dir = sys.argv[1:3]
     sets = {"plain": [], "ext_scores": ["eval.data.ext_score_dir", ext_dir],
-            "reference_exact": ["eval.reference_exact", "True"]}
+            "reference_exact": ["eval.reference_exact", "True"],
+            "global": ["model.vid_net.mha_win_size", "-1"]}
     out = {}
     for mode, extra in sets.items():
         ev = build_evaluator(["--name", logdir, "--device", "cpu", "--set",
@@ -91,9 +95,10 @@ def _small(cfg, synth, seed=3):
     return cfg
 
 
-def jax_cfg(synth, shard_time=0, **ev):
+def jax_cfg(synth, shard_time=0, win=5, **ev):
     cfg = _small(jax_defaults("grounder"), synth)
     cfg.eval.shard_time = shard_time
+    cfg.model.vid_net.mha_win_size = win
     jax_apply_synthetic_cfg(cfg, synth)
     for k, v in ev.items():
         cfg.eval[k] = v
@@ -145,7 +150,8 @@ def setup(tmp_path_factory):
     jax_runs = {}
     for mode in MODES:
         ev = ({"reference_exact": True} if mode == "reference_exact" else {})
-        cfg = jax_cfg(synth, shard_time=2, **ev)
+        cfg = jax_cfg(synth, shard_time=2, win=-1 if mode == "global" else 5,
+                      **ev)
         if mode == "ext_scores":
             cfg.eval.data.ext_score_dir = str(ext_dir)
         jev = JaxEvaluator(cfg, mesh=mesh, train_time=True)
@@ -166,7 +172,8 @@ def ranks(setup):
                            if l.startswith("EVAL::"))[6:]) for _, out in outs]
     assert [g["rank"] for g in got] == [0, 1]
     # the lead alone prints the tables
-    assert outs[0][1].count("Final:") == 3 and "Final:" not in outs[1][1]
+    assert outs[0][1].count("Final:") == len(MODES)
+    assert "Final:" not in outs[1][1]
     return got
 
 
@@ -174,7 +181,8 @@ def ranks(setup):
 def test_sharded_counts_match_jax_and_one_process(setup, ranks, mode):
     _, logdir, ext_dir, jax_runs = setup
     extra = {"plain": [], "ext_scores": ["eval.data.ext_score_dir", ext_dir],
-             "reference_exact": ["eval.reference_exact", "True"]}[mode]
+             "reference_exact": ["eval.reference_exact", "True"],
+             "global": GLOBAL}[mode]
     one = Evaluator(config_from_logdir(logdir, set_cfgs=extra or None),
                     device="cpu")
     metrics = one.run()

@@ -7,7 +7,10 @@ parameters (summed over the ranks), in f32 and bf16.
 The ops: conv3 + LN + ReLU (S = 2 and S = 4), the q/k/v trio, band
 attention, a stride-2 depthwise ``MaskedConv1D`` and the k5 stride-2
 embedding conv, the masked max-pool skip, a TCN layer at dilation 4 with its
-dropout on (drawn globally), and the backwards of ``TimeShard.halo`` and
+dropout on (drawn globally), the global video self-attention
+(``ConvAttNLayer`` with window -1 at stride 1, after the q/k/v trio, and at
+stride 2; its attention and projection dropouts on), whose keys are
+gathered, and the backwards of ``TimeShard.halo`` and
 ``TimeShard.gather`` themselves. Every
 row's valid prefix ends inside a block, so a masked tail crosses a block
 edge. Tolerances: f32 forward |diff| <= 1e-5 * max(1, |ref|), gradients at
@@ -39,7 +42,8 @@ WORKER = textwrap.dedent("""
 
     from decafnet_tpu_torch import parallel
     from decafnet_tpu_torch.models.tcn import DilatedResidualLayer
-    from decafnet_tpu_torch.nn.blocks import MaskedConv1D
+    from decafnet_tpu_torch.nn.blocks import (ConvAttNLayer, MaskedConv1D,
+                                              reset_parameters)
     from decafnet_tpu_torch.ops import (band_attention, conv3_ln_act,
                                         masked_max_pool1d, qkv_depthwise_ln)
     from decafnet_tpu_torch.parallel import seq
@@ -194,6 +198,30 @@ WORKER = textwrap.dedent("""
             res = run(f, [x, mask], [p for p in layer.parameters()], dtype,
                       [-1, -1])
             results.append(compare("tcn_d4_dropout", res, dtype, [-1]))
+        if "mha_global" in which:
+            for stride in (1, 2):
+                layer = ConvAttNLayer(C, stride=stride, n_heads=H,
+                                      window_size=-1, attn_pdrop=0.2,
+                                      proj_pdrop=0.1).train()
+                reset_parameters(layer, torch.Generator().manual_seed(6))
+                # the key biases stay fixed: their exact gradient is 0
+                # (the softmax ignores a bias shared by every key), so both
+                # sides of it are rounding noise
+                named = [(n, p) for n, p in layer.named_parameters()
+                         if n not in ("attn.key.bias", "k_norm.bias")]
+                names = [n for n, _ in named]
+
+                def f(x, m, *p, layer=layer, names=names):
+                    gen = torch.Generator().manual_seed(7)
+                    out, om = torch.func.functional_call(
+                        layer, dict(zip(names, p)), (x, m[:, None, :]),
+                        {"generator": gen})
+                    return out, om[:, 0, :]
+                res = run(f, [x, mask], [p for _, p in named], dtype,
+                          [-1, -1])
+                results.append(compare(
+                    "mha_global" + ("_stride2" if stride == 2 else ""), res,
+                    dtype, [-1]))
         if "halo" in which:
             res = run(shard_or_pad, [x], [], dtype, [-1])
             results.append(compare("halo", res, dtype, [-1]))
@@ -235,12 +263,13 @@ def _check(results):
 def two_ranks(tmp_path_factory):
     return _runs(tmp_path_factory.mktemp("seq_ops2"), 2,
                  ["conv3", "trio", "band", "stride2", "maxpool", "tcn",
-                  "halo"])
+                  "mha_global", "halo"])
 
 
 @pytest.mark.parametrize("op", ["conv3", "trio", "band", "stride2_k3",
                                 "stride2_k5", "maxpool", "tcn_d4_dropout",
-                                "halo", "gather"])
+                                "mha_global", "mha_global_stride2", "halo",
+                                "gather"])
 @pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16"])
 def test_sharded_op_matches_whole_video(two_ranks, op, dtype):
     got = [r for r in two_ranks if r["op"] == op and r["dtype"] == dtype]

@@ -176,21 +176,25 @@ def test_train_time_eval_reads_the_ema(synth, tmp_path):
 
 
 @pytest.mark.parametrize("settings,world,match", [
-    # tpu.shard_time trains (tests/test_torch_seq_train.py); what of it the
-    # port still refuses: the 2-D data+time mesh (ROADMAP item 11d), a 1-D
-    # mesh of another size than the group, a train length that does not
-    # split over the ranks, a halo longer than a block, and global video
-    # self-attention
-    pytest.param({"tpu.shard_time": True, "tpu.mesh_shape": (1, 2)}, 2,
-                 "ROADMAP item 11d", id="tpu.shard_time-True-ROADMAP item 11"),
+    # tpu.shard_time trains (tests/test_torch_seq_train.py), on a 2-D
+    # data+time mesh (tests/test_torch_seq_mesh.py) and with global video
+    # self-attention (tests/test_torch_seq_global.py); what of it the port
+    # refuses: a 2-D mesh whose ranks are not the group's, a 1-D mesh of
+    # another size than the group, a global batch that does not split over
+    # the mesh's data indices, a train length that does not split over the
+    # ranks, and a halo longer than a block
+    pytest.param({"tpu.shard_time": True, "tpu.mesh_shape": (2, 2)}, 2,
+                 "names another count", id="tpu.shard_time-True-ROADMAP item 11"),
     pytest.param({"tpu.shard_time": True, "tpu.mesh_shape": (4,)}, 2,
                  "names another count", id="shard_time-mesh-not-the-group"),
     pytest.param({"tpu.shard_time": True}, 3, "must be a multiple of",
                  id="shard_time-length-does-not-split"),
     pytest.param({"tpu.shard_time": True}, 16, "longer than a rank's block",
                  id="shard_time-halo-past-the-block"),
-    pytest.param({"tpu.shard_time": True, "model.vid_net.mha_win_size": -1},
-                 2, "ROADMAP item 11d", id="shard_time-global-attention"),
+    pytest.param({"tpu.shard_time": True, "model.vid_net.mha_win_size": -1,
+                  "tpu.mesh_shape": (3, 2)}, 6,
+                 "does not divide over the 3 data indices",
+                 id="shard_time-global-attention"),
     pytest.param({"model.name": "default"}, 1, "forward-only",
                  id="model.name-default-forward-only"),
     pytest.param({"train.version": 1}, 1, "train.version=2",
