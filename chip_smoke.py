@@ -8,7 +8,7 @@ Phases, each printing one JSON line:
   build    compiles the CUDA kernels from decafnet_tpu_torch/csrc with nvcc,
            prints ptxas's registers / shared memory / spills of every
            kernel and checks in the conv3 kernels' SASS (cuobjdump) that
-           they run on the tensor cores (HMMA);
+           they run on wgmma (HGMMA, in f32 and in bf16);
   kernels  holds each kernel against its plain PyTorch version on the card at
            the served shapes (V=8 videos x Q=8 queries = 64 rows, T=2304, all
            7 FPN levels) and at edge shapes (ragged and odd T, masked tails,
@@ -17,6 +17,11 @@ Phases, each printing one JSON line:
            run of the same function at every served shape, and times kernel,
            plain version and, where one exists, the one PyTorch call
            computing the same function (library_ms, timed here only);
+           conv3's one launch over a head layer's 7 levels is held level
+           by level against the plain version and f64 (served and edge
+           level lists) and timed against one launch per level in turns
+           (old, new, new, old; "grouping_rule" in its kernels row,
+           reported, not asserted);
   bf16     (after the kernels phase) holds each kernel's bf16 variant against
            its plain version in bf16 at the same served and edge shapes,
            within 2 bf16 eps of max(1, |plain|), and times kernel, plain
@@ -27,7 +32,7 @@ Phases, each printing one JSON line:
            tests/test_torch_kernels.py through pytest in a subprocess;
   bf16     (after the http phase) the bf16 compute mode, tpu.compute_dtype
            bfloat16: GroundingService with the serve phase's weights on 8
-           videos x 8 queries at T = 2304 (44 / 7 / 1 launches of the bf16
+           videos x 8 queries at T = 2304 (8 / 7 / 1 launches of the bf16
            kernels per decode call and none of the f32 ones; logits2 and
            offsets, kernels vs plain versions in bf16, held to the noise
            floor of plain bf16 vs the f32 kernels; bf16 vs f32 logits; wall,
@@ -63,7 +68,7 @@ Phases, each printing one JSON line:
            CLI's entry point in-process on configs/ego4d_nlq.yaml: 16 videos
            x 2 queries = 32 rows per step at T = 2304, dropout as configured,
            two epochs (lr 0 on the first step, in warmup) with train-time eval
-           of the EMA after each. Checks the kernel launches (44 / 7 / 1 per
+           of the EMA after each. Checks the kernel launches (8 / 7 / 1 per
            forward microbatch and per eval decode call, none from the
            backward, which recomputes through the plain versions), finite
            losses and weights, that the weights move from step 2 on, the
@@ -78,7 +83,7 @@ Phases, each printing one JSON line:
            tpu.remat off, "nothing" and "dots", and on one batch of the same
            shape (dropout on) checks the losses equal, the gradients within
            the relative-L2 rule of the unwrapped step, and the launches per
-           forward microbatch (44 / 7 / 1 off, 44 / 14 / 2 with remat: the
+           forward microbatch (8 / 7 / 1 off, 8 / 14 / 2 with remat: the
            recompute runs the encoders' kernels again), and reports each
            policy's peak memory and step wall times; then ("leg":
            "remat_mad") one step of the mad task (configs/mad.yaml) at
@@ -86,7 +91,7 @@ Phases, each printing one JSON line:
            microbatch, remat off and "nothing", with the peak memory of each,
            and ("leg": "remat_mad_bf16") the same in bf16. Its bf16 leg
            ("leg": "bf16") runs the train CLI's entry point again with
-           --set tpu.compute_dtype bfloat16: 44 / 7 / 1 launches of the bf16
+           --set tpu.compute_dtype bfloat16: 8 / 7 / 1 launches of the bf16
            kernels per forward microbatch and per eval decode call (the
            train-time eval runs in bf16) and none of the f32 kernels, finite
            losses and f32 weights that move from step 2, each op's bf16
@@ -101,8 +106,8 @@ Phases, each printing one JSON line:
            and pool_only branches. Each runs forwards of 8 videos x 8
            queries at T = 2304 through the kernels and through the plain
            versions; one line per variant gives the launches per forward
-           (44 / 7 / 1 for iter2, 30 / 7 / 1 for the one-head variants,
-           44 / 0 / 0 for pool_only), the max |diff| of each output list
+           (8 / 7 / 1 for iter2, 6 / 7 / 1 for the one-head variants,
+           8 / 0 / 0 for pool_only), the max |diff| of each output list
            (bound 1e-4) and the wall times. iter2 is also served
            (ground_many, detections checked, kernels vs plain versions), once
            under utils.profiling.trace with an annotate region that the
@@ -127,7 +132,7 @@ Phases, each printing one JSON line:
            the ViT on bf16 frames, grounding with the bf16 phase's service:
            the selected clips against the f32 leg's (differences only in
            bins tied within the bf16 shift of the saliency), the features
-           against the f32 leg's, 44 / 7 / 1 bf16 launches per decode call,
+           against the f32 leg's, 8 / 7 / 1 bf16 launches per decode call,
            ms per expert clip, the encode+ground wall, video-seconds per
            second and peak memory beside f32. Then the encode CLI over two
            synthetic frame files (~100 clips at 224^2) and the port's
@@ -144,7 +149,7 @@ Phases, each printing one JSON line:
            relative-L2 rule, max |diff| printed, beside two one-process
            runs' distance); ddp2, the same as two ranks sharing the card
            over gloo with CUDA tensors (losses rtol 1e-5, the same update
-           rule, 44 / 7 / 1 launches per forward microbatch on each rank,
+           rule, 8 / 7 / 1 launches per forward microbatch on each rank,
            peak memory and step walls per rank);
            eval2, the eval CLI over the eval phase's experiment as two gloo
            ranks (eval.shard_processes: every rank's table, the merged
@@ -161,11 +166,11 @@ Phases, each printing one JSON line:
            tpu.mesh_shape [2, 2] over four gloo ranks (8 videos x 1152
            columns each, exchanges inside 2-rank time subgroups), by ddp2's
            rules, its update's distance to ddp2's beside two one-process
-           runs', per-rank peak memory, 44 / 7 / 1 launches per forward
+           runs', per-rank peak memory, 8 / 7 / 1 launches per forward
            microbatch and rank 0's exchanges per forward; seq2_global, seq2
            with global video self-attention (model.vid_net.mha_win_size
            -1: the ranks gather every attention's keys) against a
-           one-process run of the same override, 44 / 0 / 1 launches, the
+           one-process run of the same override, 8 / 0 / 1 launches, the
            per-rank peak beside the one-process peak;
            seq2_mad, one step of the remat_mad leg's MAD task (T = 32768, 8
            rows, dropout as configured, drawn from one seed), remat off and
@@ -173,10 +178,10 @@ Phases, each printing one JSON line:
            peak of the remat_mad leg and its loss at rtol 1e-4; evalseq2, the eval CLI
            with eval.shard_time 2 over the eval phase's experiment: every
            rank's table equals the eval phase's, the lead's detections and
-           annotated-recall table too, 44 / 7 / 1 launches per decode call
+           annotated-recall table too, 8 / 7 / 1 launches per decode call
            on each rank; evalseq2_global, the same with the global window
            against a one-process eval of that override (tables equal,
-           detections within 1e-3 s / 1e-4, 44 / 0 / 1 launches per decode
+           detections within 1e-3 s / 1e-4, 8 / 0 / 1 launches per decode
            call).
 Then one {"kernels": [...]} line (the three f32 kernels with their launches
 summed over the serve, eval, http, train, remat, variants, encode, encode
@@ -185,7 +190,7 @@ paths, and the three bf16 variants with theirs over the bf16
 phase's serve, eval and http paths, the bf16 train, MAD remat and encode
 legs, each with the breakdown; the bf16
 records also carry ptxas's registers, spills and shared memory of their
-kernels, conv3's HMMA count, and the f32 kernel's time), the nvidia-smi
+kernels, conv3's HGMMA count, and the f32 kernel's time), the nvidia-smi
 name/power-limit line, and last {"ok": true, "device": {...}}. Any failed check raises: the
 script exits non-zero and prints no result. Without CUDA it exits 2.
 """
@@ -234,22 +239,23 @@ TOL_F64 = 1e-5
 # served detections, kernels vs plain versions and ground vs ground_many
 SEG_TOL_S, SCORE_TOL = 1e-3, 1e-4
 # launches of each kernel per forward of the 2-layer-head arch (2, 0, 7),
-# by model: conv3 runs in the 2 embedding convs and every trunk layer of the
-# heads (the live model's 3 heads, the one-head variants' 2, x 2 layers x 7
-# levels), band attention once per FPN encoder, the trio in the stride-1
-# encoder; pool_only has no encoders; global video attention
-# (vid_net.mha_win_size -1) runs no band attention. A remat train microbatch
+# by model: conv3 runs once in each of the 2 embedding convs and once per
+# trunk layer of the heads, over all 7 levels in one launch (the live
+# model's 3 heads, the one-head variants' 2, x 2 layers), band attention
+# once per FPN encoder, the trio in the stride-1 encoder; pool_only has no
+# encoders; global video attention (vid_net.mha_win_size -1) runs no band
+# attention. A remat train microbatch
 # (forward and backward) runs the encoders' kernels again in the recompute
 PER_FORWARD = {
-    "iter": {"conv3_ln_act": 44, "band_attention": 7, "qkv_depthwise_ln": 1},
-    "iter2": {"conv3_ln_act": 44, "band_attention": 7, "qkv_depthwise_ln": 1},
-    "early": {"conv3_ln_act": 30, "band_attention": 7, "qkv_depthwise_ln": 1},
-    "early2": {"conv3_ln_act": 30, "band_attention": 7, "qkv_depthwise_ln": 1},
-    "default": {"conv3_ln_act": 30, "band_attention": 7, "qkv_depthwise_ln": 1},
-    "identity_pool_only": {"conv3_ln_act": 44, "band_attention": 0,
+    "iter": {"conv3_ln_act": 8, "band_attention": 7, "qkv_depthwise_ln": 1},
+    "iter2": {"conv3_ln_act": 8, "band_attention": 7, "qkv_depthwise_ln": 1},
+    "early": {"conv3_ln_act": 6, "band_attention": 7, "qkv_depthwise_ln": 1},
+    "early2": {"conv3_ln_act": 6, "band_attention": 7, "qkv_depthwise_ln": 1},
+    "default": {"conv3_ln_act": 6, "band_attention": 7, "qkv_depthwise_ln": 1},
+    "identity_pool_only": {"conv3_ln_act": 8, "band_attention": 0,
                            "qkv_depthwise_ln": 0},
-    "remat": {"conv3_ln_act": 44, "band_attention": 14, "qkv_depthwise_ln": 2},
-    "global": {"conv3_ln_act": 44, "band_attention": 0, "qkv_depthwise_ln": 1},
+    "remat": {"conv3_ln_act": 8, "band_attention": 14, "qkv_depthwise_ln": 2},
+    "global": {"conv3_ln_act": 8, "band_attention": 0, "qkv_depthwise_ln": 1},
 }
 # the override of the global video self-attention legs
 GLOBAL = ["model.vid_net.mha_win_size", "-1"]
@@ -349,9 +355,10 @@ def ptxas_report(log):
     return out
 
 
-def sass_hmma(lib_path, name):
-    """Tensor-core (HMMA) instructions per compiled kernel whose name holds
-    ``name``, from cuobjdump -sass of the built library."""
+def sass_mma(lib_path, name):
+    """Tensor-core instructions per compiled kernel whose name holds
+    ``name``, from cuobjdump -sass of the built library: ``HMMA`` (the
+    warp-level mma.sync) and ``HGMMA`` (the warpgroup-level wgmma)."""
     from decafnet_tpu_torch.ops import cuda
 
     sass = subprocess.run([cuda.toolkit_binary("cuobjdump"), "-sass", lib_path],
@@ -362,9 +369,12 @@ def sass_hmma(lib_path, name):
         if m:
             cur = m.group(1) if name in m.group(1) else None
             if cur:
-                counts[cur] = 0
-        elif cur and "HMMA" in line:
-            counts[cur] += 1
+                counts[cur] = {"HMMA": 0, "HGMMA": 0}
+        elif cur:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    counts[cur][op] += 1
+                    break
     return counts
 
 
@@ -410,6 +420,105 @@ def moved(x, how):
         buf = torch.empty(B, C, T // 4 * 4 + 4, device=x.device,
                           dtype=x.dtype)[..., :T]
     return buf.copy_(x)
+
+
+def conv3_levels_case(dev, g, B, C, Ts, lens, how="as_is", dtype=torch.float32):
+    """One head layer over FPN levels: per level x (B, C, T) laid out as
+    ``how`` says and a mask of valid prefixes ``lens[i]``; one weight set."""
+    xs = [moved(torch.randn(B, C, T, generator=g, device=dev).to(dtype), how)
+          for T in Ts]
+    masks = [prefix_mask(n, T, dev) for n, T in zip(lens, Ts)]
+    w = torch.randn(C, C, 3, generator=g, device=dev) / math.sqrt(3 * C)
+    lw = 1 + 0.1 * torch.randn(C, 1, generator=g, device=dev)
+    lb = 0.1 * torch.randn(C, 1, generator=g, device=dev)
+    return xs, masks, (w, None, lw, lb)
+
+
+# the served conv3 call shapes of one decode call: the 2 level-0 embedding
+# convs (one level each, C = 128) and the head layers over all 7 levels,
+# 2 at C = 128 (cls_head) and 4 at C = 160 (cls_head2, reg_head)
+EMBD_CONVS = 2
+HEAD_LAYERS = ((EMBD, 2), (EMBD + RDIM, 4))
+
+
+def time_in_turns(old, new, iters):
+    """Device ms of two ways to do the same work, timed old, new, new, old:
+    each one's mean and the spread of its two repeats."""
+    a1, b1, b2, a2 = (time_ms(f, iters) for f in (old, new, new, old))
+    return {"old_ms": (a1 + a2) / 2, "new_ms": (b1 + b2) / 2,
+            "old_spread_ms": abs(a1 - a2), "new_spread_ms": abs(b1 - b2)}
+
+
+def conv3_heads(dev, g, dtype, per_level, grouped_check):
+    """The conv3 head layers of one served decode call in ``dtype``: at C =
+    128 and 160, every level through ``per_level(level, count, args, kw)``
+    (one launch each: the per-level check, timing and bound), then the
+    grouped launch over the 7 levels checked level by level by
+    ``grouped_check(xs, masks, params, what)`` and timed in turns against
+    the per-level launches (one launch per level). Returns
+    a record per layer shape and the time per decode call of each way."""
+    from decafnet_tpu_torch.ops import conv3_ln_act, conv3_ln_act_levels
+
+    heads = []
+    for C, layers in HEAD_LAYERS:
+        Ts = [T0 // 2 ** lvl for lvl in range(LEVELS)]
+        xs, masks, params = conv3_levels_case(
+            dev, g, ROWS, C, Ts, [row_lens(lvl) for lvl in range(LEVELS)],
+            dtype=dtype)
+        for level, (x, m) in enumerate(zip(xs, masks)):
+            count = layers + (EMBD_CONVS if level == 0 and C == EMBD else 0)
+            per_level(level, count, (x, m, *params), {"act": "relu"})
+        grouped_check(xs, masks, params, f"served head layer, C={C}, 7 levels")
+        t = time_in_turns(
+            lambda: [conv3_ln_act(x, m, *params) for x, m in zip(xs, masks)],
+            lambda: conv3_ln_act_levels(xs, masks, *params), 10)
+        heads.append({"C": C, "layers_per_decode": layers, **t,
+                      "slower_beyond_spread": t["new_ms"] - t["old_ms"]
+                      > max(t["old_spread_ms"], t["new_spread_ms"])})
+        del xs, masks
+    return heads
+
+
+def conv3_launch_bound(levels, tc_rate):
+    """Bound of one launch over ``levels`` (records of conv3_level): each
+    level's activations, mask and output bytes, the weights and LN
+    parameters once, every level's operations; also its byte and operation
+    times and the f32 CUDA-core bound (products on the CUDA cores)."""
+    n_bytes = (sum(lv["work"]["act_bytes"] for lv in levels)
+               + levels[0]["work"]["param_bytes"])
+    n_flops, tc_flops, gemm_flops = (sum(lv["work"][k] for lv in levels)
+                                     for k in ("n_flops", "tc_flops", "gemm_flops"))
+    b_ms, _ = bound_ms(n_bytes, n_flops, tc_flops, tc_rate)
+    cc_ms, _ = bound_ms(n_bytes, n_flops + gemm_flops)
+    return {"bound_ms": b_ms, "byte_ms": 1e3 * n_bytes / HBM_BYTES_PER_S,
+            "flop_ms": 1e3 * max(n_flops / F32_FLOPS, tc_flops / tc_rate),
+            "bound_f32_ms": cc_ms}
+
+
+def conv3_grouped_summary(r, tc_rate):
+    """Fold the head layers' grouped launches into a conv3 record, per decode
+    call as the port runs it (the embedding convs' level-0 launches and one
+    grouped launch per head layer): ``ms`` from the timing in turns, and
+    ``per_level_launch_ms`` for the same work launched once per level (that
+    timing's other side); the bounds per launch, so a head layer's weights
+    and LN parameters count once, not once per level."""
+    embd = next(lv for lv in r["levels"]
+                if lv["level"] == 0 and lv["shape"][1] == EMBD)
+    launches = [([embd], EMBD_CONVS)] + [
+        ([lv for lv in r["levels"] if lv["shape"][1] == h["C"]],
+         h["layers_per_decode"]) for h in r["heads"]]
+    for key in ("bound_ms", "byte_ms", "flop_ms") + (
+            ("bound_f32_ms",) if "bound_f32_ms" in r else ()):
+        r[key] = sum(n * conv3_launch_bound(lvs, tc_rate)[key]
+                     for lvs, n in launches)
+    r["ms"] = EMBD_CONVS * embd["ms"] + sum(
+        h["layers_per_decode"] * h["new_ms"] for h in r["heads"])
+    r["per_level_launch_ms"] = EMBD_CONVS * embd["ms"] + sum(
+        h["layers_per_decode"] * h["old_ms"] for h in r["heads"])
+    r["grouping_rule"] = {
+        "faster_in_sum": r["ms"] < r["per_level_launch_ms"],
+        "no_shape_slower_beyond_spread": not any(
+            h["slower_beyond_spread"] for h in r["heads"])}
 
 
 def trio_case(dev, g, B, C, T, lens, how="as_is", dtype=torch.float32):
@@ -469,7 +578,8 @@ def run_kernels(dev):
     """Hold each kernel against its plain version, time the served shapes.
     Returns per-kernel records summed over one served decode call."""
     from decafnet_tpu_torch.ops import (band_attention, band_attention_torch,
-                                        conv3_ln_act, conv3_ln_act_torch,
+                                        conv3_ln_act, conv3_ln_act_levels,
+                                        conv3_ln_act_torch, cuda,
                                         qkv_depthwise_ln, qkv_depthwise_ln_torch)
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -517,7 +627,6 @@ def run_kernels(dev):
         r = rec["conv3_ln_act"]
         r["max_abs_err_f64"] = max(r["max_abs_err_f64"], err)
         r["plain_max_abs_err_f64"] = max(r["plain_max_abs_err_f64"], err_plain)
-        r["bound_f32_ms"] += lvl["calls"] * f32_ms
         lvl.update(bound_f32_ms=f32_ms, max_abs_err_f64=err,
                    plain_max_abs_err_f64=err_plain)
         ok = err <= TOL_F64
@@ -529,21 +638,51 @@ def run_kernels(dev):
             raise AssertionError(f"conv3_ln_act is off f64 by {err} at "
                                  f"{lvl['shape']}")
 
+    def conv3_level(level, count, args, kw):
+        C, T = args[0].shape[1], args[0].shape[2]
+        act_bytes, param_bytes = 4 * 2 * ROWS * C * T + ROWS * T, 4 * (3 * C * C + 2 * C)
+        n_bytes = act_bytes + param_bytes
+        gemm_flops = 2 * ROWS * T * C * 3 * C
+        ln_flops = 8 * ROWS * C * T
+        lvl = add("conv3_ln_act", count, args, kw, conv3_ln_act,
+                  conv3_ln_act_torch, n_bytes, ln_flops, level,
+                  tc_flops=3 * gemm_flops)
+        lvl["work"] = {"act_bytes": act_bytes, "param_bytes": param_bytes,
+                       "n_flops": ln_flops, "tc_flops": 3 * gemm_flops,
+                       "gemm_flops": gemm_flops}
+        conv3_accuracy(args, kw, lvl, n_bytes, gemm_flops, ln_flops)
+
+    def conv3_grouped(xs, masks, params, what):
+        """One launch over the levels; each level against the plain version
+        and f64."""
+        before = conv3_ln_act.launches
+        got = conv3_ln_act_levels(xs, masks, *params)
+        assert conv3_ln_act.launches == before + 1
+        r = rec["conv3_ln_act"]
+        for x, m, y in zip(xs, masks, got):
+            with cuda.plain_versions():
+                want = conv3_ln_act(x, m, *params)
+            err = max_err(y, want)
+            err64 = max_err(y.double(), conv3_f64(x, m, *params))
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["max_abs_err_f64"] = max(r["max_abs_err_f64"], err64)
+            ok = bool(torch.isfinite(y).all()) and err <= TOL["conv3_ln_act"] \
+                and err64 <= TOL_F64
+            emit({"phase": "kernels", "kernel": "conv3_ln_act", "check":
+                  f"{what}: level T={x.shape[2]}", "max_abs_err": err,
+                  "max_abs_err_f64": err64, "tol": TOL["conv3_ln_act"],
+                  "tol_f64": TOL_F64, "ok": ok})
+            if not ok:
+                raise AssertionError(f"grouped conv3_ln_act disagrees at {what}, "
+                                     f"T={x.shape[2]}: {err}, f64 {err64}")
+
     # served shapes: every FPN level of one 64-row decode call
+    rec["conv3_ln_act"]["heads"] = conv3_heads(dev, g, torch.float32,
+                                               conv3_level, conv3_grouped)
     for level in range(LEVELS):
         T = T0 // 2 ** level
         lens = row_lens(level)
         n_valid = sum(min(n, T) for n in lens)
-        for C, count in ((EMBD, 4 if level == 0 else 2), (EMBD + RDIM, 4)):
-            args, kw = conv3_case(dev, g, ROWS, C, T, lens)
-            n_bytes = 4 * (2 * ROWS * C * T + 3 * C * C + 2 * C) + ROWS * T
-            gemm_flops = 2 * ROWS * T * C * 3 * C
-            ln_flops = 8 * ROWS * C * T
-            lvl = add("conv3_ln_act", count, args, kw, conv3_ln_act,
-                      conv3_ln_act_torch, n_bytes, ln_flops, level,
-                      tc_flops=3 * gemm_flops)
-            conv3_accuracy(args, kw, lvl, n_bytes, gemm_flops, ln_flops)
-            del args
         args, kw = band_case(dev, g, ROWS, T, lens)
         D = EMBD // HEADS
         n_bytes = 4 * (3 * n_valid * HEADS * D + ROWS * HEADS * T * D) + ROWS * T
@@ -557,10 +696,17 @@ def run_kernels(dev):
             add("qkv_depthwise_ln", 1, args, kw, qkv_depthwise_ln,
                 qkv_depthwise_ln_torch, n_bytes, n_flops, level)
 
+    conv3_grouped_summary(rec["conv3_ln_act"], TF32_FLOPS)
     # edge shapes: ragged and odd T, masked tails, an all-masked row, tiny
     # level-6 lengths, T shorter than the attention window, base pointers
     # off 16 bytes, rows padded past T; and the unused options
-    for T in (1000, 301, 36, 17, 9, 4, 3):
+    edge_Ts = (1000, 301, 36, 17, 9, 4, 3)
+    for how in ("as_is", "offset"):
+        xs, masks, params = conv3_levels_case(
+            dev, g, 4, EMBD + RDIM, edge_Ts,
+            [[T, max(T - 3, 1), T // 2, 0] for T in edge_Ts], how=how)
+        conv3_grouped(xs, masks, params, f"edge levels T={edge_Ts}, x {how}")
+    for T in edge_Ts:
         lens = [T, max(T - 3, 1), T // 2, 0]
         args, kw = conv3_case(dev, g, 4, EMBD + RDIM, T, lens)
         check(conv3_ln_act, conv3_ln_act_torch, args, kw, "conv3_ln_act",
@@ -582,6 +728,10 @@ def run_kernels(dev):
             torch.randn(24, 16, 3, generator=g, device=dev), args[3], None, None)
     check(conv3_ln_act, conv3_ln_act_torch, args, kw, "conv3_ln_act",
           "C_in 16 -> C_out 24, bias, no LN affine, no activation")
+    # the widest build (C_out 256), not served
+    args, kw = conv3_case(dev, g, 4, 256, 301, [301, 298, 150, 0])
+    check(conv3_ln_act, conv3_ln_act_torch, args, kw, "conv3_ln_act",
+          "edge C=256, T=301")
     return rec
 
 
@@ -1049,7 +1199,8 @@ def run_bf16_kernels(dev, rec32):
     dense bf16 rate. Returns per-kernel records summed over one served
     decode call."""
     from decafnet_tpu_torch.ops import (band_attention, band_attention_torch,
-                                        conv3_ln_act, conv3_ln_act_torch,
+                                        conv3_ln_act, conv3_ln_act_levels,
+                                        conv3_ln_act_torch, cuda,
                                         qkv_depthwise_ln, qkv_depthwise_ln_torch)
 
     bf = torch.bfloat16
@@ -1085,18 +1236,50 @@ def run_bf16_kernels(dev, rec32):
                             "calls": count, "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": b_ms, "share_of_bound": b_ms / ms,
                             "library_ms": lib_ms, "f32_ms": f32[0] if f32 else None})
+        return r["levels"][-1]
 
+    def conv3_level(level, count, args, kw):
+        C, T = args[0].shape[1], args[0].shape[2]
+        # x and the output in bf16 and the mask bytes; the weight image in
+        # bf16 and the LN parameters in f32
+        act_bytes, param_bytes = 2 * 2 * ROWS * C * T + ROWS * T, 2 * 3 * C * C + 4 * 2 * C
+        gemm_flops = 2 * ROWS * T * C * 3 * C
+        lvl = add("conv3_ln_act", count, args, kw, conv3_ln_act, conv3_ln_act_torch,
+                  act_bytes + param_bytes, 8 * ROWS * C * T, level, tc_flops=gemm_flops)
+        lvl["work"] = {"act_bytes": act_bytes, "param_bytes": param_bytes,
+                       "n_flops": 8 * ROWS * C * T, "tc_flops": gemm_flops,
+                       "gemm_flops": gemm_flops}
+
+    def conv3_grouped(xs, masks, params, what):
+        """One launch of the bf16 kernel over the levels; each level against
+        the plain version in bf16."""
+        before = (conv3_ln_act.launches, conv3_ln_act.launches_bf16)
+        got = conv3_ln_act_levels(xs, masks, *params)
+        assert (conv3_ln_act.launches, conv3_ln_act.launches_bf16) == (
+            before[0], before[1] + 1)
+        r = rec["conv3_ln_act"]
+        for x, m, y in zip(xs, masks, got):
+            with cuda.plain_versions():
+                want = conv3_ln_act(x, m, *params)
+            abs_err, rel_err = bf16_err(y, want)
+            r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+            r["max_rel_err"] = max(r["max_rel_err"], rel_err)
+            ok = (y.dtype == bf and bool(torch.isfinite(y).all())
+                  and rel_err <= TOL_BF16)
+            emit({"phase": "bf16", "kernel": "conv3_ln_act_bf16", "check":
+                  f"{what}: level T={x.shape[2]}", "max_abs_err": abs_err,
+                  "max_rel_err": rel_err, "tol": TOL_BF16, "ok": ok})
+            if not ok:
+                raise AssertionError(f"grouped conv3_ln_act_bf16 disagrees at "
+                                     f"{what}, T={x.shape[2]}: {rel_err}")
+
+    rec["conv3_ln_act"]["heads"] = conv3_heads(dev, g, bf, conv3_level,
+                                               conv3_grouped)
+    conv3_grouped_summary(rec["conv3_ln_act"], BF16_FLOPS)
     for level in range(LEVELS):
         T = T0 // 2 ** level
         lens = row_lens(level)
         n_valid = sum(min(n, T) for n in lens)
-        for C, count in ((EMBD, 4 if level == 0 else 2), (EMBD + RDIM, 4)):
-            args, kw = conv3_case(dev, g, ROWS, C, T, lens, dtype=bf)
-            # x and the output in bf16, the weight as bf16 fragments, the LN
-            # parameters in f32, the mask bytes
-            n_bytes = 2 * (2 * ROWS * C * T + 3 * C * C) + 4 * 2 * C + ROWS * T
-            add("conv3_ln_act", count, args, kw, conv3_ln_act, conv3_ln_act_torch,
-                n_bytes, 8 * ROWS * C * T, level, tc_flops=2 * ROWS * T * C * 3 * C)
         args, kw = band_case(dev, g, ROWS, T, lens, dtype=bf)
         D = EMBD // HEADS
         n_bytes = 2 * (3 * n_valid * HEADS * D + ROWS * HEADS * T * D) + ROWS * T
@@ -1117,7 +1300,13 @@ def run_bf16_kernels(dev, rec32):
         r["max_abs_err"] = max(r["max_abs_err"], abs_err)
         r["max_rel_err"] = max(r["max_rel_err"], rel_err)
 
-    for T in (1000, 301, 36, 17, 9, 4, 3):
+    edge_Ts = (1000, 301, 36, 17, 9, 4, 3)
+    for how in ("as_is", "offset"):
+        xs, masks, params = conv3_levels_case(
+            dev, g, 4, EMBD + RDIM, edge_Ts,
+            [[T, max(T - 3, 1), T // 2, 0] for T in edge_Ts], how=how, dtype=bf)
+        conv3_grouped(xs, masks, params, f"edge levels T={edge_Ts}, x {how}")
+    for T in edge_Ts:
         lens = [T, max(T - 3, 1), T // 2, 0]
         for how in ("as_is", "offset"):
             args, kw = conv3_case(dev, g, 4, EMBD + RDIM, T, lens, how=how, dtype=bf)
@@ -1137,6 +1326,9 @@ def run_bf16_kernels(dev, rec32):
             torch.randn(24, generator=g, device=dev), None, None)
     edge("conv3_ln_act", conv3_ln_act, args, kw,
          "C_in 16 -> C_out 24, bias, no LN affine, no activation")
+    # the widest build (C_out 256), not served
+    args, kw = conv3_case(dev, g, 4, 256, 301, [301, 298, 150, 0], dtype=bf)
+    edge("conv3_ln_act", conv3_ln_act, args, kw, "edge C=256, T=301")
     return rec
 
 
@@ -1939,7 +2131,7 @@ def run_train_bf16(root, cfg_file, f32):
     """The train phase in bf16: the train CLI's entry point (``build_trainer``
     + ``train``) with ``--set tpu.compute_dtype bfloat16`` at the same shape
     (16 videos x 2 queries per step, T = 2304, two epochs, train-time eval
-    of the EMA, also in bf16). Checks 44 / 7 / 1 launches of the bf16
+    of the EMA, also in bf16). Checks 8 / 7 / 1 launches of the bf16
     kernels per forward microbatch and per eval decode call and none of the
     f32 kernels (so none from the backward), finite losses and weights
     (f32), the weights moving from step 2, the checkpoint files, each op's
@@ -2215,7 +2407,7 @@ def run_remat(root, cfg_file):
     step with tpu.remat off, "nothing" and "dots" from the same weights and
     generator seed; losses equal, gradients within the train phase's
     relative L2 rule of the unwrapped step, peak memory and step wall time
-    of each, launches 44 / 14 / 2 per forward microbatch with remat. Then
+    of each, launches 8 / 14 / 2 per forward microbatch with remat. Then
     one step of the mad task at T = 32768 (8 rows in one microbatch), remat
     off and "nothing": peak memory of each, in f32 and then in bf16. Returns
     the f32 kernel launches of the f32 legs, the bf16 kernel launches of
@@ -2908,7 +3100,7 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi, mad_ref):
            of two one-process runs, which is printed beside it, as is the
            weights' max |diff|;
     ddp2   the same as two ranks on the one card over gloo (8 videos per
-           rank, CUDA tensors), with 44 / 7 / 1 launches per forward
+           rank, CUDA tensors), with 8 / 7 / 1 launches per forward
            microbatch on each rank, peak memory and step walls per rank
            (the two ranks share one card: no speed is read from them);
     eval2  the eval CLI's run over the eval phase's experiment as two gloo ranks
@@ -2932,7 +3124,7 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi, mad_ref):
     seq2_global  seq2 with ``model.vid_net.mha_win_size -1`` (global video
            self-attention: the ranks gather each attention's keys), against
            a one-process run of the same override (another function), with
-           44 / 0 / 1 launches per forward microbatch and each rank's peak
+           8 / 0 / 1 launches per forward microbatch and each rank's peak
            memory beside the one-process run's;
     seq2_mad  one step of the remat_mad leg (``mad_ref``: its argv and its
            records) as two gloo ranks, remat off and "nothing": each rank's
@@ -2942,7 +3134,7 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi, mad_ref):
            dump against the eval phase's;
     evalseq2_global  evalseq2 with the global window, against a one-process
            eval of the same override: the tables equal, the detections
-           within 1e-3 s / 1e-4, 44 / 0 / 1 launches per decode call.
+           within 1e-3 s / 1e-4, 8 / 0 / 1 launches per decode call.
 
     Returns the launches of each path: "multi" (the four legs above seq2:
     every rank's, and the V = 4 run's), "seq2", "dt2x2", "seq2_global",
@@ -3352,9 +3544,10 @@ def main():
     for kernel in ("conv3_ln_act", "band_attention", "qkv_depthwise_ln"):
         emit({"phase": "build", "kernel": kernel, "ptxas":
               ptxas_report(cuda.build_log(kernel + ".cu"))})
-    hmma = sass_hmma(path, "conv3_ln_act")
-    emit({"phase": "build", "kernel": "conv3_ln_act", "sass_hmma": hmma})
-    assert hmma and all(n > 0 for n in hmma.values()), \
+    # both conv3 kernels on wgmma (HGMMA)
+    mma = sass_mma(path, "conv3_ln_act")
+    emit({"phase": "build", "kernel": "conv3_ln_act", "sass_mma": mma})
+    assert mma and all(c["HGMMA"] > 0 for c in mma.values()), \
         "conv3_ln_act does not run on the tensor cores"
 
     rec = run_kernels(dev)
@@ -3385,6 +3578,7 @@ def main():
                                   "decafnet_tpu/ops/local_attention.py:244"),
                "qkv_depthwise_ln": ("decafnet_tpu_torch/csrc/qkv_depthwise_ln.cu",
                                     "decafnet_tpu/ops/fused_conv.py:294")}
+    ptxas = {n: ptxas_report(cuda.build_log(n + ".cu")) for n in sources}
     kernels = []
     for n, r in rec.items():
         src, rep = sources[n]
@@ -3399,9 +3593,12 @@ def main():
             "per": "one served decode call (64 rows, T=2304, all levels)",
             "launches_per_forward": {m: c[n] for m, c in PER_FORWARD.items()},
             **{k: r[k] for k in ("bound_f32_ms", "max_abs_err_f64",
-                                 "plain_max_abs_err_f64") if k in r},
+                                 "plain_max_abs_err_f64", "per_level_launch_ms",
+                                 "grouping_rule", "heads") if k in r},
+            **({"sass_mma": {k: c for k, c in mma.items() if "bf16" not in k},
+                "ptxas": [k for k in ptxas[n] if "bf16" not in k["kernel"]]}
+               if n == "conv3_ln_act" else {}),
             "levels": r["levels"]})
-    ptxas = {n: ptxas_report(cuda.build_log(n + ".cu")) for n in sources}
     for n, r in rec16.items():
         bf16_kernels = [k for k in ptxas[n] if "bfloat16" in k["kernel"]
                         or "bf16" in k["kernel"]]
@@ -3416,8 +3613,10 @@ def main():
             "library_ms": r["library_ms"], "f32_kernel_ms": rec[n]["ms"],
             "per": "one served decode call (64 rows, T=2304, all levels), bf16",
             "launches_per_forward": PER_DECODE[n], "ptxas": bf16_kernels,
-            **({"sass_hmma": {k: c for k, c in hmma.items() if "bf16" in k}}
+            **({"sass_mma": {k: c for k, c in mma.items() if "bf16" in k}}
                if n == "conv3_ln_act" else {}),
+            **{k: r[k] for k in ("per_level_launch_ms", "grouping_rule", "heads")
+               if k in r},
             "levels": r["levels"]})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,71 +1,78 @@
 // Fused masked conv3 + channel LayerNorm + activation for Hopper (sm_90a), in two
-// kernels: for f32 activations the products on the tensor cores in 3xTF32, the
-// result at f32 accuracy; for bf16 activations one bf16 pass with f32
-// accumulation (the bf16 variant, described after the f32 kernel).
+// kernels of one design: for f32 activations the products in three TF32 passes
+// on wgmma, the result at f32 accuracy; for bf16 activations one bf16 pass on
+// wgmma with f32 accumulation. Both are persistent, warp-specialised and fed by
+// TMA.
 //
 //   out[b, co, t] = act( LN_c( sum_{ci, tap} w[co, ci, tap] * xm[b, ci, t + tap - 1]
 //                              + bias[co] ) * ln_w[co] + ln_b[co] )
 //   xm = x * mask, zero outside [0, T); LN over co with biased variance and f32
 //   statistics (mean first, then the centred variance); act = relu or identity.
 //
+// One launch covers every FPN level of a head layer (the levels share the
+// weights and C_in; each has its own B, T, x, mask and output). The blocks
+// walk a table of (level, row, first column) work items that the wrapper
+// builds (ops/fused_conv.py: conv3_work_table), and read the level's pointers,
+// T and copy path from the kernel's parameters. The short levels' tiles fill
+// the card beside the long ones' instead of taking launches of their own: a
+// served forward makes 8 launches, not 44.
+//
 // Replaces the TPU kernel decafnet_tpu/ops/fused_conv.py:_conv3_ln_act_pallas_impl
 // (pallas_call at :175). That kernel assembled the conv halo from prev/cur/next
 // BlockSpec tiles and pre-shifted mask arrays because of Mosaic's limits, and
 // asked the matrix unit for precision=HIGHEST, a multi-pass bf16 product with f32
-// accuracy. Here a block stages the halo it needs in shared memory, and the
-// products take three TF32 passes, the tensor-core counterpart of HIGHEST.
+// accuracy. Here the block stages the halo it needs in shared memory, and the
+// f32 products take three TF32 passes, the tensor-core counterpart of HIGHEST.
 //
-// What bounds it on an H100: the operations. The conv is an implicit GEMM with
-// M = C_out, K = 3 * C_in and N = rows x T; one served decode call (64 rows,
-// T = 2304, 7 levels, 44 calls) is 266 GFLOP against ~2.4 GB moved. Three TF32
-// passes at 495 TFLOP/s take 1.61 ms; the bytes at 3.35 TB/s take 0.72 ms.
-//
-// Why three passes and not one: a single TF32 product keeps 11 bits of each
-// operand. Emulated in numpy at C = 160, T = 2304, conv3 + LN + ReLU in one TF32
-// pass is off f64 by 1.36e-3, 13x the 1e-4 this kernel is held to; plain f32 is
-// off by 2.5e-6. Split each operand a into hi = tf32(a) and lo = tf32(a - hi)
-// (round to nearest, ties away: cvt.rna) and sum lo*hi + hi*lo + hi*hi, small
-// terms first. The weight halves are rounded and laid out in fragment order
-// once, by the wrapper (ops/fused_conv.py: conv3_weight_operands); x * mask is
-// split once per staged chunk, in shared memory, by the thread that copied it.
-//
-// Why a fresh sum per chunk: the tensor cores do not round their f32 sums to
-// nearest. Chained through all of K (3 * 3 * C_in/8 mma per output) the sums
-// drift: on the H100 that version was off f64 by 1.6e-5 at C = 160, above the
-// 1e-5 it must meet. So each C_in chunk's 9 products per output (3 taps x 3
-// passes) start from zero and their sum is added to the accumulator on the CUDA
-// cores: 1.7e-6 off f64, under plain f32's 3.9e-6.
-//
-// Why mma.sync and not wgmma: TF32 wgmma takes its shared-memory operands
-// K-major only. K is the channel axis here and x is T-contiguous, so x would have
-// to be transposed as it is staged. mma.sync fragments are read by the threads
-// themselves, and the conv tap is then a one-column offset of that read: no
-// shifted or transposed copy is made. wgmma is the step after this one.
-//
-// Design. A block owns one row b, TILE_T = 96 time columns and every output
-// channel, C_out padded with zero weights to a multiple of 32 (padded channels
-// stay out of the LN sums), so the channel LN stays in the epilogue and each
-// output is written once. 8 warps as 2 (channels) x 4 (time): a warp holds MW
-// m16 tiles x 3 n8 tiles of accumulators. Registers are what limit it: two
-// blocks of 256 threads per SM cap a thread at 128, and the accumulators take
-// 60 of them at C_out = 160 (96 columns, not 128, leave the compiler room to
-// overlap the mma chains; 2304 and its halvings down to 288 are multiples of
-// 96). Per chunk a warp reads the x fragments of the 3 taps once, each weight
-// fragment once (two 16-byte loads, hi and lo) for its 3 n-tiles, and issues
-// 3 x 3 mma per m16n8 tile. C_in is walked in chunks of 8 (zero-padded)
-// through a ring of STAGES shared-memory stages filled with cp.async: x with
-// its one-column halo (16-byte copies where aligned, 4-byte copies at the halo
-// and ragged edges, zero-fill outside [0, T) and past C_in) and the chunk's
-// weight fragments; the next chunks' copies overlap this chunk's products. The
-// staged x rows have a stride of TILE_T + 8 floats, so the 32 lanes of a
-// fragment read (8 columns x 4 channels) hit 32 banks. The epilogue sums each
-// column's channels over registers, warp shuffles and one shared-memory
-// exchange between the two channel warps, and stores float2 pairs along T:
-// each warp store fills whole 32-byte sectors.
+// The design, shared by both kernels. The conv is a GEMM per tap with M = time,
+// N = C_out and K = C_in, so C_out = 160 is N exactly (wgmma takes N in steps
+// of 8; C_out is padded to 64, 128, 160 or 256, the padded channels zero and
+// outside the LN sums). One block of 384 threads per SM walks the work table
+// (items of 128 columns of one row of one level) with 3 warpgroups:
+//   - the producer: lane 0 of warp 0 keeps a ring of stages in flight, each one
+//     chunk of input channels: the chunk's weights (laid out by the wrapper in
+//     the order the wgmma descriptor names, one bulk copy from L2) and TMA boxes
+//     of x (128-byte swizzle) on 128-byte column boundaries around the item;
+//     mbarriers guard the ring (full: the bytes landed and the copying warps
+//     are done; empty: the 8 consumer warps are done). Warps 1-3 copy x where
+//     TMA cannot read it;
+//   - two consumer warpgroups, each owning 64 of the item's columns, issue 3
+//     taps of wgmma m64nN per chunk, B (the weights) from shared memory
+//     K-major, A (x) from registers, f32 sums in registers (N / 2 per thread);
+//   - the epilogue (bias, LN, affine, activation) runs in registers: an
+//     accumulator row is one time column with its channels spread over the 4
+//     lanes of a quad, so the LN sums are 2 shuffles. While it runs, the
+//     producer loads the next item's first stages.
+// The traps, and what the design does about each:
+//   - the tap is a one-column shift along time, and a wgmma descriptor cannot
+//     start one column into a swizzle atom; a TMA box cannot start there
+//     either: a box must start on 16 bytes of the row (on the H100 a start at
+//     t = -1 or t = 1 faults with an illegal instruction; one reaching past
+//     the end is filled with zeros). So x comes once, in boxes on 128-byte
+//     boundaries, and each consumer thread reads its A registers from them at
+//     the shifted column (the swizzle's XOR folded into per-thread offsets).
+//     A design that made shifted copies in shared memory instead, with the
+//     producer's warps, measured slower than the mma.sync kernel it was to
+//     replace (PERF.md);
+//   - TMA needs 16-byte aligned rows: a level whose rows are not (T not a
+//     multiple of 16 bytes, x off 16 bytes: the edge shapes; in bf16 level 6
+//     at T = 36) is copied by warps 1-3;
+//   - the mask: TMA copies x as it is, and the function reads x * mask. Each
+//     consumer thread ANDs each A register with its column's keep bits (the
+//     column is in [0, T) and unmasked), fetched one item ahead; the same bits
+//     zero the columns outside x, so no box needs to be zero-filled;
+//   - the weights: at C = 160 they are 150 KB in bf16 and 600 KB as the f32
+//     kernel's TF32 halves, so they stream from L2 one chunk per stage, shared
+//     by both consumer warpgroups, and every item reads them again;
+//   - the descriptors: cuTensorMapEncodeTiled (from libcuda, found through
+//     the runtime's entry-point query) once per level per launch on the
+//     host, passed as a __grid_constant__ parameter.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "cp_async.cuh"
 
@@ -73,16 +80,37 @@ namespace {
 
 using namespace decafnet;
 
-constexpr int TILE_T = 96;                  // time columns per block
-constexpr int WARPS_M = 2;                  // warps along the channels
-constexpr int WARPS_N = 4;                  // warps along time
-constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-constexpr int NT = TILE_T / WARPS_N / 8;    // n8 tiles per warp
-constexpr int KC = 8;                       // input channels per stage (k8 per tap)
-constexpr int X0 = 4;                       // shared-memory column of t0
-constexpr int XS = TILE_T + 8;              // staged x row: pad | halo | tile | halo | pad
-constexpr int STAGES = 3;
-static_assert(KC * TILE_T / 4 <= THREADS, "at most one 16-byte x copy per thread");
+constexpr int MAX_LEVELS = 8;               // FPN levels one launch takes
+
+// The levels of one launch: per level the input (B, C_in, T), its mask (B, T)
+// bytes, the output (B, C_out, T), T, and whether TMA reads x.
+struct Levels {
+  const void* x[MAX_LEVELS];
+  const uint8_t* mask[MAX_LEVELS];
+  void* out[MAX_LEVELS];
+  int T[MAX_LEVELS];
+  int vec[MAX_LEVELS];
+};
+
+// a[l] with l known only at run time, by selects over constant indices (an
+// indexed read of a kernel parameter would copy the array to local memory)
+template <typename P>
+__device__ __forceinline__ P pick(const P (&a)[MAX_LEVELS], int l) {
+  P v = a[0];
+#pragma unroll
+  for (int i = 1; i < MAX_LEVELS; ++i)
+    if (l == i) v = a[i];
+  return v;
+}
+
+// Work item i: (level, row, first column) at work[3 * i].
+struct Item {
+  int level, b, t0;
+};
+__device__ __forceinline__ Item work_item(const int* __restrict__ work, int i) {
+  const int* w = work + 3 * i;
+  return {w[0], w[1], w[2]};
+}
 
 // tf32(v), rounded to nearest with ties away from zero: what cvt.rna.tf32.f32
 // gives for every finite v and for inf, in two integer instructions where
@@ -91,646 +119,1180 @@ __device__ __forceinline__ uint32_t tf32_rna(float v) {
   return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
 }
 
-// d = a * b + c on the tensor cores (m16n8k8, TF32 in, f32 accumulate)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2], const float (&c)[4]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(c[0]),
-        "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
+// ------------------------------------------------------------------ shared
+constexpr int W_THREADS = 384;              // a producer warpgroup and 2 consumer ones
+constexpr int WM = 64;                      // time columns per consumer warpgroup (M)
 
-__device__ __forceinline__ float sum_over_groups(float s) {
-  s += __shfl_xor_sync(0xffffffffu, s, 4);
-  s += __shfl_xor_sync(0xffffffffu, s, 8);
-  s += __shfl_xor_sync(0xffffffffu, s, 16);
-  return s;
-}
-
-// Weight operands, each (ceil(C_in/8), 3, 2*MW, 32, 4): for chunk c8, tap, m16
-// tile mt and lane (g = lane/4, q = lane%4) the four A-fragment values
-// w[mt*16 + g + 8h, c8*8 + q + 4k, tap] at index 2k + h, zero when padded.
-template <int MW>
-__global__ void __launch_bounds__(THREADS, MW <= 5 ? 2 : 1)
-conv3_ln_act_kernel(const float* __restrict__ x, const uint8_t* __restrict__ mask,
-                    const float* __restrict__ w_hi, const float* __restrict__ w_lo,
-                    const float* __restrict__ bias, const float* __restrict__ ln_w,
-                    const float* __restrict__ ln_b, float* __restrict__ out, int C_in,
-                    int C_out, int T, float eps, int relu, int vec_x) {
-  constexpr int MT = 2 * MW;                // m16 tiles of the padded C_out
-  constexpr int WS = 3 * MT * 128;          // floats of one weight half per chunk
-  constexpr int XH = KC * XS;               // floats of one staged x half
-  constexpr int STAGE = 2 * WS + 2 * XH;    // floats per ring stage
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float red[2][WARPS_M][TILE_T];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int b = blockIdx.y, t0 = blockIdx.x * TILE_T;
-  const float* xb = x + (size_t)b * C_in * T;
-  const uint8_t* mb = mask + (size_t)b * T;
-  const int n_chunks = (C_in + KC - 1) / KC;
-  // The x values a thread copies into a stage: on the 16-byte path the same 4
-  // columns of one channel row (vr < KC) and, for tid < 2 * KC, one halo
-  // column of row hr, in every chunk; else elements i = tid + k * THREADS.
-  const int vr = tid / (TILE_T / 4), vcol = 4 * (tid % (TILE_T / 4));
-  const int hr = tid >> 1, hj = X0 + ((tid & 1) ? TILE_T : -1);
-
-  auto load_chunk = [&](int stage, int chunk) {
-    float* ws = smem + stage * STAGE;
-    const float* gh = w_hi + (size_t)chunk * WS;
-    const float* gl = w_lo + (size_t)chunk * WS;
-    for (int i = 4 * tid; i < WS; i += 4 * THREADS) {
-      cp_async16(ws + i, gh + i, true);
-      cp_async16(ws + WS + i, gl + i, true);
-    }
-    float* xs = ws + 2 * WS;
-    const int c0 = chunk * KC;
-    if (vec_x) {
-      if (vr < KC) {                        // T % 4 == 0: a group is wholly in or out
-        const int c = c0 + vr, t = t0 + vcol;
-        const bool ok = c < C_in && t < T;
-        cp_async16(xs + vr * XS + X0 + vcol, ok ? xb + (size_t)c * T + t : x, ok);
-      }
-      if (tid < 2 * KC) {                   // halo columns t0 - 1 and t0 + TILE_T
-        const int c = c0 + hr, t = t0 - X0 + hj;
-        const bool ok = c < C_in && t >= 0 && t < T;
-        cp_async4(xs + hr * XS + hj, ok ? xb + (size_t)c * T + t : x, ok);
-      }
-    } else {
-      for (int i = tid; i < KC * (TILE_T + 2); i += THREADS) {
-        const int r = i / (TILE_T + 2), j = X0 - 1 + i % (TILE_T + 2);
-        const int c = c0 + r, t = t0 - X0 + j;
-        const bool ok = c < C_in && t >= 0 && t < T;
-        cp_async4(xs + r * XS + j, ok ? xb + (size_t)c * T + t : x, ok);
-      }
-    }
-  };
-
-  // start the ring before anything else, so the first copies overlap the set-up
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_chunks) load_chunk(s, s);
-    cp_async_commit();
-  }
-
-  // accumulators start at the bias (rows g and g + 8 of each m16 tile)
-  float acc[MW][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MW; ++mt) {
-    const int r0 = (wm * MW + mt) * 16 + g, r1 = r0 + 8;
-    const float b0 = (bias != nullptr && r0 < C_out) ? bias[r0] : 0.f;
-    const float b1 = (bias != nullptr && r1 < C_out) ? bias[r1] : 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      acc[mt][nt][0] = b0;
-      acc[mt][nt][1] = b0;
-      acc[mt][nt][2] = b1;
-      acc[mt][nt][3] = b1;
-    }
-  }
-  // x * mask split in hi and lo: each thread takes the x values it copied,
-  // once they land, and writes hi in their place and lo one half further
-  auto mask_at = [&](int t) { return (t >= 0 && t < T && mb[t]) ? 1.f : 0.f; };
-  float vm[4], hm = 0.f;
-  if (vec_x) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) vm[i] = vr < KC ? mask_at(t0 + vcol + i) : 0.f;
-    if (tid < 2 * KC) hm = mask_at(t0 - X0 + hj);
-  }
-  auto split = [](float v, float& hi, float& lo) {
-    hi = __uint_as_float(tf32_rna(v));
-    lo = __uint_as_float(tf32_rna(v - hi));
-  };
-  auto split_chunk = [&](float* xs) {
-    if (vec_x) {
-      if (vr < KC) {
-        float4* v = reinterpret_cast<float4*>(xs + vr * XS + X0 + vcol);
-        const float4 a = *v;
-        float4 h, l;
-        split(a.x * vm[0], h.x, l.x);
-        split(a.y * vm[1], h.y, l.y);
-        split(a.z * vm[2], h.z, l.z);
-        split(a.w * vm[3], h.w, l.w);
-        v[0] = h;
-        v[XH / 4] = l;
-      }
-      if (tid < 2 * KC) split(xs[hr * XS + hj] * hm, xs[hr * XS + hj], xs[XH + hr * XS + hj]);
-    } else {
-      for (int i = tid; i < KC * (TILE_T + 2); i += THREADS) {
-        const int r = i / (TILE_T + 2), j = X0 - 1 + i % (TILE_T + 2);
-        split(xs[r * XS + j] * mask_at(t0 - X0 + j), xs[r * XS + j], xs[XH + r * XS + j]);
-      }
-    }
-  };
-
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    cp_async_wait<STAGES - 2>();            // this thread's copies of the chunk landed
-    split_chunk(smem + (chunk % STAGES) * STAGE + 2 * WS);
-    __syncthreads();                        // all of them, split; last stage free
-    {
-      const int next = chunk + STAGES - 1;
-      if (next < n_chunks) load_chunk(next % STAGES, next);
-      cp_async_commit();
-    }
-    const float* ws = smem + (chunk % STAGES) * STAGE;
-    const float* xs = ws + 2 * WS;
-    if (t0 + wn * NT * 8 >= T) continue;    // this warp's columns lie past T
-    // B fragments of the three taps: rows (channels) q and q + 4, column g of
-    // each n-tile, shifted by the tap
-    uint32_t bh[3][NT][2], bl[3][NT][2];
-#pragma unroll
-    for (int tap = 0; tap < 3; ++tap) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int j = X0 - 1 + wn * NT * 8 + nt * 8 + g + tap;
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          bh[tap][nt][k] = __float_as_uint(xs[(q + 4 * k) * XS + j]);
-          bl[tap][nt][k] = __float_as_uint(xs[XH + (q + 4 * k) * XS + j]);
-        }
-      }
-    }
-    const float4* wh = reinterpret_cast<const float4*>(ws) + wm * MW * 32 + lane;
-    const float4* wl = reinterpret_cast<const float4*>(ws + WS) + wm * MW * 32 + lane;
-#pragma unroll
-    for (int mt = 0; mt < MW; ++mt) {
-      // the chunk's 3 taps x 3 passes (small terms first) into a fresh sum,
-      // then added to the accumulator on the CUDA cores
-      constexpr float zero[4] = {0.f, 0.f, 0.f, 0.f};
-      float d[NT][4];
-#pragma unroll
-      for (int tap = 0; tap < 3; ++tap) {
-        const float4 h = wh[(tap * MT + mt) * 32], l = wl[(tap * MT + mt) * 32];
-        const uint32_t ah[4] = {__float_as_uint(h.x), __float_as_uint(h.y),
-                                __float_as_uint(h.z), __float_as_uint(h.w)};
-        const uint32_t al[4] = {__float_as_uint(l.x), __float_as_uint(l.y),
-                                __float_as_uint(l.z), __float_as_uint(l.w)};
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          if (tap == 0)
-            mma_tf32(d[nt], al, bh[0][nt], zero);
-          else
-            mma_tf32(d[nt], al, bh[tap][nt], d[nt]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], ah, bl[tap][nt], d[nt]);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], ah, bh[tap][nt], d[nt]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += d[nt][i];
-    }
-  }
-  cp_async_wait<0>();
-
-  // channel LayerNorm per column. Thread holds columns 2q, 2q + 1 of each
-  // n-tile (accumulator index p = 0, 1) for rows g, g + 8 (index 2h + p).
-  float mean[NT][2], rstd[NT][2];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      float s = 0.f;
-#pragma unroll
-      for (int mt = 0; mt < MW; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          if ((wm * MW + mt) * 16 + g + 8 * h < C_out) s += acc[mt][nt][2 * h + p];
-      s = sum_over_groups(s);
-      if (g == 0) red[0][wm][wn * NT * 8 + nt * 8 + 2 * q + p] = s;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int col = wn * NT * 8 + nt * 8 + 2 * q + p;
-      mean[nt][p] = (red[0][0][col] + red[0][1][col]) / (float)C_out;
-      float s = 0.f;
-#pragma unroll
-      for (int mt = 0; mt < MW; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          if ((wm * MW + mt) * 16 + g + 8 * h < C_out) {
-            const float d = acc[mt][nt][2 * h + p] - mean[nt][p];
-            s = fmaf(d, d, s);
-          }
-      s = sum_over_groups(s);
-      if (g == 0) red[1][wm][col] = s;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int col = wn * NT * 8 + nt * 8 + 2 * q + p;
-      rstd[nt][p] = rsqrtf((red[1][0][col] + red[1][1][col]) / (float)C_out + eps);
-    }
-  }
-
-  float* ob = out + (size_t)b * C_out * T;
-#pragma unroll
-  for (int mt = 0; mt < MW; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int co = (wm * MW + mt) * 16 + g + 8 * h;
-      if (co >= C_out) continue;
-      const float lw = ln_w != nullptr ? ln_w[co] : 1.f;
-      const float lb = ln_b != nullptr ? ln_b[co] : 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int t = t0 + wn * NT * 8 + nt * 8 + 2 * q;
-        float y0 = (acc[mt][nt][2 * h] - mean[nt][0]) * rstd[nt][0] * lw + lb;
-        float y1 = (acc[mt][nt][2 * h + 1] - mean[nt][1]) * rstd[nt][1] * lw + lb;
-        if (relu) {
-          y0 = fmaxf(y0, 0.f);
-          y1 = fmaxf(y1, 0.f);
-        }
-        float* o = ob + (size_t)co * T + t;
-        if (t + 1 < T && (T & 1) == 0) {
-          *reinterpret_cast<float2*>(o) = make_float2(y0, y1);
-        } else {
-          if (t < T) o[0] = y0;
-          if (t + 1 < T) o[1] = y1;
-        }
-      }
-    }
-  }
-}
-
-template <int MW>
-int launch(const float* x, const uint8_t* mask, const float* w_hi, const float* w_lo,
-           const float* bias, const float* ln_w, const float* ln_b, float* out, int B,
-           int C_in, int C_out, int T, float eps, int relu, cudaStream_t stream) {
-  constexpr int bytes = STAGES * (2 * 3 * 2 * MW * 128 + 2 * KC * XS) * (int)sizeof(float);
-  const cudaError_t err = cudaFuncSetAttribute(
-      conv3_ln_act_kernel<MW>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int vec_x = (T % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
-  dim3 grid((T + TILE_T - 1) / TILE_T, B);
-  conv3_ln_act_kernel<MW><<<grid, THREADS, bytes, stream>>>(
-      x, mask, w_hi, w_lo, bias, ln_w, ln_b, out, C_in, C_out, T, eps, relu, vec_x);
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------------------------ bf16
-//
-// The bf16 variant computes the function of the JAX bf16 composition
-// (conv3_ln_act_xla with bf16 x): the weights rounded to bf16, the conv summed in
-// f32 and rounded to bf16, the bias (rounded to bf16) added and rounded again,
-// then the LN with f32 statistics and the f32 affine on the f32 LN parameters,
-// the activation, and one rounding of the result to bf16. The kernel keeps the
-// composition's roundings of the conv output, so it computes the same function
-// as the plain version and differs only by the order of the f32 sums.
-//
-// What bounds it on an H100: the bytes, barely. One served decode call (64 rows,
-// T = 2304, 7 levels, 44 calls) moves 1.21 GB (x and the output in bf16, the
-// weight fragments, the f32 LN parameters, the mask bytes, as chip_smoke.py
-// counts them): 0.361 ms at 3.35 TB/s, against 266 GFLOP, 0.269 ms at the
-// 989 TFLOP/s of dense bf16. This kernel reaches about 17 % of that bound.
-// A redesign with B fragments read by ldmatrix from x transposed as staged,
-// a launch plan for the short levels and two blocks per SM was slower on an
-// H100 in sum (2.23 against 2.17 ms per decode call): its tensor pipe was busy
-// about a quarter of the time, the rest barriers, staging and the epilogue
-// (PERF.md). The next design has to take those off the product warps (a
-// warp-specialised producer, or wgmma with B read from shared memory).
-//
-// Design: the f32 kernel's tiling with the m16n8k16 bf16 mma.sync in place of three
-// m16n8k8 TF32 passes, so a chunk is 16 input channels and each output takes
-// 3 taps x C_in/16 products. A block owns one row b, TILE_T = 96 columns and
-// every output channel (C_out padded to a multiple of 32 with zero weights,
-// outside the LN sums); 8 warps as 2 (channels) x 4 (time), each holding MW m16
-// x 3 n8 accumulator tiles. The weights come in A-fragment order, rounded once
-// per weight by the wrapper (ops/fused_conv.py: conv3_bf16_operands), one
-// 16-byte load per lane per (tap, m16 tile). x is staged per chunk as bf16 rows
-// [channel][time] with a one-column halo, the interior with 16-byte cp.async (8
-// columns) where T % 8 == 0 and x is 16-byte aligned, the halo and every other
-// layout with plain 2-byte loads (cp.async copies 4, 8 or 16 bytes), through a
-// ring of STAGES stages as in the f32 kernel. A B fragment register holds the
-// channel pair (2q, 2q + 1) at one column: two 2-byte shared loads, packed; the
-// staged row of 120 bf16 puts the four channel pairs of a fragment read in
-// distinct banks. The mask is not applied to the staged x: each B register is
-// ANDed with its column's mask, computed once per thread for the 3 taps x 3
-// n-tiles it reads (a masked bf16 pair is the zero bit pattern). The sums are
-// not restarted per chunk as in the TF32 kernel: the bf16 rounding of the conv
-// output dwarfs the tensor cores' f32 accumulation error.
-
-constexpr int BKC = 16;                     // input channels per stage (k16 per tap)
-constexpr int BX0 = 8;                      // shared-memory column of t0 (16 bytes)
-constexpr int BXS = 120;                    // staged x row in bf16 (16-byte multiple)
-static_assert(BXS % 8 == 0 && BXS >= BX0 + TILE_T + 1 && (BXS % 32 == 8 || BXS % 32 == 24),
-              "16-byte rows holding the halo; rows 2q (q = 0..3) start q * BXS words "
-              "apart, in banks 0, 24, 16, 8 (or 0, 8, 16, 24)");
-static_assert(BKC * TILE_T / 8 <= THREADS, "at most one 16-byte x copy per thread");
-
-// d = a * b + c on the tensor cores (m16n8k16, bf16 in, f32 accumulate)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2], const float (&c)[4]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(c[0]),
-        "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
+// One TMA descriptor of x per level (boxes of 128 bytes of time x the
+// stage's channels, 128-byte swizzle), in the kernel's parameter space.
+struct TmaMaps {
+  CUtensorMap m[MAX_LEVELS];
+};
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// Weight fragments (ceil(C_in/16), 3, 2*MW, 32, 8) bf16: for chunk c16, tap, m16
-// tile mt and lane (g = lane/4, q = lane%4) the eight A-fragment values
-// w[mt*16 + g + 8h, c16*16 + 8kh + 2q + j, tap] at index 4kh + 2h + j, zero when
-// padded (ops/fused_conv.py: conv3_bf16_fragments).
-template <int MW>
-__global__ void __launch_bounds__(THREADS, MW <= 5 ? 2 : 1)
-conv3_ln_act_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ mask,
-                         const __nv_bfloat16* __restrict__ wf, const float* __restrict__ bias,
-                         const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-                         __nv_bfloat16* __restrict__ out, int C_in, int C_out, int T,
-                         float eps, int relu, int vec_x) {
-  constexpr int MT = 2 * MW;                // m16 tiles of the padded C_out
-  constexpr int WS = 3 * MT * 256;          // bf16 of the weights per chunk
-  constexpr int XH = BKC * BXS;             // bf16 of one staged x chunk
-  constexpr int STAGE = WS + XH;            // bf16 per ring stage
-  extern __shared__ __align__(16) float smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __shared__ float red[2][WARPS_M][TILE_T];
+// round_bf16 of two values in one conversion (bf16x2)
+__device__ __forceinline__ void round_bf16_pair(float& a, float& b) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(a, b);
+  a = __low2float(r);
+  b = __high2float(r);
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int b = blockIdx.y, t0 = blockIdx.x * TILE_T;
-  const __nv_bfloat16* xb = x + (size_t)b * C_in * T;
-  const uint8_t* mb = mask + (size_t)b * T;
-  const int n_chunks = (C_in + BKC - 1) / BKC;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  // the x values a thread stages: on the 16-byte path the same 8 columns of
-  // one channel row (vr < BKC) and, for tid < 2 * BKC, one halo column of row
-  // hr, in every chunk; else elements i = tid + k * THREADS
-  const int vr = tid / (TILE_T / 8), vcol = 8 * (tid % (TILE_T / 8));
-  const int hr = tid >> 1, hj = BX0 + ((tid & 1) ? TILE_T : -1);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  auto load_chunk = [&](int stage, int chunk) {
-    __nv_bfloat16* ws = smem + stage * STAGE;
-    const __nv_bfloat16* gw = wf + (size_t)chunk * WS;
-    for (int i = 8 * tid; i < WS; i += 8 * THREADS) cp_async16(ws + i, gw + i);
-    __nv_bfloat16* xs = ws + WS;
-    const int c0 = chunk * BKC;
-    if (vec_x) {
-      if (vr < BKC) {                       // T % 8 == 0: a group is wholly in or out
-        const int c = c0 + vr, t = t0 + vcol;
-        const bool ok = c < C_in && t < T;
-        cp_async16(xs + vr * BXS + BX0 + vcol, ok ? xb + (size_t)c * T + t : x, ok);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// wait for the phase of parity `parity` of bar to complete; a wait that has
+// not ended after ~2^28 polls (seconds) traps, so a fault shows as an error
+// and not as a hung card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 28)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// bytes from global to shared memory by the copy engine, completion on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// one box of a 3-D tensor map at coordinates (c0, c1, c2), innermost first;
+// out-of-range elements arrive as zeros
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// 8-byte copy global -> shared (cp.async; both addresses on 8 bytes)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// this thread's writes to shared memory, visible to the tensor cores' reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// shared-memory matrix descriptor of wgmma: start, leading and stride byte
+// offsets, swizzle (1: 128 B, 2: 64 B, 3: 32 B)
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, int lbo, int sbo, int swizzle) {
+  return ((smem_u32(p) & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)swizzle << 62);
+}
+
+// keep the compiler from moving accumulator reads or writes across wgmma
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void stmatrix_x4_trans(void* p, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};" ::"r"(
+                   smem_u32(p)),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// byte offset of bf16 (row r, column j) in a box of 128-byte rows under the
+// 128-byte swizzle (16-byte chunk j / 8 of row r moves to chunk (j / 8) ^ (r % 8))
+__device__ __forceinline__ int swz128(int r, int j) {
+  return r * 128 + ((((j >> 3) ^ (r & 7)) << 4) | ((j & 7) << 1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup's products are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// blocks of a persistent launch: one per SM, or one per item when there are
+// fewer
+int persistent_grid(int n_work) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return n_work < sms ? n_work : sms;
+}
+
+// ------------------------------------------------------------------ f32
+//
+// The f32 kernel: the products in three TF32 passes, the result at f32
+// accuracy.
+//
+// What bounds it on an H100: the operations. One served decode call (64 rows,
+// T = 2304, 7 levels, 8 launches) is 266 GFLOP against ~2.4 GB moved. Three
+// TF32 passes at 495 TFLOP/s take 1.61 ms; the bytes at 3.35 TB/s take 0.72 ms.
+// Beside them, every 128-column item reads the weight halves from L2 again
+// (600 KB at C = 160).
+//
+// Why three passes and not one: a single TF32 product keeps 11 bits of each
+// operand. Emulated in numpy at C = 160, T = 2304, conv3 + LN + ReLU in one TF32
+// pass is off f64 by 1.36e-3, 13x the 1e-4 this kernel is held to; plain f32 is
+// off by 2.5e-6. Split each operand a into hi = tf32(a) and lo = tf32(a - hi)
+// (round to nearest, ties away: cvt.rna) and sum lo*hi + hi*lo + hi*hi, small
+// terms first. The weight halves are rounded and laid out once, by the wrapper
+// (ops/fused_conv.py: conv3_weight_operands); each consumer thread splits its
+// A registers (x * mask) as it reads them.
+//
+// Why a fresh sum per chunk: the tensor cores do not round their f32 sums to
+// nearest. Chained through all of K (3 taps x 3 passes x C_in / 8 products per
+// output) the sums drift past the 1e-5 of f64 this kernel must meet (on an
+// H100 1.3e-5 at the served shapes: scripts/torch_conv3_variants.py,
+// "chained"). So each stage's 9 products (8 input channels) start from zero
+// in a second register set and their sum is added to the accumulator on the
+// CUDA cores.
+//
+// Registers: the accumulator and the fresh sum take N / 2 each, 160 at C =
+// 160 beside 24 for the A registers of the 3 taps. setmaxnreg gives the
+// consumer warpgroups 232 registers a thread and the producer 40; without it
+// the launch bound's 168 do not hold both, and on an H100 the kernel takes
+// half as long again (scripts/torch_conv3_variants.py, "no_setmaxnreg").
+// At C_out above 160 (not served) the two would take 256: there an item is 64
+// columns and the two consumer warpgroups split the channels (N = 128 each),
+// the LN sums exchanged in shared memory.
+//
+// TF32 wgmma reads a shared-memory operand K-major only; B, the weights, is
+// K-major as the wrapper lays it out (rows of 8 input channels, 32 bytes,
+// under the 32-byte swizzle), and A comes from registers, so x is never
+// transposed. A stage is 8 input channels: the weight halves of the 3 taps
+// (30 KB at C = 160) and 6 boxes of 32 columns x 8 channels of x (t0 - 32 ...
+// t0 + 128), a ring of 4. The outputs are stored from the registers: a warp's
+// store covers 8 consecutive columns of 4 channels, whole 32-byte sectors.
+
+// d (+)= A * B on the tensor cores: wgmma m64nNk8, TF32 in, f32 accumulate,
+// A (64 time columns x 8 input channels) from registers (warp w, lane 4g + q:
+// a[0] = time 16w + g, channel q; a[1] time + 8; a[2], a[3] at channel + 4),
+// B (8 input channels x N output channels) from shared memory K-major;
+// scale_d = 0 starts from zero. The accumulator layout is the bf16 one below:
+// d[4j + 2h + p] = (time 16w + g + 8h, channel 8j + 2q + p).
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<64> {
+  __device__ static void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                             int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+                 "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+                   "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+                   "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+                   "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+                   "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+                   "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                   "+f"(d[30]), "+f"(d[31])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<128> {
+  __device__ static void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                             int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+                 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+                 "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+                 "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+                   "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+                   "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+                   "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+                   "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+                   "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                   "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+                   "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+                   "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+                   "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+                   "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+                   "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+                   "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<160> {
+  __device__ static void mma(float (&d)[80], const uint32_t (&a)[4], uint64_t b,
+                             int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n160k8.f32.tf32.tf32 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+                 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+                 "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+                 "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+                 "}, {%80, %81, %82, %83}, %84, p, 1, 1;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+                   "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+                   "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+                   "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+                   "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+                   "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                   "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+                   "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+                   "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+                   "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+                   "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+                   "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+                   "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+                   "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+                   "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+                   "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+constexpr int FKC = 8;                      // input channels per stage (one k8)
+constexpr int FBOX = 32;                    // columns of one x box (128 bytes)
+constexpr int FXBOX = FKC * FBOX * 4;       // bytes of one x box
+
+template <int NP>
+struct TfPlan {
+  static constexpr bool SPLIT = NP > 160;             // warpgroups split the channels
+  static constexpr int NW = SPLIT ? NP / 2 : NP;      // wgmma N of a warpgroup
+  static constexpr int TILE = SPLIT ? WM : 2 * WM;    // columns per item
+  static constexpr int BOXES = TILE / FBOX + 2;       // x at t0 - 32 ... t0 + TILE
+  static constexpr int WBYTES = 2 * 3 * NP * FKC * 4; // hi, lo x 3 taps
+  static constexpr int XBYTES = BOXES * FXBOX;
+  static constexpr int STAGE = XBYTES + WBYTES;
+  static constexpr int STAGES = 4;
+  static constexpr int RED = STAGES * STAGE;          // LN sums [2][2][WM] (SPLIT)
+  static constexpr int PARAMS = RED + 4 * WM * 4;     // bias, ln_w, ln_b
+  static constexpr int BARS = PARAMS + 3 * NP * 4;    // full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BARS + 2 * STAGES * 8 + 1024;  // + alignment slack
+  static_assert(BYTES <= 232448, "shared memory of one block");
+  static_assert(STAGE % 1024 == 0, "1024-byte aligned swizzle atoms");
+};
+
+// byte offset of f32 (row r, column j) in a box of 128-byte rows under the
+// 128-byte swizzle (16-byte chunk j / 4 of row r moves to chunk (j / 4) ^ (r % 8))
+__device__ __forceinline__ int swz128f(int r, int j) {
+  return r * 128 + ((((j >> 2) ^ (r & 7)) << 4) | ((j & 3) << 2));
+}
+
+// Weight image (ceil(C_in/8), 2, 3, NP, 8) f32: for chunk c, half (tf32 hi,
+// lo), tap and output channel n, the 8 input channels 8c .. 8c + 7 of that
+// half of w[n, :, tap] in a 32-byte row whose 16-byte pieces k sit at
+// k ^ ((n / 4) % 2) (the 32-byte swizzle of a K-major wgmma operand), zero
+// where padded (ops/fused_conv.py: conv3_weight_fragments).
+template <int NP>
+__global__ void __launch_bounds__(W_THREADS, 1)
+conv3_ln_act_kernel(const __grid_constant__ TmaMaps maps, const Levels lv,
+                    const int* __restrict__ work, int n_work, const float* __restrict__ wimg,
+                    const float* __restrict__ bias, const float* __restrict__ ln_w,
+                    const float* __restrict__ ln_b, int C_in, int C_out, float eps,
+                    int relu) {
+  using P = TfPlan<NP>;
+  constexpr int NW = P::NW, TILE = P::TILE;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* red = reinterpret_cast<float*>(smem + P::RED);
+  float* prm = reinterpret_cast<float*>(smem + P::PARAMS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BARS);
+  uint64_t* empty = full + P::STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2;
+  const int n_chunks = (C_in + FKC - 1) / FKC;
+  if (tid == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      mbar_init(&full[s], 2);               // the TMA issuer and the copying warps
+      mbar_init(&empty[s], 8);              // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = tid; i < NP; i += W_THREADS) {
+    const bool ok = i < C_out;
+    prm[i] = ok && bias != nullptr ? bias[i] : 0.f;
+    prm[NP + i] = ok ? (ln_w != nullptr ? ln_w[i] : 1.f) : 0.f;
+    prm[2 * NP + i] = ok && ln_b != nullptr ? ln_b[i] : 0.f;
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (warp == 0) {
+      // lane 0 of warp 0 issues each stage's copies: the weight chunk (one
+      // bulk copy) and, on a level TMA can address, the x boxes that start
+      // inside x
+      if (lane != 0) return;
+      int stage = 0, phase = 0;
+      for (int item = blockIdx.x; item < n_work; item += gridDim.x) {
+        const Item it = work_item(work, item);
+        const int level = it.level, b = it.b, t0 = it.t0;
+        const int T = pick(lv.T, level), tma = pick(lv.vec, level);
+        for (int c = 0; c < n_chunks; ++c) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* sb = smem + stage * P::STAGE;
+          int n = 0;
+          for (int box = 0; box < P::BOXES; ++box) {
+            const int ts = t0 + (box - 1) * FBOX;
+            n += tma && ts >= 0 && ts < T;
+          }
+          mbar_arrive_expect_tx(&full[stage], P::WBYTES + n * FXBOX);
+          bulk_load(sb + P::XBYTES, wimg + (size_t)c * (P::WBYTES / 4), P::WBYTES, &full[stage]);
+          for (int box = 0; box < P::BOXES; ++box) {
+            const int ts = t0 + (box - 1) * FBOX;
+            if (tma && ts >= 0 && ts < T)
+              tma_load_3d(sb + box * FXBOX, &maps.m[level], ts, c * FKC, b, &full[stage]);
+          }
+          if (++stage == P::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
-      if (tid < 2 * BKC) {                  // halo columns t0 - 1 and t0 + TILE_T
-        const int c = c0 + hr, t = t0 - BX0 + hj;
-        const bool ok = c < C_in && t >= 0 && t < T;
-        xs[hr * BXS + hj] = ok ? xb[(size_t)c * T + t] : zero;
-      }
-    } else {
-      for (int i = tid; i < BKC * (TILE_T + 2); i += THREADS) {
-        const int r = i / (TILE_T + 2), j = BX0 - 1 + i % (TILE_T + 2);
-        const int c = c0 + r, t = t0 - BX0 + j;
-        const bool ok = c < C_in && t >= 0 && t < T;
-        xs[r * BXS + j] = ok ? xb[(size_t)c * T + t] : zero;
+      return;
+    }
+    // warps 1-3 copy x on a level TMA cannot address: the columns t0 - 1 ..
+    // t0 + TILE that lie in [0, T), zero in channel rows past C_in
+    const int ptid = tid - 32;
+    int stage = 0, phase = 0;
+    for (int item = blockIdx.x; item < n_work; item += gridDim.x) {
+      const Item it = work_item(work, item);
+      const int level = it.level, b = it.b, t0 = it.t0;
+      const int T = pick(lv.T, level), tma = pick(lv.vec, level);
+      const float* xb = static_cast<const float*>(pick(lv.x, level)) + (size_t)b * C_in * T;
+      for (int c = 0; c < n_chunks; ++c) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* sb = smem + stage * P::STAGE;
+        if (!tma) {
+          for (int e = ptid; e < FKC * (TILE + 2); e += 96) {
+            const int tt = e % (TILE + 2) - 1, r = e / (TILE + 2), t = t0 + tt;
+            if (t < 0 || t >= T) continue;
+            const int ch = c * FKC + r;
+            *reinterpret_cast<float*>(sb + ((tt + FBOX) >> 5) * FXBOX + swz128f(r, tt & 31)) =
+                ch < C_in ? xb[(size_t)ch * T + t] : 0.f;
+          }
+          fence_proxy_async();
+        }
+        named_sync(3, 96);
+        if (ptid == 0) mbar_arrive(&full[stage]);
+        if (++stage == P::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
-  };
-
-  // start the ring before anything else, so the first copies overlap the set-up
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < n_chunks) load_chunk(s, s);
-    cp_async_commit();
+    return;
   }
 
-  // mask of each column this thread reads as a B fragment (all bits or none)
-  uint32_t msk[3][NT];
+  // consumers: warpgroup cw takes the columns t0 + tw .. t0 + tw + 63 and the
+  // channels nc .. nc + NW - 1. A thread's A register i of a tap reads time
+  // tw + 16 w4 + g + 8 (i & 1) + tap - 1 of the stage's window [t0 - 32,
+  // t0 + TILE + 32) at channel row q + 4 (i >> 1): off[tap][i] is its byte
+  // offset. A time outside [0, T) or masked reads as zero (keep[tap][h]: all
+  // bits or none), which is x * mask and the conv's zero padding.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int cw = wg - 1, w4 = warp & 3, g = lane >> 2, q = lane & 3;
+  const int tw = P::SPLIT ? 0 : cw * WM, nc = P::SPLIT ? cw * NW : 0;
+  int off[3][4];
 #pragma unroll
   for (int tap = 0; tap < 3; ++tap)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int t = t0 + wn * NT * 8 + nt * 8 + g + tap - 1;
-      msk[tap][nt] = (t >= 0 && t < T && mb[t]) ? 0xffffffffu : 0u;
+    for (int i = 0; i < 4; ++i) {
+      const int tt = tw + 16 * w4 + g + 8 * (i & 1) + tap - 1;
+      off[tap][i] = ((tt + FBOX) >> 5) * FXBOX + swz128f(q + 4 * (i >> 1), tt & 31);
     }
-  float acc[MW][NT][4];
+  auto keep_flags = [&](int item, uint32_t (&k)[3][2]) {
+    if (item >= n_work) return;
+    const Item it = work_item(work, item);
+    const int T = pick(lv.T, it.level);
+    const uint8_t* mb = pick(lv.mask, it.level) + (size_t)it.b * T;
 #pragma unroll
-  for (int mt = 0; mt < MW; ++mt)
+    for (int tap = 0; tap < 3; ++tap)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    cp_async_wait<STAGES - 2>();            // this thread's copies of the chunk landed
-    __syncthreads();                        // everyone's; the last stage is free
-    {
-      const int next = chunk + STAGES - 1;
-      if (next < n_chunks) load_chunk(next % STAGES, next);
-      cp_async_commit();
-    }
-    const __nv_bfloat16* ws = smem + (chunk % STAGES) * STAGE;
-    const uint16_t* xs = reinterpret_cast<const uint16_t*>(ws + WS);
-    if (t0 + wn * NT * 8 >= T) continue;    // this warp's columns lie past T
-    // B fragments of the three taps: channel pairs (2q, 2q + 1) and (2q + 8,
-    // 2q + 9) at column g of each n-tile, shifted by the tap, masked
-    uint32_t bf[3][NT][2];
-#pragma unroll
-    for (int tap = 0; tap < 3; ++tap) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int j = BX0 - 1 + wn * NT * 8 + nt * 8 + g + tap;
-#pragma unroll
-        for (int kh = 0; kh < 2; ++kh) {
-          const int r = 2 * q + 8 * kh;
-          const uint32_t lo = xs[r * BXS + j], hi = xs[(r + 1) * BXS + j];
-          bf[tap][nt][kh] = (lo | (hi << 16)) & msk[tap][nt];
-        }
+      for (int h = 0; h < 2; ++h) {
+        const int t = it.t0 + tw + 16 * w4 + g + 8 * h + tap - 1;
+        k[tap][h] = t >= 0 && t < T && mb[t] ? 0xFFFFFFFFu : 0u;
       }
-    }
-    const uint4* wa = reinterpret_cast<const uint4*>(ws) + wm * MW * 32 + lane;
+  };
+  uint32_t next_keep[3][2];
+  keep_flags(blockIdx.x, next_keep);
+  float acc[NW / 2];
+  int stage = 0, phase = 0;
+  for (int item = blockIdx.x; item < n_work; item += gridDim.x) {
+    const Item it = work_item(work, item);
+    const int level = it.level, b = it.b, t0w = it.t0 + tw;
+    const int T = pick(lv.T, level);
+    uint32_t keep[3][2];
 #pragma unroll
-    for (int mt = 0; mt < MW; ++mt) {
+    for (int tap = 0; tap < 3; ++tap)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) keep[tap][h] = next_keep[tap][h];
+    keep_flags(item + gridDim.x, next_keep);   // on their way during this item
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      mbar_wait(&full[stage], phase);
+      const uint8_t* xs = smem + stage * P::STAGE;
+      const uint8_t* ws = xs + P::XBYTES + nc * 32;
+      uint32_t ah[3][4], al[3][4];
+#pragma unroll
+      for (int tap = 0; tap < 3; ++tap)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float v = __uint_as_float(
+              *reinterpret_cast<const uint32_t*>(xs + off[tap][i]) & keep[tap][i & 1]);
+          ah[tap][i] = tf32_rna(v);
+          al[tap][i] = tf32_rna(v - __uint_as_float(ah[tap][i]));
+        }
+      // the chunk's 3 taps x 3 passes (small terms first) into a fresh sum
+      float d[NW / 2];
+      fence_regs(d);
+      wgmma_fence();
 #pragma unroll
       for (int tap = 0; tap < 3; ++tap) {
-        const uint4 a4 = wa[(tap * MT + mt) * 32];
-        const uint32_t a[4] = {a4.x, a4.y, a4.z, a4.w};
+        const uint64_t wh = gmma_desc(ws + tap * NP * 32, 0, 256, 3);
+        const uint64_t wl = gmma_desc(ws + (3 + tap) * NP * 32, 0, 256, 3);
+        WgmmaTf32<NW>::mma(d, al[tap], wh, tap != 0);
+        WgmmaTf32<NW>::mma(d, ah[tap], wl, 1);
+        WgmmaTf32<NW>::mma(d, ah[tap], wh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(d);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == P::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, bf[tap][nt], acc[mt][nt]);
+      for (int i = 0; i < NW / 2; ++i) acc[i] += d[i];
+    }
+
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[4 * j + i] += prm[nc + 8 * j + 2 * q + (i & 1)];
+    // channel LayerNorm of times g and g + 8 (index h): each lane of a quad
+    // holds NW / 4 of the channels; with the channels split, the two
+    // warpgroups add their sums in shared memory (red[k][cw][time])
+    float mean[2], rstd[2];
+    auto channel_sum = [&](float (&s)[2], int k) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+        s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+      }
+      if (P::SPLIT) {
+        float* r = red + k * 2 * WM;
+        if (q == 0)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) r[cw * WM + 16 * w4 + g + 8 * h] = s[h];
+        named_sync(1, 256);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          s[h] = r[16 * w4 + g + 8 * h] + r[WM + 16 * w4 + g + 8 * h];
+      }
+    };
+    float s[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          if (nc + 8 * j + 2 * q + p < C_out) s[h] += acc[4 * j + 2 * h + p];
+    channel_sum(s, 0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mean[h] = s[h] / (float)C_out;
+      s[h] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          if (nc + 8 * j + 2 * q + p < C_out) {
+            const float dv = acc[4 * j + 2 * h + p] - mean[h];
+            s[h] = fmaf(dv, dv, s[h]);
+          }
+    }
+    channel_sum(s, 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) rstd[h] = rsqrtf(s[h] / (float)C_out + eps);
+    float* ob = static_cast<float*>(pick(lv.out, level)) + (size_t)b * C_out * T;
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1, co = nc + 8 * j + 2 * q + (i & 1);
+        const int t = t0w + 16 * w4 + g + 8 * h;
+        float y = (acc[4 * j + i] - mean[h]) * rstd[h] * prm[NP + co] + prm[2 * NP + co];
+        if (relu) y = fmaxf(y, 0.f);
+        if (co < C_out && t < T) ob[(size_t)co * T + t] = y;
+      }
+  }
+}
+
+template <int NP>
+int launch_f32(const TmaMaps& maps, const Levels& lv, const int* work, int n_work,
+               const float* wimg, const float* bias, const float* ln_w, const float* ln_b,
+               int C_in, int C_out, float eps, int relu, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv3_ln_act_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, TfPlan<NP>::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = persistent_grid(n_work);
+  conv3_ln_act_kernel<NP><<<grid, W_THREADS, TfPlan<NP>::BYTES, stream>>>(
+      maps, lv, work, n_work, wimg, bias, ln_w, ln_b, C_in, C_out, eps, relu);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ bf16
+//
+// The bf16 kernel computes the function of the JAX bf16 composition
+// (conv3_ln_act_xla with bf16 x): the weights rounded to bf16, the conv summed in
+// f32 and rounded to bf16, the bias (rounded to bf16) added and rounded again,
+// then the LN with f32 statistics and the f32 affine on the f32 LN parameters,
+// the activation, and one rounding of the result to bf16. It keeps both
+// roundings of the conv output in its epilogue, so it computes the same
+// function as the plain version and differs only by the order of the f32 sums.
+//
+// What bounds it on an H100: the bytes, barely. One served decode call (64 rows,
+// T = 2304, 7 levels, 8 launches) moves 1.2 GB (x and the output in bf16, the
+// mask bytes, and once per launch the weights and the f32 LN parameters, as
+// chip_smoke.py counts them): 0.359 ms at 3.35 TB/s, against 266 GFLOP, 0.269
+// ms at the 989 TFLOP/s of dense bf16.
+//
+// A stage is 32 input channels: the weights (3 taps x N x 32, 30 KB at C =
+// 160, under the 64-byte swizzle) and x at t0 - 64, t0, t0 + 64 and t0 + 128
+// (TMA boxes of 32 channels x 64 columns). Per stage each consumer warpgroup
+// issues 3 taps x 2 k16 steps of wgmma m64nNk16, each A register read by two
+// 2-byte loads at the shifted column. The epilogue rounds as the composition
+// does, and the result goes through shared memory (stmatrix .trans gives
+// [channel][time]) to 16-byte stores along T, full 32-byte sectors. Warps 1-3
+// copy x where TMA cannot: 8-byte cp.async where rows are on 8 bytes (level 6
+// at T = 36), else 2-byte loads.
+constexpr int WKC = 32;                     // input channels per stage
+constexpr int XBOX = WKC * WM * 2;          // bytes of one x box: 32 rows of 128 B
+constexpr int OS = WM * 2 + 16;             // bytes of a staged output row (one channel)
+
+// d (+)= A * B on the tensor cores: wgmma m64nNk16, bf16 in, f32 accumulate,
+// A (64 time columns x 16 input channels) from registers (warp w, lane 4g + q:
+// a[0] = times 16w + g, channels 2q, 2q + 1; a[1] the same at time + 8; a[2],
+// a[3] at channels + 8), B (16 input channels x N output channels) from shared
+// memory K-major (the weight image); scale_d = 0 starts from zero. The
+// accumulator layout: d[4j + 2h + p] = (time 16w + g + 8h, channel 8j + 2q + p).
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  __device__ static void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                             int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+                 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+                   "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+                   "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+                   "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+                   "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+                   "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                   "+f"(d[30]), "+f"(d[31])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ static void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                             int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+                 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+                 "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+                 "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+                   "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+                   "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+                   "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+                   "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+                   "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                   "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+                   "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+                   "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+                   "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+                   "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+                   "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+                   "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<160> {
+  __device__ static void mma(float (&d)[80], const uint32_t (&a)[4], uint64_t b,
+                             int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+                 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+                 "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+                 "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+                 "}, {%80, %81, %82, %83}, %84, p, 1, 1, 0;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+                   "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+                   "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+                   "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+                   "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+                   "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                   "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+                   "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+                   "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+                   "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+                   "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+                   "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+                   "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+                   "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+                   "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+                   "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  __device__ static void mma(float (&d)[128], const uint32_t (&a)[4], uint64_t b,
+                             int scale_d) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+                 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+                 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+                 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+                 "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+                 "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+                 "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+                 "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+                 "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+                 "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+                 : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+                   "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+                   "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+                   "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+                   "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+                   "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                   "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+                   "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+                   "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+                   "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+                   "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+                   "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+                   "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+                   "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+                   "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+                   "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+                   "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+                   "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+                   "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+                   "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+                   "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+                   "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+                   "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+                   "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+                   "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+                   "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <int NP>
+struct BfPlan {
+  static constexpr int WBYTES = 3 * NP * WKC * 2;     // one chunk of the weight image
+  static constexpr int XBYTES = 4 * XBOX;             // x at t0 - 64, t0, t0 + 64, t0 + 128
+  static constexpr int STAGE = XBYTES + WBYTES;
+  static constexpr int STAGES = NP <= 128 ? 4 : NP <= 160 ? 3 : 2;
+  static constexpr int OSTAGE = STAGES * STAGE;       // staged outputs, 2 x NP rows
+  static constexpr int PARAMS = OSTAGE + 2 * NP * OS; // bias, ln_w, ln_b (f32)
+  static constexpr int BARS = PARAMS + 3 * NP * 4;    // full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BARS + 2 * STAGES * 8 + 1024;  // + alignment slack
+  static_assert(BYTES <= 232448, "shared memory of one block");
+  static_assert(STAGE % 1024 == 0, "1024-byte aligned swizzle atoms");
+};
+
+// Weight image (ceil(C_in/32), 3, NP, 32) bf16: for chunk c, tap and output
+// channel n, the 32 input channels 32c .. 32c + 31 of w[n, :, tap] in a 64-byte
+// row whose 16-byte pieces k sit at k ^ ((n / 2) % 4) (the 64-byte swizzle of
+// a K-major wgmma operand), zero where padded (ops/fused_conv.py:
+// conv3_bf16_fragments).
+template <int NP>
+__global__ void __launch_bounds__(W_THREADS, 1)
+conv3_ln_act_bf16_kernel(const __grid_constant__ TmaMaps maps, const Levels lv,
+                         const int* __restrict__ work, int n_work,
+                         const __nv_bfloat16* __restrict__ wimg,
+                         const float* __restrict__ bias, const float* __restrict__ ln_w,
+                         const float* __restrict__ ln_b, int C_in, int C_out, float eps,
+                         int relu) {
+  using P = BfPlan<NP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* prm = reinterpret_cast<float*>(smem + P::PARAMS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BARS);
+  uint64_t* empty = full + P::STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2;
+  const int n_chunks = (C_in + WKC - 1) / WKC;
+  if (tid == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      mbar_init(&full[s], 2);               // the TMA issuer and the copying warps
+      mbar_init(&empty[s], 8);              // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = tid; i < NP; i += W_THREADS) {
+    const bool ok = i < C_out;
+    prm[i] = ok && bias != nullptr ? round_bf16(bias[i]) : 0.f;
+    prm[NP + i] = ok ? (ln_w != nullptr ? ln_w[i] : 1.f) : 0.f;
+    prm[2 * NP + i] = ok && ln_b != nullptr ? ln_b[i] : 0.f;
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    if (warp == 0) {
+      // lane 0 of warp 0 issues each stage's copies: the weight chunk (one
+      // bulk copy) and, on a level TMA can address, the x boxes that start
+      // inside x (a box must start on 16 bytes of the row: an H100 faults on
+      // a start at t = -1 or t = 1 with an illegal instruction; a box
+      // reaching past the end is filled with zeros)
+      if (lane != 0) return;
+      int stage = 0, phase = 0;
+      for (int item = blockIdx.x; item < n_work; item += gridDim.x) {
+        const Item it = work_item(work, item);
+        const int level = it.level, b = it.b, t0 = it.t0;
+        const int T = pick(lv.T, level), tma = pick(lv.vec, level);
+        for (int c = 0; c < n_chunks; ++c) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* sb = smem + stage * P::STAGE;
+          int n = 0;
+          for (int box = 0; box < 4; ++box) {
+            const int ts = t0 + (box - 1) * WM;
+            n += tma && ts >= 0 && ts < T;
+          }
+          mbar_arrive_expect_tx(&full[stage], P::WBYTES + n * XBOX);
+          bulk_load(sb + P::XBYTES, wimg + (size_t)c * (P::WBYTES / 2), P::WBYTES, &full[stage]);
+          for (int box = 0; box < 4; ++box) {
+            const int ts = t0 + (box - 1) * WM;
+            if (tma && ts >= 0 && ts < T)
+              tma_load_3d(sb + box * XBOX, &maps.m[level], ts, c * WKC, b, &full[stage]);
+          }
+          if (++stage == P::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      return;
+    }
+    // warps 1-3 copy x on a level TMA cannot address (rows not on 16 bytes:
+    // T % 8 != 0 or x off 16 bytes; or T < 64 or C_in < 32): the columns
+    // t0 - 1 .. t0 + 128 that lie in [0, T), zero in channel rows past C_in.
+    // The columns outside [0, T) are left as they are: the consumers mask them.
+    const int ptid = tid - 32;
+    int stage = 0, phase = 0;
+    for (int item = blockIdx.x; item < n_work; item += gridDim.x) {
+      const Item it = work_item(work, item);
+      const int level = it.level, b = it.b, t0 = it.t0;
+      const int T = pick(lv.T, level), tma = pick(lv.vec, level);
+      const uint16_t* xb = static_cast<const uint16_t*>(pick(lv.x, level)) + (size_t)b * C_in * T;
+      for (int c = 0; c < n_chunks; ++c) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* sb = smem + stage * P::STAGE;
+        if (!tma && (T & 3) == 0 && (reinterpret_cast<uintptr_t>(xb) & 7) == 0) {
+          // 8-byte copies of 4 columns (rows on 8 bytes: level 6 at T = 36)
+          for (int e = ptid; e < WKC * (2 * WM / 4 + 2); e += 96) {
+            const int r = e / (2 * WM / 4 + 2), tt = 4 * (e % (2 * WM / 4 + 2)) - 4, t = t0 + tt;
+            if (t < 0 || t >= T) continue;
+            const int ch = c * WKC + r;
+            uint8_t* dst = sb + ((tt + WM) >> 6) * XBOX + swz128(r, tt & (WM - 1));
+            if (ch < C_in)
+              cp_async8(dst, xb + (size_t)ch * T + t);
+            else
+              *reinterpret_cast<uint2*>(dst) = make_uint2(0u, 0u);
+          }
+          cp_async_wait_all();
+          fence_proxy_async();
+        } else if (!tma) {
+          for (int e = ptid; e < WKC * (2 * WM + 2); e += 96) {
+            const int tt = e % (2 * WM + 2) - 1, r = e / (2 * WM + 2), t = t0 + tt;
+            if (t < 0 || t >= T) continue;
+            const int ch = c * WKC + r;
+            *reinterpret_cast<uint16_t*>(sb + ((tt + WM) >> 6) * XBOX + swz128(r, tt & (WM - 1))) =
+                ch < C_in ? xb[(size_t)ch * T + t] : (uint16_t)0;
+          }
+          fence_proxy_async();
+        }
+        named_sync(3, 96);
+        if (ptid == 0) mbar_arrive(&full[stage]);
+        if (++stage == P::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
+    return;
   }
-  cp_async_wait<0>();
 
-  // the conv output as the bf16 composition holds it (rounded, plus the
-  // rounded bias, rounded); thread holds columns 2q, 2q + 1 of each n-tile
-  // (index p = 0, 1) for rows g, g + 8 (index 2h + p)
+  // consumers: warpgroup cw takes the columns t0 + 64 cw .. t0 + 64 cw + 63.
+  // A thread's A registers read times tt = 64 cw + 16 w4 + g + 8h + tap - 1 of
+  // the stage's window [t0 - 64, t0 + 192) at channel rows 2q + j (+ 8, + 16):
+  // off[tap][h][j] is that element's byte offset for channel row 2q + j. A
+  // time outside [0, T) or masked reads as zero (keep[tap][h]: all bits or
+  // none), which is x * mask and the conv's zero padding.
+  const int cw = wg - 1, wtid = tid - 128 * wg, w4 = warp & 3, g = lane >> 2, q = lane & 3;
+  uint8_t* os = smem + P::OSTAGE + cw * NP * OS;
+  int off[3][2][2];
 #pragma unroll
-  for (int mt = 0; mt < MW; ++mt)
+  for (int tap = 0; tap < 3; ++tap)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int co = (wm * MW + mt) * 16 + g + 8 * h;
-      const bool with_bias = bias != nullptr && co < C_out;
-      const float bb = with_bias ? round_bf16(bias[co]) : 0.f;
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+      for (int j = 0; j < 2; ++j) {
+        const int tt = cw * WM + 16 * w4 + g + 8 * h + tap - 1;
+        off[tap][h][j] = ((tt + WM) >> 6) * XBOX + swz128(2 * q + j, tt & (WM - 1));
+      }
+  auto keep_flags = [&](int item, uint32_t (&k)[3][2]) {
+    if (item >= n_work) return;
+    const Item it = work_item(work, item);
+    const int T = pick(lv.T, it.level);
+    const uint8_t* mb = pick(lv.mask, it.level) + (size_t)it.b * T;
 #pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          float& v = acc[mt][nt][2 * h + p];
-          v = round_bf16(v);
-          if (with_bias) v = round_bf16(v + bb);
-        }
-    }
-
-  // channel LayerNorm per column, as in the f32 kernel
-  float mean[NT][2], rstd[NT][2];
+    for (int tap = 0; tap < 3; ++tap)
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
+      for (int h = 0; h < 2; ++h) {
+        const int t = it.t0 + cw * WM + 16 * w4 + g + 8 * h + tap - 1;
+        k[tap][h] = t >= 0 && t < T && mb[t] ? 0xFFFFFFFFu : 0u;
+      }
+  };
+  uint32_t next_keep[3][2];
+  keep_flags(blockIdx.x, next_keep);
+  float acc[NP / 2];
+  int stage = 0, phase = 0;
+  for (int item = blockIdx.x; item < n_work; item += gridDim.x) {
+    const Item it = work_item(work, item);
+    const int level = it.level, b = it.b, t0w = it.t0 + cw * WM;
+    const int T = pick(lv.T, level);
+    uint32_t keep[3][2];
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      float s = 0.f;
+    for (int tap = 0; tap < 3; ++tap)
 #pragma unroll
-      for (int mt = 0; mt < MW; ++mt)
+      for (int h = 0; h < 2; ++h) keep[tap][h] = next_keep[tap][h];
+    keep_flags(item + gridDim.x, next_keep);   // on their way during this item
+    for (int c = 0; c < n_chunks; ++c) {
+      mbar_wait(&full[stage], phase);
+      const uint8_t* xs = smem + stage * P::STAGE;
+      const uint8_t* ws = xs + P::XBYTES;
+      uint32_t a[3][2][4];
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          if ((wm * MW + mt) * 16 + g + 8 * h < C_out) s += acc[mt][nt][2 * h + p];
-      s = sum_over_groups(s);
-      if (g == 0) red[0][wm][wn * NT * 8 + nt * 8 + 2 * q + p] = s;
-    }
-  }
-  __syncthreads();
+      for (int tap = 0; tap < 3; ++tap)
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
+        for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int col = wn * NT * 8 + nt * 8 + 2 * q + p;
-      mean[nt][p] = (red[0][0][col] + red[0][1][col]) / (float)C_out;
-      float s = 0.f;
-#pragma unroll
-      for (int mt = 0; mt < MW; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          if ((wm * MW + mt) * 16 + g + 8 * h < C_out) {
-            const float d = acc[mt][nt][2 * h + p] - mean[nt][p];
-            s = fmaf(d, d, s);
+          for (int i = 0; i < 4; ++i) {
+            const int h = i & 1, rows = (16 * ks + 8 * (i >> 1)) * 128;
+            const uint32_t lo = *reinterpret_cast<const uint16_t*>(xs + off[tap][h][0] + rows);
+            const uint32_t hi = *reinterpret_cast<const uint16_t*>(xs + off[tap][h][1] + rows);
+            a[tap][ks][i] = (lo | (hi << 16)) & keep[tap][h];
           }
-      s = sum_over_groups(s);
-      if (g == 0) red[1][wm][col] = s;
-    }
-  }
-  __syncthreads();
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
+      for (int tap = 0; tap < 3; ++tap)
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int col = wn * NT * 8 + nt * 8 + 2 * q + p;
-      rstd[nt][p] = rsqrtf((red[1][0][col] + red[1][1][col]) / (float)C_out + eps);
+        for (int ks = 0; ks < 2; ++ks)
+          Wgmma<NP>::mma(acc, a[tap][ks], gmma_desc(ws + tap * NP * 64 + ks * 32, 0, 512, 2),
+                         (c | tap | ks) != 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == P::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
     }
-  }
 
-  __nv_bfloat16* ob = out + (size_t)b * C_out * T;
+    // the conv output as the bf16 composition holds it: rounded, plus the
+    // rounded bias, rounded
+    const bool with_bias = bias != nullptr;
 #pragma unroll
-  for (int mt = 0; mt < MW; ++mt) {
+    for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; i += 2) {
+        round_bf16_pair(acc[4 * j + i], acc[4 * j + i + 1]);
+        if (with_bias) {
+          acc[4 * j + i] += prm[8 * j + 2 * q];
+          acc[4 * j + i + 1] += prm[8 * j + 2 * q + 1];
+          round_bf16_pair(acc[4 * j + i], acc[4 * j + i + 1]);
+        }
+      }
+    // channel LayerNorm of times g and g + 8 (index h): each lane of a quad
+    // holds NP / 4 of the channels
+    float mean[2], rstd[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int co = (wm * MW + mt) * 16 + g + 8 * h;
-      if (co >= C_out) continue;
-      const float lw = ln_w != nullptr ? ln_w[co] : 1.f;
-      const float lb = ln_b != nullptr ? ln_b[co] : 0.f;
+      float s = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int t = t0 + wn * NT * 8 + nt * 8 + 2 * q;
-        float y0 = (acc[mt][nt][2 * h] - mean[nt][0]) * rstd[nt][0] * lw + lb;
-        float y1 = (acc[mt][nt][2 * h + 1] - mean[nt][1]) * rstd[nt][1] * lw + lb;
+      for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          if (8 * j + 2 * q + p < C_out) s += acc[4 * j + 2 * h + p];
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      mean[h] = s / (float)C_out;
+      float v = 0.f;
+#pragma unroll
+      for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          if (8 * j + 2 * q + p < C_out) {
+            const float d = acc[4 * j + 2 * h + p] - mean[h];
+            v = fmaf(d, d, v);
+          }
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      rstd[h] = rsqrtf(v / (float)C_out + eps);
+    }
+    // the result to shared memory as [channel][time] (stmatrix transposes
+    // each 8 x 8 piece), then 16-byte rows of 8 columns to the output
+    named_sync(1 + cw, 128);                // the last item's rows are read
+#pragma unroll
+    for (int j = 0; j < NP / 8; j += 2) {
+      uint32_t r[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int jj = j + i / 2, h = i & 1, col = 8 * jj + 2 * q;
+        float y0 = (acc[4 * jj + 2 * h] - mean[h]) * rstd[h] * prm[NP + col] + prm[2 * NP + col];
+        float y1 = (acc[4 * jj + 2 * h + 1] - mean[h]) * rstd[h] * prm[NP + col + 1] +
+                   prm[2 * NP + col + 1];
         if (relu) {
           y0 = fmaxf(y0, 0.f);
           y1 = fmaxf(y1, 0.f);
         }
+        const __nv_bfloat162 y = __floats2bfloat162_rn(y0, y1);
+        r[i] = *reinterpret_cast<const uint32_t*>(&y);
+      }
+      const int mi = lane >> 3, jj = j + (mi >> 1), h = mi & 1;
+      stmatrix_x4_trans(os + (8 * jj + (lane & 7)) * OS + (16 * w4 + 8 * h) * 2, r);
+    }
+    named_sync(1 + cw, 128);
+    if (t0w < T) {
+      __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(pick(lv.out, level)) + (size_t)b * C_out * T;
+      const bool vec = (T & 7) == 0 && (reinterpret_cast<uintptr_t>(ob) & 15) == 0;
+      for (int e = wtid; e < C_out * 8; e += 128) {
+        const int co = e >> 3, t = t0w + 8 * (e & 7);
+        if (t >= T) continue;
+        const uint4 v = *reinterpret_cast<const uint4*>(os + co * OS + (e & 7) * 16);
         __nv_bfloat16* o = ob + (size_t)co * T + t;
-        if (t + 1 < T && (T & 1) == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(y0, y1);
+        if (vec) {
+          *reinterpret_cast<uint4*>(o) = v;
         } else {
-          if (t < T) o[0] = __float2bfloat16(y0);
-          if (t + 1 < T) o[1] = __float2bfloat16(y1);
+          const __nv_bfloat16* pv = reinterpret_cast<const __nv_bfloat16*>(&v);
+          for (int i = 0; i < 8 && t + i < T; ++i) o[i] = pv[i];
         }
       }
     }
   }
 }
 
-template <int MW>
-int launch_bf16(const __nv_bfloat16* x, const uint8_t* mask, const __nv_bfloat16* wf,
-                const float* bias, const float* ln_w, const float* ln_b, __nv_bfloat16* out,
-                int B, int C_in, int C_out, int T, float eps, int relu, cudaStream_t stream) {
-  constexpr int bytes = STAGES * (3 * 2 * MW * 256 + BKC * BXS) * (int)sizeof(__nv_bfloat16);
+template <int NP>
+int launch_bf16(const TmaMaps& maps, const Levels& lv, const int* work, int n_work,
+                const __nv_bfloat16* wimg, const float* bias, const float* ln_w,
+                const float* ln_b, int C_in, int C_out, float eps, int relu,
+                cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      conv3_ln_act_bf16_kernel<MW>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      conv3_ln_act_bf16_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, BfPlan<NP>::BYTES);
   if (err != cudaSuccess) return (int)err;
-  const int vec_x = (T % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
-  dim3 grid((T + TILE_T - 1) / TILE_T, B);
-  conv3_ln_act_bf16_kernel<MW><<<grid, THREADS, bytes, stream>>>(
-      x, mask, wf, bias, ln_w, ln_b, out, C_in, C_out, T, eps, relu, vec_x);
+  const int grid = persistent_grid(n_work);
+  conv3_ln_act_bf16_kernel<NP><<<grid, W_THREADS, BfPlan<NP>::BYTES, stream>>>(
+      maps, lv, work, n_work, wimg, bias, ln_w, ln_b, C_in, C_out, eps, relu);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point. x (B, C_in, T), mask (B, T) bytes, w_hi/w_lo the TF32 halves of
-// the conv weight in fragment order (see the kernel; ops/fused_conv.py builds
-// them for C_out padded to a multiple of 32), bias/ln_w/ln_b (C_out,) or null,
-// out (B, C_out, T); all f32 contiguous on the device, the weight halves 16-byte
-// aligned. Returns the cudaError_t of the launch.
-extern "C" int decafnet_conv3_ln_act_f32(const float* x, const uint8_t* mask,
-                                         const float* w_hi, const float* w_lo,
-                                         const float* bias, const float* ln_w,
-                                         const float* ln_b, float* out, int B, int C_in,
-                                         int C_out, int T, float eps, int relu,
-                                         cudaStream_t stream) {
-  if (B <= 0 || C_in <= 0 || C_out <= 0 || T <= 0 || B > 65535 || C_out > 256 ||
-      reinterpret_cast<uintptr_t>(w_hi) % 16 != 0 || reinterpret_cast<uintptr_t>(w_lo) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  switch ((C_out + 31) / 32) {
-    case 1: return launch<1>(x, mask, w_hi, w_lo, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
-    case 2: return launch<2>(x, mask, w_hi, w_lo, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
-    case 3: return launch<3>(x, mask, w_hi, w_lo, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
-    case 4: return launch<4>(x, mask, w_hi, w_lo, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
-    case 5: return launch<5>(x, mask, w_hi, w_lo, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
-    case 6: return launch<6>(x, mask, w_hi, w_lo, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
-    case 7: return launch<7>(x, mask, w_hi, w_lo, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
-    case 8: return launch<8>(x, mask, w_hi, w_lo, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
-    default: return (int)cudaErrorInvalidValue;
+// One level of a launch as the caller describes it (ops/fused_conv.py: _Level).
+struct Conv3Level {
+  const void* x;
+  const uint8_t* mask;
+  void* out;
+  int B, T;
+};
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (libcuda's), found through the runtime's
+// entry-point query, so the library is not linked against libcuda
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
 }
 
-// C entry point of the bf16 variant. x (B, C_in, T) bf16, mask (B, T) bytes, wf
-// the bf16 weight fragments (see the kernel; ops/fused_conv.py builds them for
-// C_out padded to a multiple of 32), bias/ln_w/ln_b (C_out,) f32 or null, out
-// (B, C_out, T) bf16; all contiguous on the device, wf 16-byte aligned. Returns
-// the cudaError_t of the launch.
-extern "C" int decafnet_conv3_ln_act_bf16(const __nv_bfloat16* x, const uint8_t* mask,
-                                          const __nv_bfloat16* wf, const float* bias,
-                                          const float* ln_w, const float* ln_b,
-                                          __nv_bfloat16* out, int B, int C_in, int C_out, int T,
-                                          float eps, int relu, cudaStream_t stream) {
-  if (B <= 0 || C_in <= 0 || C_out <= 0 || T <= 0 || B > 65535 || C_out > 256 ||
-      reinterpret_cast<uintptr_t>(wf) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  switch ((C_out + 31) / 32) {
-    case 1: return launch_bf16<1>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
-    case 2: return launch_bf16<2>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
-    case 3: return launch_bf16<3>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
-    case 4: return launch_bf16<4>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
-    case 5: return launch_bf16<5>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
-    case 6: return launch_bf16<6>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
-    case 7: return launch_bf16<7>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
-    case 8: return launch_bf16<8>(x, mask, wf, bias, ln_w, ln_b, out, B, C_in, C_out, T, eps, relu, stream);
-    default: return (int)cudaErrorInvalidValue;
+// The kernels' level table from the caller's, and a TMA descriptor of x
+// (boxes of box_t columns x box_c channels, 128-byte swizzle) for each level
+// TMA can read: rows on 16 bytes (T * elem_bytes a multiple of 16, x on 16
+// bytes), T >= box_t and C_in >= box_c; the others take the producer's
+// copies (lv.vec = 0). Returns cudaErrorInvalidValue when a level is empty
+// or there are too many, cudaErrorNotSupported when a descriptor cannot be
+// made.
+static int make_levels(const Conv3Level* levels, int n_levels, int C_in,
+                       CUtensorMapDataType type, int elem_bytes, int box_t, int box_c,
+                       Levels& lv, TmaMaps& maps) {
+  if (n_levels < 1 || n_levels > MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  lv = Levels{};
+  memset(&maps, 0, sizeof(maps));
+  for (int i = 0; i < n_levels; ++i) {
+    const Conv3Level& l = levels[i];
+    if (l.B <= 0 || l.T <= 0) return (int)cudaErrorInvalidValue;
+    lv.x[i] = l.x;
+    lv.mask[i] = l.mask;
+    lv.out[i] = l.out;
+    lv.T[i] = l.T;
+    lv.vec[i] = (l.T * elem_bytes) % 16 == 0 && reinterpret_cast<uintptr_t>(l.x) % 16 == 0 &&
+                l.T >= box_t && C_in >= box_c;
+    if (!lv.vec[i]) continue;
+    const EncodeTiled encode = encode_tiled();
+    const cuuint64_t dims[3] = {(cuuint64_t)l.T, (cuuint64_t)C_in, (cuuint64_t)l.B};
+    const cuuint64_t strides[2] = {(cuuint64_t)l.T * elem_bytes,
+                                   (cuuint64_t)C_in * l.T * elem_bytes};
+    const cuuint32_t box[3] = {(cuuint32_t)box_t, (cuuint32_t)box_c, 1}, elem[3] = {1, 1, 1};
+    if (encode == nullptr ||
+        encode(&maps.m[i], type, 3, const_cast<void*>(l.x), dims, strides, box, elem,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorNotSupported;
   }
+  return (int)cudaSuccess;
+}
+
+// C entry point of the f32 kernel: one launch over n_levels levels (at most
+// MAX_LEVELS) that share the weights. levels (host memory): per level x (B,
+// C_in, T), the mask (B, T) bytes and out (B, C_out, T), f32 contiguous on the
+// device. work (device): n_work items of (level, row, first column), each
+// column tile of each row of each level once, the tile 2 * WM columns, or WM
+// for C_out above 160. wimg: the weight's TF32 halves as the kernel stages
+// them (see the kernel; ops/fused_conv.py builds them for C_out padded to 64,
+// 128, 160 or 256), 16-byte aligned; bias/ln_w/ln_b (C_out,) or null. Returns
+// the cudaError_t of the launch (cudaErrorInvalidValue for arguments the
+// kernel does not take, cudaErrorNotSupported when a TMA descriptor cannot be
+// made).
+extern "C" int decafnet_conv3_ln_act_f32(const Conv3Level* levels, int n_levels,
+                                         const int* work, int n_work, const float* wimg,
+                                         const float* bias, const float* ln_w,
+                                         const float* ln_b, int C_in, int C_out, float eps,
+                                         int relu, cudaStream_t stream) {
+  if (n_work <= 0 || C_in <= 0 || C_out <= 0 || C_out > 256 ||
+      reinterpret_cast<uintptr_t>(wimg) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  Levels lv;
+  TmaMaps maps;
+  const int err = make_levels(levels, n_levels, C_in, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, FBOX,
+                              FKC, lv, maps);
+  if (err != (int)cudaSuccess) return err;
+  if (C_out <= 64)
+    return launch_f32<64>(maps, lv, work, n_work, wimg, bias, ln_w, ln_b, C_in, C_out, eps, relu, stream);
+  if (C_out <= 128)
+    return launch_f32<128>(maps, lv, work, n_work, wimg, bias, ln_w, ln_b, C_in, C_out, eps, relu, stream);
+  if (C_out <= 160)
+    return launch_f32<160>(maps, lv, work, n_work, wimg, bias, ln_w, ln_b, C_in, C_out, eps, relu, stream);
+  return launch_f32<256>(maps, lv, work, n_work, wimg, bias, ln_w, ln_b, C_in, C_out, eps, relu, stream);
+}
+
+// C entry point of the bf16 kernel, as the f32 one: x and out bf16; work
+// holds items of 2 * WM columns; wimg the bf16 weight image (see the kernel;
+// ops/fused_conv.py builds it for C_out padded to 64, 128, 160 or 256),
+// 16-byte aligned; bias/ln_w/ln_b (C_out,) f32 or null.
+extern "C" int decafnet_conv3_ln_act_bf16(const Conv3Level* levels, int n_levels,
+                                          const int* work, int n_work,
+                                          const __nv_bfloat16* wimg, const float* bias,
+                                          const float* ln_w, const float* ln_b, int C_in,
+                                          int C_out, float eps, int relu,
+                                          cudaStream_t stream) {
+  if (n_work <= 0 || C_in <= 0 || C_out <= 0 || C_out > 256 ||
+      reinterpret_cast<uintptr_t>(wimg) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  Levels lv;
+  TmaMaps maps;
+  const int err = make_levels(levels, n_levels, C_in, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, WM,
+                              WKC, lv, maps);
+  if (err != (int)cudaSuccess) return err;
+  if (C_out <= 64)
+    return launch_bf16<64>(maps, lv, work, n_work, wimg, bias, ln_w, ln_b, C_in, C_out, eps, relu, stream);
+  if (C_out <= 128)
+    return launch_bf16<128>(maps, lv, work, n_work, wimg, bias, ln_w, ln_b, C_in, C_out, eps, relu, stream);
+  if (C_out <= 160)
+    return launch_bf16<160>(maps, lv, work, n_work, wimg, bias, ln_w, ln_b, C_in, C_out, eps, relu, stream);
+  return launch_bf16<256>(maps, lv, work, n_work, wimg, bias, ln_w, ln_b, C_in, C_out, eps, relu, stream);
 }

@@ -1,6 +1,7 @@
 """Classification / regression heads shared across FPN levels (port of
 decafnet_tpu/models/heads.py: ClsHead, RegHead). Every trunk layer is one
-fused masked conv3 + LN + ReLU (ops/fused_conv.py:conv3_ln_act)."""
+fused masked conv3 + LN + ReLU over all levels at once
+(ops/fused_conv.py:conv3_ln_act_levels: one kernel launch per layer)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import torch
 import torch.nn as nn
 
 from ..nn.blocks import Conv1d, LayerNorm, MaskedConv1D, Scale
-from ..ops.fused_conv import conv3_ln_act
+from ..ops.fused_conv import conv3_ln_act_levels
 
 
 class _MaskedPriorConv(nn.Module):
@@ -25,11 +26,14 @@ class _MaskedPriorConv(nn.Module):
         return self.conv(x * mask.to(x.dtype)), mask
 
 
-def _trunk(x, mask, convs, norms):
+def _trunk(fpn, fpn_masks, convs, norms):
+    """The trunk layers, each over every level (the JAX heads loop over
+    levels with the same weights, decafnet_tpu/models/heads.py:64-75)."""
+    masks = [m[:, 0, :] for m in fpn_masks]
     for conv, norm in zip(convs, norms):
-        x = conv3_ln_act(x, mask[:, 0, :], conv.conv.weight, conv.conv.bias,
-                         norm.weight, norm.bias, act="relu")
-    return x
+        fpn = conv3_ln_act_levels(fpn, masks, conv.conv.weight, conv.conv.bias,
+                                  norm.weight, norm.bias, act="relu")
+    return fpn
 
 
 class ClsHead(nn.Module):
@@ -46,9 +50,9 @@ class ClsHead(nn.Module):
 
     def forward(self, fpn, fpn_masks):
         out_logits, out_masks = [], []
-        for x, mask in zip(fpn, fpn_masks):
-            logits, _ = self.cls_head(_trunk(x, mask, self.convs, self.norms),
-                                      mask)
+        feats = _trunk(fpn, fpn_masks, self.convs, self.norms)
+        for x, mask in zip(feats, fpn_masks):
+            logits, _ = self.cls_head(x, mask)
             out_logits.append(logits[:, 0, :])
             out_masks.append(mask[:, 0, :])
         return out_logits, out_masks
@@ -69,9 +73,9 @@ class RegHead(nn.Module):
 
     def forward(self, fpn, fpn_masks):
         out_offsets, out_masks = [], []
-        for i, (x, mask) in enumerate(zip(fpn, fpn_masks)):
-            offsets, _ = self.reg_head(_trunk(x, mask, self.convs, self.norms),
-                                       mask)
+        feats = _trunk(fpn, fpn_masks, self.convs, self.norms)
+        for i, (x, mask) in enumerate(zip(feats, fpn_masks)):
+            offsets, _ = self.reg_head(x, mask)
             out_offsets.append(torch.relu(self.scales[i](offsets)))
             out_masks.append(mask[:, 0, :])
         return out_offsets, out_masks

@@ -4,8 +4,8 @@ ops (each with its plain version), the device NMS and the host C++ NMS."""
 import torch
 
 from .delegation import delegate, delegation_weights, saliency_correlation
-from .fused_conv import (conv3_ln_act, conv3_ln_act_torch, qkv_depthwise_ln,
-                         qkv_depthwise_ln_torch)
+from .fused_conv import (conv3_ln_act, conv3_ln_act_levels, conv3_ln_act_torch,
+                         qkv_depthwise_ln, qkv_depthwise_ln_torch)
 from .local_attention import band_attention, band_attention_torch
 from .masked import (channel_layer_norm, interpolate_linear_1d,
                      interpolate_nearest_1d, masked_avg_pool1d,

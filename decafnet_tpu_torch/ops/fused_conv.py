@@ -6,11 +6,15 @@ kernels (csrc/conv3_ln_act.cu, csrc/qkv_depthwise_ln.cu), one for f32 and
 one for bf16 activations. The public op takes the plain version for a
 tensor on the CPU and launches the kernel of the input's dtype for a CUDA
 tensor; ``.launches`` on the op counts launches of the f32 kernel,
-``.launches_bf16`` of the bf16 one. Under autograd each op's backward
+``.launches_bf16`` of the bf16 one (for conv3, one launch covers every level
+of a :func:`conv3_ln_act_levels` call). Under autograd each op's backward
 recomputes through its plain version (the rule in ops/cuda.py).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -53,48 +57,65 @@ def tf32_split(a):
     return hi, rna(a - hi)
 
 
+# the output widths the kernels of csrc/conv3_ln_act.cu are built for (their
+# wgmma N): C_out is padded to the first that holds it
+CONV3_WIDTHS = (64, 128, 160, 256)
+
+
 def conv3_weight_fragments(w):
-    """The (C_out, C_in, 3) conv weight as csrc/conv3_ln_act.cu reads it:
-    (ceil(C_in/8), 3, M/16, 32, 4) with M = C_out padded to a multiple of 32,
-    zero where padded. For input-channel chunk c8, tap, m16 tile mt and lane
-    (g = lane // 4, q = lane % 4), entry 2k + h is
-    ``w[16 mt + g + 8 h, 8 c8 + q + 4 k, tap]``: the A fragment of
-    ``mma.sync.m16n8k8`` (rows = output channels, k = input channels)."""
+    """The (C_out, C_in, 3) conv weight in f32 as the f32 kernel of
+    csrc/conv3_ln_act.cu stages it: (ceil(C_in/8), 3, N, 8) with N = C_out
+    padded to the first of CONV3_WIDTHS that holds it, zero where padded.
+    Entry [c, tap, n] is the 32-byte row ``w[n, 8c:8c + 8, tap]`` (the
+    K-major B operand of TF32 wgmma) with its two 16-byte pieces k moved to
+    k ^ ((n // 4) % 2), the 32-byte swizzle the kernel's descriptor names."""
     C_out, C_in, _ = w.shape
-    mt, nc8 = 2 * -(-C_out // 32), -(-C_in // 8)
-    wp = w.new_zeros(16 * mt, 8 * nc8, 3, dtype=torch.float32)
+    N = next(n for n in CONV3_WIDTHS if C_out <= n)
+    nc = -(-C_in // 8)
+    wp = w.new_zeros(N, 8 * nc, 3, dtype=torch.float32)
     wp[:C_out, :C_in] = w
-    # (mt, h, g, c8, k, q, tap) -> (c8, tap, mt, g, q, k, h)
-    return (wp.view(mt, 2, 8, nc8, 2, 4, 3).permute(3, 6, 0, 2, 5, 4, 1)
-            .reshape(nc8, 3, mt, 32, 4).contiguous())
+    # (n, c, k, e, tap) -> (c, tap, n, k, e), then piece k' of row n holds
+    # the logical piece k' ^ ((n // 4) % 2)
+    img = wp.view(N, nc, 2, 4, 3).permute(1, 4, 0, 2, 3)
+    n = torch.arange(N, device=w.device)
+    k = torch.arange(2, device=w.device)
+    return (img[:, :, n[:, None], k[None, :] ^ ((n[:, None] >> 2) & 1)]
+            .reshape(nc, 3, N, 8).contiguous())
 
 
 def conv3_weight_operands(w):
-    """``tf32_split(conv3_weight_fragments(w))``, built once per weight and
-    kept on the tensor itself against its ``_version`` and storage
-    (:func:`ops.params.cached`), so an in-place update (``add_``,
-    ``load_state_dict``) or a new ``.data`` builds a fresh pair. Inference
-    tensors carry no version counter and are not cached."""
+    """The f32 kernel's weight operand: the TF32 halves of
+    :func:`conv3_weight_fragments`, (ceil(C_in/8), 2, 3, N, 8) with hi at
+    [:, 0] and lo at [:, 1] (:func:`tf32_split`), so one chunk of 8 input
+    channels is one bulk copy. Built once per weight and kept on the tensor
+    itself against its ``_version`` and storage (:func:`ops.params.cached`),
+    so an in-place update (``add_``, ``load_state_dict``) or a new ``.data``
+    builds a fresh one. Inference tensors carry no version counter and are
+    not cached."""
     return cached(w, "tf32_operands",
-                  lambda w: tf32_split(conv3_weight_fragments(w)))
+                  lambda w: torch.stack(tf32_split(conv3_weight_fragments(w)), 1))
 
 
 def conv3_bf16_fragments(w):
     """The (C_out, C_in, 3) conv weight rounded to bf16 as the bf16 kernel of
-    csrc/conv3_ln_act.cu reads it: (ceil(C_in/16), 3, M/16, 32, 8) with M =
-    C_out padded to a multiple of 32, zero where padded. For input-channel
-    chunk c16, tap, m16 tile mt and lane (g = lane // 4, q = lane % 4),
-    entry 4 kh + 2 h + j is ``w[16 mt + g + 8 h, 16 c16 + 8 kh + 2 q + j,
-    tap]``: the A fragment of ``mma.sync.m16n8k16`` (rows = output
-    channels, k = input channels), four registers of two bf16 each."""
+    csrc/conv3_ln_act.cu stages it: (ceil(C_in/32), 3, N, 32) with N = C_out
+    padded to the first of CONV3_WIDTHS that holds it, zero where
+    padded. Entry [c, tap, n] is the 64-byte row ``w[n, 32c:32c + 32, tap]``
+    (the K-major B operand of wgmma) with its four 16-byte pieces k moved to
+    k ^ ((n // 2) % 4), the 64-byte swizzle the kernel's descriptor names;
+    one chunk c is one bulk copy into shared memory."""
     C_out, C_in, _ = w.shape
-    mt, nc16 = 2 * -(-C_out // 32), -(-C_in // 16)
-    wp = w.new_zeros(16 * mt, 16 * nc16, 3, dtype=torch.bfloat16)
+    N = next(n for n in CONV3_WIDTHS if C_out <= n)
+    nc = -(-C_in // 32)
+    wp = w.new_zeros(N, 32 * nc, 3, dtype=torch.bfloat16)
     wp[:C_out, :C_in] = w
-    # (mt, h, g, c16, kh, q, j, tap) -> (c16, tap, mt, g, q, kh, h, j)
-    return (wp.view(mt, 2, 8, nc16, 2, 4, 2, 3)
-            .permute(3, 7, 0, 2, 5, 4, 1, 6)
-            .reshape(nc16, 3, mt, 32, 8).contiguous())
+    # (n, c, k, e, tap) -> (c, tap, n, k, e), then piece k' of row n holds
+    # the logical piece k' ^ ((n // 2) % 4)
+    img = wp.view(N, nc, 4, 8, 3).permute(1, 4, 0, 2, 3)
+    n = torch.arange(N, device=w.device)
+    k = torch.arange(4, device=w.device)
+    return (img[:, :, n[:, None], k[None, :] ^ ((n[:, None] >> 1) & 3)]
+            .reshape(nc, 3, N, 32).contiguous())
 
 
 def conv3_bf16_operands(w):
@@ -103,99 +124,175 @@ def conv3_bf16_operands(w):
     return cached(w, "bf16_fragments", conv3_bf16_fragments)
 
 
+# time columns per work item of the kernels of csrc/conv3_ln_act.cu: two
+# consumer warpgroups of WM = 64 columns; the f32 kernel's items are 64
+# columns for C_out above 160, where its warpgroups split the channels
+# (TfPlan there)
+CONV3_TILE_T = 128
+
+
+def conv3_tile(dtype, C_out):
+    """Time columns per work item of the ``dtype`` kernel at ``C_out``."""
+    return CONV3_TILE_T // 2 if dtype == torch.float32 and C_out > 160 else CONV3_TILE_T
+
+# FPN levels one launch takes (MAX_LEVELS there)
+CONV3_MAX_LEVELS = 8
+
+
+def conv3_work_table(shapes, tile=CONV3_TILE_T):
+    """The work items of one launch over levels of (B, T) ``shapes``: an
+    (n, 3) int32 tensor of (level, row, first column), each column tile of
+    ``tile`` columns of each row of each level once, level by level (the
+    longest first, as the FPN lists them), rows in order, tiles in order."""
+    items = [(lvl, b, t0) for lvl, (B, T) in enumerate(shapes)
+             for b in range(B) for t0 in range(0, T, tile)]
+    return torch.tensor(items, dtype=torch.int32).reshape(-1, 3)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_work_table(shapes, tile, device):
+    """:func:`conv3_work_table` on ``device``, built once per level list."""
+    return conv3_work_table(shapes, tile).to(device)
+
+
+class _Level(ctypes.Structure):
+    """One level of a launch (``Conv3Level`` in csrc/conv3_ln_act.cu)."""
+    _fields_ = [("x", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("B", ctypes.c_int),
+                ("T", ctypes.c_int)]
+
+
 def conv3_ln_act(x, mask, w, bias=None, ln_w=None, ln_b=None, act="relu",
                  eps=1e-5):
     """Fused masked conv3 + channel LN + activation (see
-    :func:`conv3_ln_act_torch` for the arguments).
+    :func:`conv3_ln_act_torch` for the arguments): the one-level case of
+    :func:`conv3_ln_act_levels`."""
+    return conv3_ln_act_levels([x], [mask], w, bias, ln_w, ln_b, act, eps)[0]
 
-    On CUDA this launches csrc/conv3_ln_act.cu, the counterpart of the TPU
-    kernel decafnet_tpu/ops/fused_conv.py:_conv3_ln_act_pallas_impl. For f32
-    x the products run on the tensor cores in three TF32 passes (f32
-    accuracy), on weight operands built once per weight
-    (:func:`conv3_weight_operands`); for bf16 x in one bf16 pass with f32
+
+def conv3_ln_act_levels(xs, masks, w, bias=None, ln_w=None, ln_b=None,
+                        act="relu", eps=1e-5):
+    """:func:`conv3_ln_act_torch` of each (x, mask) of the lists ``xs`` and
+    ``masks`` (the FPN levels of one head layer: the same C_in and weights,
+    any B and T each), as a list.
+
+    On CUDA this is one launch of csrc/conv3_ln_act.cu, the counterpart of
+    the TPU kernel decafnet_tpu/ops/fused_conv.py:_conv3_ln_act_pallas_impl,
+    over a table of (level, row, column tile) work items
+    (:func:`conv3_work_table`): the short levels' tiles fill the card beside
+    the long ones' instead of taking launches of their own. Both kernels run
+    on ``wgmma``, x brought by TMA and the weights laid out once per weight:
+    for f32 x in three TF32 passes (f32 accuracy;
+    :func:`conv3_weight_operands`), for bf16 x in one bf16 pass with f32
     accumulation (:func:`conv3_bf16_operands`), the function of the bf16
-    plain version. The output has x's dtype.
+    plain version. The outputs have x's dtype.
 
     Under autograd (:func:`cuda.recording`) the same forward runs inside
-    :class:`_Conv3LnAct`, whose backward recomputes the forward through
+    :class:`_Conv3LnAct`, whose backward recomputes each level through
     :func:`conv3_ln_act_torch` and differentiates it: the counterpart of the
     JAX ``custom_vjp``, which recomputes through ``conv3_ln_act_xla``
-    (decafnet_tpu/ops/fused_conv.py:209-234). The mask gets no gradient,
-    nor does an absent bias or LN affine.
+    (decafnet_tpu/ops/fused_conv.py:209-234). The masks get no gradient, nor
+    does an absent bias or LN affine.
 
-    Time-sharded (:func:`parallel.seq.active`), the op runs on this rank's
-    block widened by one column of each neighbour (x and mask, zeros and
-    False past the video's ends) and crops the result back to the block."""
+    Time-sharded (:func:`parallel.seq.active`), each level is widened by one
+    column of each neighbour (x and mask, zeros and False past the video's
+    ends; one exchange per level), the launch runs over the widened blocks,
+    and each result is cropped back to its block."""
+    xs, masks = list(xs), list(masks)
     shard = seq.active()
     if shard is not None:
-        xh, mh = shard.halo(x, mask, left=1, right=1)
+        wide = [shard.halo(x, m, left=1, right=1) for x, m in zip(xs, masks)]
         with seq.replicated():
-            y = conv3_ln_act(xh, mh, w, bias, ln_w, ln_b, act, eps)
-        return seq.crop(y, 1, 1)
-    if cuda.recording(x, w, bias, ln_w, ln_b):
-        return _Conv3LnAct.apply(x, mask, w, bias, ln_w, ln_b, act, eps)
-    return _conv3_ln_act(x, mask, w, bias, ln_w, ln_b, act, eps)
+            ys = conv3_ln_act_levels([x for x, _ in wide], [m for _, m in wide],
+                                     w, bias, ln_w, ln_b, act, eps)
+        return [seq.crop(y, 1, 1) for y in ys]
+    if cuda.recording(*xs, w, bias, ln_w, ln_b):
+        return list(_Conv3LnAct.apply(len(xs), act, eps, w, bias, ln_w, ln_b,
+                                      *xs, *masks))
+    return _conv3_ln_act_levels(xs, masks, w, bias, ln_w, ln_b, act, eps)
 
 
 class _Conv3LnAct(torch.autograd.Function):
-    """:func:`conv3_ln_act` with its backward by recompute."""
+    """:func:`conv3_ln_act_levels` with its backward by recompute; the levels
+    come flat (``*xs, *masks``) so autograd tracks each x."""
 
     @staticmethod
-    def forward(ctx, x, mask, w, bias, ln_w, ln_b, act, eps):
-        ctx.save_for_backward(x, mask, w, bias, ln_w, ln_b)
-        ctx.options = (act, eps)
-        return _conv3_ln_act(x, mask, w, bias, ln_w, ln_b, act, eps)
+    def forward(ctx, n, act, eps, w, bias, ln_w, ln_b, *xs_masks):
+        xs, masks = xs_masks[:n], xs_masks[n:]
+        ctx.save_for_backward(w, bias, ln_w, ln_b, *xs_masks)
+        ctx.options = (n, act, eps)
+        return tuple(_conv3_ln_act_levels(xs, masks, w, bias, ln_w, ln_b, act,
+                                          eps))
 
     @staticmethod
-    def backward(ctx, grad):
-        act, eps = ctx.options
-        return cuda.recompute_vjp(
-            lambda *a: conv3_ln_act_torch(*a, act=act, eps=eps),
-            ctx.saved_tensors, ctx.needs_input_grad[:6], (grad,)) + (None, None)
+    def backward(ctx, *grads):
+        n, act, eps = ctx.options
+        w, bias, ln_w, ln_b, *xs_masks = ctx.saved_tensors
+        masks = xs_masks[n:]
+        needs = ctx.needs_input_grad
+        gp = cuda.recompute_vjp(
+            lambda w_, b_, lw_, lb_, *xs: tuple(
+                conv3_ln_act_torch(x, m, w_, b_, lw_, lb_, act=act, eps=eps)
+                for x, m in zip(xs, masks)),
+            (w, bias, ln_w, ln_b, *xs_masks[:n]), needs[3:7 + n], grads)
+        return (None, None, None, *gp, *(None,) * n)
 
 
-def _conv3_ln_act(x, mask, w, bias, ln_w, ln_b, act, eps):
-    """The forward: the plain version for CPU tensors, the kernel for CUDA
-    tensors."""
-    if not cuda.use_kernel(x):
-        return conv3_ln_act_torch(x, mask, w, bias, ln_w, ln_b, act=act, eps=eps)
+def _conv3_ln_act_levels(xs, masks, w, bias, ln_w, ln_b, act, eps):
+    """The forward: the plain version for CPU tensors, one kernel launch for
+    CUDA tensors."""
+    if not cuda.use_kernel(xs[0]):
+        return [conv3_ln_act_torch(x, m, w, bias, ln_w, ln_b, act=act, eps=eps)
+                for x, m in zip(xs, masks)]
     name = "conv3_ln_act"
-    B, C_in, T = x.shape
-    C_out = w.shape[0]
-    bf16 = x.dtype == torch.bfloat16
-    cuda.require(x.dtype in KERNEL_DTYPES, name, "f32 or bf16 x")
+    x0 = xs[0]
+    C_out, C_in = w.shape[0], x0.shape[1]
+    bf16 = x0.dtype == torch.bfloat16
+    cuda.require(x0.dtype in KERNEL_DTYPES, name, "f32 or bf16 x")
+    cuda.require(1 <= len(xs) == len(masks) <= CONV3_MAX_LEVELS, name,
+                 f"1 to {CONV3_MAX_LEVELS} levels, a mask each")
+    for x, mask in zip(xs, masks):
+        B, c, T = x.shape
+        cuda.require(x.dtype == x0.dtype and x.device == x0.device and c == C_in,
+                     name, "levels of one dtype, device and C_in")
+        cuda.require(x.is_contiguous(), name, "x must be contiguous")
+        cuda.require(tuple(mask.shape) == (B, T) and mask.dtype == torch.bool
+                     and mask.device == x.device, name,
+                     "mask must be (B, T) bool on x's device")
+        cuda.require(B > 0 and T > 0, name, "empty level")
     p_dtypes = KERNEL_DTYPES if bf16 else (torch.float32,)
-    cuda.require(all(t.dtype in p_dtypes and t.device == x.device
+    cuda.require(all(t.dtype in p_dtypes and t.device == x0.device
                      for t in (w, bias, ln_w, ln_b) if t is not None), name,
                  "parameters on x's device, f32 (or bf16 for bf16 x)")
-    cuda.require(x.is_contiguous(), name, "x must be contiguous")
     cuda.require(tuple(w.shape) == (C_out, C_in, 3), name, f"w shape {w.shape}")
-    cuda.require(tuple(mask.shape) == (B, T) and mask.dtype == torch.bool,
-                 name, "mask must be (B, T) bool")
     cuda.require(all(p.numel() == C_out for p in (bias, ln_w, ln_b)
                      if p is not None), name, "per-channel params of C_out")
     cuda.require(C_out <= 256, name, "C_out > 256 is not supported")
     cuda.require(act in ("relu", "none"), name, f"act {act!r}")
     vec = lambda p: None if p is None else p.reshape(-1).float().contiguous()  # noqa: E731
     bias, ln_w, ln_b = vec(bias), vec(ln_w), vec(ln_b)
-    m8 = cuda.as_bytes(mask)
-    out = torch.empty((B, C_out, T), dtype=x.dtype, device=x.device)
+    m8s = [cuda.as_bytes(m) for m in masks]
+    outs = [torch.empty((x.shape[0], C_out, x.shape[2]), dtype=x.dtype,
+                        device=x.device) for x in xs]
+    shapes = tuple((x.shape[0], x.shape[2]) for x in xs)
+    levels = (_Level * len(xs))(*(
+        _Level(x.data_ptr(), m.data_ptr(), o.data_ptr(), B, T)
+        for x, m, o, (B, T) in zip(xs, m8s, outs, shapes)))
+    work = _device_work_table(shapes, conv3_tile(x0.dtype, C_out), x0.device)
+    head = (levels, len(xs), cuda.ptr(work), work.shape[0])
+    tail = (cuda.ptr(bias), cuda.ptr(ln_w), cuda.ptr(ln_b), C_in, C_out,
+            float(eps), int(act == "relu"), cuda.stream())
     if bf16:
         err = cuda.library().decafnet_conv3_ln_act_bf16(
-            cuda.ptr(x), cuda.ptr(m8), cuda.ptr(conv3_bf16_operands(w)),
-            cuda.ptr(bias), cuda.ptr(ln_w), cuda.ptr(ln_b), cuda.ptr(out),
-            B, C_in, C_out, T, float(eps), int(act == "relu"), cuda.stream())
+            *head, cuda.ptr(conv3_bf16_operands(w)), *tail)
         cuda.check(err, name + "_bf16")
         conv3_ln_act.launches_bf16 += 1
-        return out
-    w_hi, w_lo = conv3_weight_operands(w)
+        return outs
     err = cuda.library().decafnet_conv3_ln_act_f32(
-        cuda.ptr(x), cuda.ptr(m8), cuda.ptr(w_hi), cuda.ptr(w_lo),
-        cuda.ptr(bias), cuda.ptr(ln_w), cuda.ptr(ln_b), cuda.ptr(out),
-        B, C_in, C_out, T, float(eps), int(act == "relu"), cuda.stream())
+        *head, cuda.ptr(conv3_weight_operands(w)), *tail)
     cuda.check(err, name)
     conv3_ln_act.launches += 1
-    return out
+    return outs
 
 
 conv3_ln_act.launches = conv3_ln_act.launches_bf16 = 0

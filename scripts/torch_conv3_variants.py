@@ -13,14 +13,14 @@ its time, CUDA events) and a last summary line: time per served decode call
 and max error per variant, with the card's name and power limit.
 
 Variants:
-  shipped    the source as it is;
-  chained    the three TF32 passes accumulate in place through all of K (no
-             fresh sum per chunk);
-  per_kstep  a fresh sum per tap (k-step) instead of per chunk of 3 taps;
-  tile128    128 time columns per block instead of 96;
-  tile64     64 time columns per block;
-  cvt_rna    x split with the cvt.rna.tf32.f32 instruction instead of the
-             two integer operations.
+  shipped        the source as it is;
+  chained        the three TF32 passes accumulate in place through all of K
+                 (no fresh sum per stage of 8 input channels);
+  no_setmaxnreg  the warpgroups keep the registers of the launch bounds (168
+                 a thread) instead of 232 for the consumers and 40 for the
+                 producer;
+  cvt_rna        x split with the cvt.rna.tf32.f32 instruction instead of the
+                 two integer operations.
 """
 
 from __future__ import annotations
@@ -40,44 +40,13 @@ sys.path.insert(0, REPO)
 SRC = os.path.join(REPO, "decafnet_tpu_torch", "csrc", "conv3_ln_act.cu")
 OUT = os.path.join(REPO, "build", "conv3_variants")
 
-PROMOTE_CHUNK = """#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          if (tap == 0)
-            mma_tf32(d[nt], al, bh[0][nt], zero);
-          else
-            mma_tf32(d[nt], al, bh[tap][nt], d[nt]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], ah, bl[tap][nt], d[nt]);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], ah, bh[tap][nt], d[nt]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += d[nt][i];"""
-
-CHAINED = """#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          mma_tf32(acc[mt][nt], al, bh[tap][nt], acc[mt][nt]);
-          mma_tf32(acc[mt][nt], ah, bl[tap][nt], acc[mt][nt]);
-          mma_tf32(acc[mt][nt], ah, bh[tap][nt], acc[mt][nt]);
-        }
-        (void)d;
-        (void)zero;
-      }"""
-
-PER_KSTEP = """#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], al, bh[tap][nt], zero);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], ah, bl[tap][nt], d[nt]);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_tf32(d[nt], ah, bh[tap][nt], d[nt]);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][nt][i] += d[nt][i];
-      }"""
+FRESH = "      float d[NW / 2];\n"
+FIRST = "WgmmaTf32<NW>::mma(d, al[tap], wh, tap != 0);"
+ADD = """#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) acc[i] += d[i];
+"""
+MAXNREG = ('    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");\n',
+           '  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");\n')
 
 INT_RNA = """__device__ __forceinline__ uint32_t tf32_rna(float v) {
   return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
@@ -89,20 +58,19 @@ CVT_RNA = """__device__ __forceinline__ uint32_t tf32_rna(float v) {
   return r;
 }"""
 
-TILE = "constexpr int TILE_T = 96;"
 
 
 def variants(src):
-    def edit(old, new):
-        assert src.count(old) == 1, f"variant edit does not apply: {old[:60]!r}"
-        return src.replace(old, new)
+    def edit(text, old, new):
+        assert text.count(old) == 1, f"variant edit does not apply: {old[:60]!r}"
+        return text.replace(old, new)
 
+    chained = edit(edit(edit(src, FRESH, "      float (&d)[NW / 2] = acc;\n"),
+                        FIRST, FIRST.replace("tap != 0", "(tap | c) != 0")), ADD, "")
     return {"shipped": src,
-            "chained": edit(PROMOTE_CHUNK, CHAINED),
-            "per_kstep": edit(PROMOTE_CHUNK, PER_KSTEP),
-            "tile128": edit(TILE, "constexpr int TILE_T = 128;"),
-            "tile64": edit(TILE, "constexpr int TILE_T = 64;"),
-            "cvt_rna": edit(INT_RNA, CVT_RNA)}
+            "chained": chained,
+            "no_setmaxnreg": edit(edit(src, MAXNREG[0], ""), MAXNREG[1], ""),
+            "cvt_rna": edit(src, INT_RNA, CVT_RNA)}
 
 
 def build_all(srcs):
@@ -136,7 +104,7 @@ def main():
         return 2
     import chip_smoke as cs
     import decafnet_tpu_torch  # noqa: F401  (TF32 off for the plain versions)
-    from decafnet_tpu_torch.ops import cuda
+    from decafnet_tpu_torch.ops import cuda, fused_conv
     from decafnet_tpu_torch.ops.fused_conv import conv3_weight_operands
 
     with open(SRC) as f:
@@ -144,11 +112,16 @@ def main():
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
 
-    def launch(fn, x, m8, ops, b, lw, lb, out):
+    def launch(name, x, m8, ops, b, lw, lb, out):
+        """One launch of a variant over one level."""
         B, C_in, T = x.shape
-        err = fn(cuda.ptr(x), cuda.ptr(m8), cuda.ptr(ops[0]), cuda.ptr(ops[1]),
-                 cuda.ptr(b), cuda.ptr(lw), cuda.ptr(lb), cuda.ptr(out), B, C_in,
-                 out.shape[1], T, 1e-5, 1, cuda.stream())
+        level = (fused_conv._Level * 1)(fused_conv._Level(
+            x.data_ptr(), m8.data_ptr(), out.data_ptr(), B, T))
+        work = fused_conv._device_work_table(
+            ((B, T),), fused_conv.conv3_tile(x.dtype, out.shape[1]), dev)
+        err = fns[name](level, 1, cuda.ptr(work), work.shape[0], cuda.ptr(ops),
+                        cuda.ptr(b), cuda.ptr(lw), cuda.ptr(lb),
+                        C_in, out.shape[1], 1e-5, 1, cuda.stream())
         cuda.check(err, "conv3_ln_act variant")
 
     served = [(cs.ROWS, C, cs.T0 // 2 ** lvl, cs.row_lens(lvl),
@@ -167,15 +140,15 @@ def main():
         m8, ops = cuda.as_bytes(mask), conv3_weight_operands(w)
         ref = cs.conv3_f64(x, mask, w, b, lw, lb)
         row = {"shape": [B, C, T], "calls_per_decode": calls}
-        for name, fn in fns.items():
+        for name in fns:
             out = torch.empty(B, C, T, device=dev)
-            launch(fn, x, m8, ops, b, lw, lb, out)
+            launch(name, x, m8, ops, b, lw, lb, out)
             torch.cuda.synchronize()
             err = float((out.double() - ref).abs().max())
             row[name] = {"max_abs_err_f64": err}
             total[name]["max_abs_err_f64"] = max(total[name]["max_abs_err_f64"], err)
             if calls:
-                ms = cs.time_ms(lambda: launch(fn, x, m8, ops, b, lw, lb, out), 30)
+                ms = cs.time_ms(lambda: launch(name, x, m8, ops, b, lw, lb, out), 30)
                 row[name]["ms"] = ms
                 total[name]["decode_ms"] += calls * ms
         print(json.dumps(row), flush=True)

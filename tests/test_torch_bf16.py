@@ -141,37 +141,38 @@ def test_band_attention_plain_matches_diag_in_bf16(T):
     _close(got, want)
 
 
-def _unfragment_bf16(f):
-    """(ceil(C_in/16), 3, M/16, 32, 8) bf16 fragments back to (M, C_in16, 3)
-    by the PTX ISA's m16n8k16 .bf16 A layout: lane = 4 * groupID +
-    tid_in_group, a0..a7 = (g, 2q), (g, 2q+1), (g+8, 2q), (g+8, 2q+1),
-    (g, 2q+8), (g, 2q+9), (g+8, 2q+8), (g+8, 2q+9)."""
+def _unswizzle_bf16(f):
+    """(ceil(C_in/32), 3, N, 32) bf16 weight image back to (N, C_in32, 3):
+    row n of chunk c holds the input channels 32c .. 32c + 31, its 16-byte
+    piece k at k ^ ((n // 2) % 4), the 64-byte swizzle the wgmma
+    descriptor of csrc/conv3_ln_act.cu names (address bits 4-5 XOR 7-8 of a
+    64-byte row)."""
     f = f.float().numpy()
-    nc16, _, mt = f.shape[:3]
-    w = np.full((16 * mt, 16 * nc16, 3), np.nan, np.float32)
-    for lane in range(32):
-        g, q = lane // 4, lane % 4
-        for i, (dr, dc) in enumerate([(0, 0), (0, 1), (8, 0), (8, 1),
-                                      (0, 8), (0, 9), (8, 8), (8, 9)]):
-            rows = 16 * np.arange(mt) + g + dr
-            cols = 16 * np.arange(nc16) + 2 * q + dc
-            w[rows[:, None, None], cols[None, :, None],
-              np.arange(3)[None, None, :]] = f[:, :, :, lane, i].transpose(2, 0, 1)
+    nc, _, N, _ = f.shape
+    w = np.full((N, 32 * nc, 3), np.nan, np.float32)
+    for n in range(N):
+        for k in range(4):
+            kp = k ^ ((n // 2) % 4)
+            for c in range(nc):
+                w[n, 32 * c + 8 * k:32 * c + 8 * k + 8] = f[c, :, n, 8 * kp:8 * kp + 8].T
     return w
 
 
 @pytest.mark.parametrize("c_in,c_out", [(16, 24), (128, 128), (160, 160),
                                         (200, 256), (13, 40)])
 def test_bf16_fragments_follow_the_mma_a_layout(c_in, c_out):
+    """The bf16 kernel's weight image is its wgmma B operand, K-major under
+    the 64-byte swizzle (before the kernel moved to wgmma it was the A
+    fragment of mma.sync.m16n8k16, hence the name)."""
     w = torch.from_numpy(np.random.RandomState(c_in).randn(c_out, c_in, 3)
                          .astype(np.float32))
     f = tfc.conv3_bf16_fragments(w)
-    m = 32 * -(-c_out // 32)
-    assert f.shape == (-(-c_in // 16), 3, m // 16, 32, 8)
+    n = next(n for n in tfc.CONV3_WIDTHS if c_out <= n)
+    assert f.shape == (-(-c_in // 32), 3, n, 32)
     assert f.dtype == torch.bfloat16 and f.is_contiguous()
-    want = np.zeros((m, 16 * -(-c_in // 16), 3), np.float32)
+    want = np.zeros((n, 32 * -(-c_in // 32), 3), np.float32)
     want[:c_out, :c_in] = w.to(torch.bfloat16).float().numpy()
-    np.testing.assert_array_equal(_unfragment_bf16(f), want)
+    np.testing.assert_array_equal(_unswizzle_bf16(f), want)
     assert tfc.conv3_bf16_operands(w) is tfc.conv3_bf16_operands(w)   # cached
 
 

@@ -113,8 +113,8 @@ WORKER = textwrap.dedent("""
     DistributedDataParallel(model)
     fresh = conv3_weight_operands(w)
     want = tf32_split(conv3_weight_fragments(w.detach()))
-    rebuilt = all(torch.equal(a, b) for a, b in zip(fresh, want))
-    moved = not all(torch.equal(a, b) for a, b in zip(stale, fresh))
+    rebuilt = all(torch.equal(a, b) for a, b in zip(fresh.unbind(1), want))
+    moved = not torch.equal(stale, fresh)
     ref = init_random(make_model(load("train")), 3)
     print("WORKER::" + json.dumps({
         "rank": rank, "written": written, "rebuilt": rebuilt, "moved": moved,

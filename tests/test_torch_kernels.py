@@ -143,7 +143,10 @@ def test_bf16_kernel_matches_plain_version(card, name, how, T, rows):
 @pytest.mark.cuda
 @pytest.mark.parametrize("c_in,c_out,bias,affine,act", [
     (128, 128, False, True, "relu"), (160, 160, True, True, "relu"),
-    (16, 24, True, False, "none"), (13, 40, True, True, "relu")])
+    (16, 24, True, False, "none"), (13, 40, True, True, "relu"),
+    # C_out padded inside the 128- and 160-channel builds, and the 256 one
+    (128, 96, True, True, "relu"), (160, 144, False, True, "relu"),
+    (200, 256, True, True, "relu")])
 @pytest.mark.parametrize("T", [2304, 301, 4])
 def test_bf16_conv3_ln_act_widths(card, c_in, c_out, bias, affine, act, T):
     g = torch.Generator(device=card).manual_seed(c_in + c_out + T)
@@ -201,7 +204,8 @@ def _conv3_f64(x, mask, w, bias, ln_w, ln_b, act="relu", eps=1e-5):
     (160, 160, True, True, "relu"),      # served width, cls_head2 / reg_head
     (16, 24, True, False, "none"),       # C_in != C_out, bias, no affine
     (160, 128, False, True, "relu"),
-    (13, 40, True, True, "relu")])       # C_in and C_out off the tiles
+    (13, 40, True, True, "relu"),        # C_in and C_out off the tiles
+    (200, 256, True, True, "relu")])     # the widest C_out
 @pytest.mark.parametrize("T", [2304, 301, 4])
 def test_conv3_ln_act_widths_and_f64(card, c_in, c_out, bias, affine, act, T):
     g = torch.Generator(device=card).manual_seed(c_in + c_out + T)
@@ -221,6 +225,53 @@ def test_conv3_ln_act_widths_and_f64(card, c_in, c_out, bias, affine, act, T):
     assert got.shape == (4, c_out, T) and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= TOL["conv3_ln_act"]
     assert float((got.double() - ref).abs().max()) <= TOL_F64
+
+
+# one launch over FPN levels: the served 7-level list at 8 rows (T = 2304
+# halved 6 times), and an edge list (odd T, T = 36 off and on 16 bytes, T
+# shorter than a tile); every level has an all-masked row
+LEVEL_LISTS = {
+    "served": [(T, "as_is") for T in (2304, 1152, 576, 288, 144, 72, 36)],
+    "edge": [(301, "offset"), (36, "offset"), (36, "as_is"), (17, "as_is"),
+             (3, "offset")],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [128, 160, 96, 144, 256])
+@pytest.mark.parametrize("which", list(LEVEL_LISTS))
+def test_conv3_levels_one_launch_matches_plain(card, which, C, dtype):
+    g = torch.Generator(device=card).manual_seed(C)
+    rows = 8 if which == "served" else 4
+    xs, masks = [], []
+    for T, how in LEVEL_LISTS[which]:
+        xs.append(moved(torch.randn(rows, C, T, generator=g, device=card)
+                        .to(dtype), how))
+        masks.append(_mask(([T, max(T - 3, 1), T // 2, 0] * rows)[:rows], T, card))
+    params = (torch.randn(C, C, 3, generator=g, device=card) / math.sqrt(3 * C),
+              torch.randn(C, generator=g, device=card),
+              1 + 0.1 * torch.randn(C, 1, generator=g, device=card),
+              0.1 * torch.randn(C, 1, generator=g, device=card))
+    op = ops.conv3_ln_act
+    before = op.launches, op.launches_bf16
+    got = ops.conv3_ln_act_levels(xs, masks, *params)
+    bf16 = dtype == torch.bfloat16
+    assert (op.launches, op.launches_bf16) == (before[0] + (not bf16),
+                                               before[1] + bf16)
+    for x, m, y in zip(xs, masks, got, strict=True):
+        with cuda.plain_versions():
+            want = op(x, m, *params)
+        assert y.shape == want.shape and y.dtype == dtype
+        assert torch.isfinite(y).all()
+        if bf16:
+            y, want = y.float(), want.float()
+            assert float(((y - want).abs() / want.abs().clamp_min(1.0)).max()) \
+                <= TOL_BF16
+        else:
+            assert float((y - want).abs().max()) <= TOL["conv3_ln_act"]
+            ref = _conv3_f64(x, m, *params)
+            assert float((y.double() - ref).abs().max()) <= TOL_F64
 
 
 @pytest.mark.cuda

@@ -4,7 +4,7 @@ csrc/conv3_ln_act.cu runs its products on the tensor cores as three TF32
 passes (lo*hi + hi*lo + hi*hi of hi = tf32(a), lo = tf32(a - hi)), on
 weight halves that ops/fused_conv.py rounds and lays out once per weight.
 These tests hold the rounding to ``cvt.rna.tf32.f32``, the layout to the
-A fragment of ``mma.sync.m16n8k8`` as the PTX ISA states it, the three-pass
+K-major B operand of TF32 ``wgmma`` under the 32-byte swizzle, the three-pass
 arithmetic to the JAX package's XLA composition at 1e-5, and the cache to
 the weight's in-place updates. The kernel itself is held against its plain
 version and f64 on the card in tests/test_torch_kernels.py."""
@@ -74,29 +74,30 @@ def test_split_rounds_to_nearest_ties_away():
 
 
 def _unfragment(f):
-    """(ceil(C_in/8), 3, M/16, 32, 4) fragments back to (M, C_in8, 3) by
-    the PTX ISA's m16n8k8 .tf32 A layout: lane = 4 * groupID + tid_in_group,
-    a0 = (row g, col q), a1 = (g + 8, q), a2 = (g, q + 4), a3 = (g + 8, q + 4)."""
+    """(ceil(C_in/8), 3, N, 8) weight image back to (N, C_in8, 3): row n of
+    chunk c and tap holds w[n, 8c:8c + 8, tap] with its 16-byte pieces k at
+    k ^ ((n // 4) % 2), the 32-byte swizzle of a K-major wgmma operand (a
+    byte address's bit 4 XOR its bit 7)."""
     f = np.asarray(f)
-    nc8, _, mt = f.shape[:3]
-    w = np.full((16 * mt, 8 * nc8, 3), np.nan, f.dtype)
-    for lane in range(32):
-        g, q = lane // 4, lane % 4
-        for i, (dr, dc) in enumerate([(0, 0), (8, 0), (0, 4), (8, 4)]):
-            rows = 16 * np.arange(mt) + g + dr
-            cols = 8 * np.arange(nc8) + q + dc
-            w[rows[:, None, None], cols[None, :, None],
-              np.arange(3)[None, None, :]] = f[:, :, :, lane, i].transpose(2, 0, 1)
+    nc8, _, n_rows, _ = f.shape
+    w = np.full((n_rows, 8 * nc8, 3), np.nan, f.dtype)
+    for n in range(n_rows):
+        for k in range(8):
+            stored = 4 * ((k >> 2) ^ ((n >> 2) & 1)) + (k & 3)
+            w[n, k::8, :] = f[:, :, n, stored]
     return w
 
 
 @pytest.mark.parametrize("c_in,c_out", [(160, 160), (128, 128), (16, 24),
                                         (13, 40)])
 def test_fragments_follow_the_mma_a_layout(c_in, c_out):
+    """The f32 kernel's weight image is its wgmma B operand, K-major under
+    the 32-byte swizzle (before the kernel moved to wgmma it was the A
+    fragment of mma.sync.m16n8k8, hence the name)."""
     w = _randn(3, c_out, c_in, 3)
     f = tfc.conv3_weight_fragments(w)
-    m = 32 * -(-c_out // 32)
-    assert f.shape == (-(-c_in // 8), 3, m // 16, 32, 4) and f.is_contiguous()
+    n = next(n for n in tfc.CONV3_WIDTHS if c_out <= n)
+    assert f.shape == (-(-c_in // 8), 3, n, 8) and f.is_contiguous()
     got = _unfragment(f)
     want = np.zeros_like(got)
     want[:c_out, :c_in] = w.numpy()
@@ -123,7 +124,7 @@ def _three_pass(x, mask, w, b, ln_w, ln_b):
     c_out, c_in, _ = w.shape
     xh, xl = tfc.tf32_split(x * mask[:, None, :].float())
     wh, wl = (torch.from_numpy(_unfragment(h)[:c_out, :c_in].copy())
-              for h in tfc.conv3_weight_operands(w))
+              for h in tfc.conv3_weight_operands(w).unbind(1))
     y = (F.conv1d(xh, wl, padding=1) + F.conv1d(xl, wh, padding=1)
          + F.conv1d(xh, wh, padding=1) + b[:, None])
     return torch.relu(channel_layer_norm(y, ln_w, ln_b))
@@ -144,13 +145,13 @@ def test_operands_follow_in_place_updates():
 
     def fresh(ops):
         want = tfc.tf32_split(tfc.conv3_weight_fragments(w.detach()))
-        return all(torch.equal(a, b) for a, b in zip(ops, want))
+        return all(torch.equal(a, b) for a, b in zip(ops.unbind(1), want))
 
     with torch.no_grad():
         w.add_(0.5)
     second = tfc.conv3_weight_operands(w)
     assert second is not first and fresh(second)
-    assert not torch.equal(second[0], first[0])
+    assert not torch.equal(second[:, 0], first[:, 0])
 
     state = {k: v + 1.0 for k, v in conv.state_dict().items()}
     conv.load_state_dict(state)
