@@ -7,8 +7,10 @@ Phases, each printing one JSON line:
   device   the card (torch and nvidia-smi);
   build    compiles the CUDA kernels from decafnet_tpu_torch/csrc with nvcc,
            prints ptxas's registers / shared memory / spills of every
-           kernel and checks in the conv3 kernels' SASS (cuobjdump) that
-           they run on wgmma (HGMMA, in f32 and in bf16);
+           kernel and checks in the SASS (cuobjdump) that the conv3
+           kernels run on wgmma (HGMMA, in f32 and in bf16) and that the
+           bf16 band-attention kernel loads by TMA (UTMALDG) under
+           mbarriers (SYNCS);
   kernels  holds each kernel against its plain PyTorch version on the card at
            the served shapes (V=8 videos x Q=8 queries = 64 rows, T=2304, all
            7 FPN levels) and at edge shapes (ragged and odd T, masked tails,
@@ -23,8 +25,10 @@ Phases, each printing one JSON line:
            (old, new, new, old; "grouping_rule" in its kernels row,
            reported, not asserted);
   bf16     (after the kernels phase) holds each kernel's bf16 variant against
-           its plain version in bf16 at the same served and edge shapes,
-           within 2 bf16 eps of max(1, |plain|), and times kernel, plain
+           its plain version in bf16 at the same served and edge shapes
+           (band attention also at windows 3, 7 and 9 on a served level and
+           with an all-masked row at level 0), within 2 bf16 eps of
+           max(1, |plain|), and times kernel, plain
            version and, for band attention, SDPA in bf16 (bounds at 2 bytes
            per activation element, conv3's products at the dense bf16 rate),
            each served level beside the f32 kernel's time;
@@ -355,10 +359,10 @@ def ptxas_report(log):
     return out
 
 
-def sass_mma(lib_path, name):
-    """Tensor-core instructions per compiled kernel whose name holds
-    ``name``, from cuobjdump -sass of the built library: ``HMMA`` (the
-    warp-level mma.sync) and ``HGMMA`` (the warpgroup-level wgmma)."""
+def sass_counts(lib_path, name, ops):
+    """Instructions per compiled kernel whose name holds ``name``, from
+    cuobjdump -sass of the built library: each SASS line counts for the
+    first of ``ops`` (opcode names, in order) that it holds."""
     from decafnet_tpu_torch.ops import cuda
 
     sass = subprocess.run([cuda.toolkit_binary("cuobjdump"), "-sass", lib_path],
@@ -369,13 +373,20 @@ def sass_mma(lib_path, name):
         if m:
             cur = m.group(1) if name in m.group(1) else None
             if cur:
-                counts[cur] = {"HMMA": 0, "HGMMA": 0}
+                counts[cur] = {op: 0 for op in ops}
         elif cur:
-            for op in ("HGMMA", "HMMA"):
+            for op in ops:
                 if op in line:
                     counts[cur][op] += 1
                     break
     return counts
+
+
+def sass_mma(lib_path, name):
+    """Tensor-core instructions per compiled kernel whose name holds
+    ``name``: ``HMMA`` (the warp-level mma.sync) and ``HGMMA`` (the
+    warpgroup-level wgmma)."""
+    return sass_counts(lib_path, name, ("HGMMA", "HMMA"))
 
 
 # ------------------------------------------------------------------ kernels
@@ -531,7 +542,7 @@ def trio_case(dev, g, B, C, T, lens, how="as_is", dtype=torch.float32):
 
 
 def band_case(dev, g, B, T, lens, D=EMBD // HEADS, how="as_is",
-              dtype=torch.float32):
+              dtype=torch.float32, window=WINDOW):
     """Strided (B, H, T, D) head views of (B, C, T) projections, as the
     model hands them over, scaled by 1/sqrt(sqrt(D)) like q and k there
     (``how``: see :func:`moved`; "contiguous" gives (B, H, T, D) tensors)."""
@@ -541,7 +552,7 @@ def band_case(dev, g, B, T, lens, D=EMBD // HEADS, how="as_is",
            .reshape(B, HEADS, D, T).transpose(2, 3) for _ in range(3)]
     if how == "contiguous":
         qkv = [t.contiguous() for t in qkv]
-    return (*qkv, prefix_mask(lens, T, dev), WINDOW), {}
+    return (*qkv, prefix_mask(lens, T, dev), window), {}
 
 
 def check(op, plain, args, kw, name, what):
@@ -1300,6 +1311,16 @@ def run_bf16_kernels(dev, rec32):
         r["max_abs_err"] = max(r["max_abs_err"], abs_err)
         r["max_rel_err"] = max(r["max_rel_err"], rel_err)
 
+    # band attention's other windows at one served level (64 rows, T=576),
+    # and the served level 0 with an all-masked row
+    for window in (3, 7, 9):
+        args, kw = band_case(dev, g, ROWS, T0 // 4, row_lens(2), dtype=bf,
+                             window=window)
+        edge("band_attention", band_attention, args, kw,
+             f"served level 2, window {window}")
+    args, kw = band_case(dev, g, ROWS, T0, [0] + row_lens(0)[1:], dtype=bf)
+    edge("band_attention", band_attention, args, kw,
+         "served level 0, row 0 all masked")
     edge_Ts = (1000, 301, 36, 17, 9, 4, 3)
     for how in ("as_is", "offset"):
         xs, masks, params = conv3_levels_case(
@@ -1320,6 +1341,13 @@ def run_bf16_kernels(dev, rec32):
                  f"edge T={T}, q/k/v {how}")
     args, kw = band_case(dev, g, 16400, 3, [3, 2, 1, 0] * 4100, dtype=bf)
     edge("band_attention", band_attention, args, kw, "edge B*H = 65600, T=3")
+    # a seq2 rank's level-0 block widened by the halo (32 rows, T = 1156):
+    # time-minor as band_attention hands it over under time sharding (the
+    # pipeline's 8-byte copies), and as (B, H, T, D) tensors (split 4)
+    for how in ("as_is", "contiguous"):
+        args, kw = band_case(dev, g, 32, T0 // 2 + 4, row_lens(1)[:32], how=how, dtype=bf)
+        edge("band_attention", band_attention, args, kw,
+             f"seq2 rank level 0, T={T0 // 2 + 4}, q/k/v {how}")
     args, kw = conv3_case(dev, g, 3, 16, 100, [100, 50, 0], bias=True, act="none",
                           dtype=bf)
     args = (args[0], args[1], torch.randn(24, 16, 3, generator=g, device=dev),
@@ -3549,6 +3577,14 @@ def main():
     emit({"phase": "build", "kernel": "conv3_ln_act", "sass_mma": mma})
     assert mma and all(c["HGMMA"] > 0 for c in mma.values()), \
         "conv3_ln_act does not run on the tensor cores"
+    # the bf16 band kernel's pipeline (split 1, its instantiations
+    # <halo, 1>) loads its tiles by TMA (UTMALDG) under mbarriers (SYNCS)
+    tma = sass_counts(path, "band_attention_bf16_kernel", ("UTMALDG", "SYNCS"))
+    emit({"phase": "build", "kernel": "band_attention_bf16", "sass_tma": tma})
+    piped = [c for k, c in tma.items() if re.search(r"kernelILi\dELi1E", k)]
+    assert len(tma) == 8 and len(piped) == 4 and all(
+        c["UTMALDG"] > 0 and c["SYNCS"] > 0 for c in piped), \
+        "the bf16 band kernel's pipeline does not load by TMA under mbarriers"
 
     rec = run_kernels(dev)
     rec16 = run_bf16_kernels(dev, rec)
@@ -3615,6 +3651,11 @@ def main():
             "launches_per_forward": PER_DECODE[n], "ptxas": bf16_kernels,
             **({"sass_mma": {k: c for k, c in mma.items() if "bf16" in k}}
                if n == "conv3_ln_act" else {}),
+            **({"sass_tma": tma, "per_level_us": [
+                {"level": lv["level"], "us": 1e3 * lv["ms"],
+                 "bound_us": 1e3 * lv["bound_ms"],
+                 "share_of_bound": lv["share_of_bound"]} for lv in r["levels"]]}
+               if n == "band_attention" else {}),
             **{k: r[k] for k in ("per_level_launch_ms", "grouping_rule", "heads")
                if k in r},
             "levels": r["levels"]})

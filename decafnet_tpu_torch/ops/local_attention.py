@@ -6,7 +6,8 @@ when 0 <= j < T and kv_mask[j]; softmax over those keys, rows with an
 invalid query (or no valid key) are zero. ``band_attention_torch`` is the
 plain version (the per-diagonal form of the JAX ``band_attention_diag``);
 ``band_attention`` launches csrc/band_attention.cu for CUDA tensors, its f32
-or its bf16 kernel after the inputs' dtype.
+or its bf16 kernel after the inputs' dtype, each with its own launch plan
+(``band_attention_plan``, ``band_attention_bf16_plan``).
 """
 
 from __future__ import annotations
@@ -86,6 +87,47 @@ def band_attention_plan(B, H, T, sms):
     return cuda.time_tile(T, 32 // split, BAND_MAX_TILE), split
 
 
+# the bf16 kernel's work items: 128 columns of one (b, h) for its TMA
+# pipeline (split 1), 16 for one warp of its direct path (split 4), whose
+# blocks have 12 warps
+BAND_BF16_TILE = 128
+BAND_BF16_WARP_COLS = 16
+BAND_BF16_WARPS = 12
+
+
+def band_attention_bf16_plan(B, H, T, sms, pipelined=True):
+    """Launch plan ``(split, grid)`` of the bf16 kernel of
+    csrc/band_attention.cu for (B, H, T) query views on a card of ``sms``
+    multiprocessors. A lane owns two adjacent queries and D / split of
+    their head dims. ``split`` 1 runs the kernel's TMA pipeline: items of
+    ``BAND_BF16_TILE`` columns, ``grid`` persistent blocks, one per
+    multiprocessor (or per item where there are fewer). ``split`` 4 runs
+    its direct path: warps over items of ``BAND_BF16_WARP_COLS`` columns,
+    ``grid`` blocks of ``BAND_BF16_WARPS`` warps, a warp per item.
+    ``split`` is 1 where the pipeline can read the views (``pipelined``, see
+    :func:`band_bf16_pipelined`) and the queries number at least its
+    consumer lanes (256 per multiprocessor), else 4 (the short levels:
+    measured on an H100, the pipeline is the faster at T >= 144 with 64
+    rows; scripts/torch_band_trio_plans.py)."""
+    if pipelined and B * H * T >= 256 * sms:
+        return 1, min(B * H * -(-T // BAND_BF16_TILE), sms)
+    items = B * H * -(-T // BAND_BF16_WARP_COLS)
+    return 4, -(-items // BAND_BF16_WARPS)
+
+
+def band_bf16_pipelined(q, k, v):
+    """Whether the bf16 kernel's pipeline (split 1) reads these views: by
+    TMA or by 8-byte copies, so time-contiguous rows whose strides and
+    bases are on 8 bytes, shared by q, k and v. Other views (odd T, a base
+    2 bytes off, the (B, H, T, D) layout) take the direct path, which
+    measured faster there than the pipeline's single-element copies
+    (PERF.md)."""
+    sb, sh, st, sd = q.stride()
+    return (q.stride() == k.stride() == v.stride() and st == 1
+            and sd % 4 == 0 and sh % 4 == 0 and sb % 4 == 0
+            and all(t.data_ptr() % 8 == 0 for t in (q, k, v)))
+
+
 def band_attention(q, k, v, kv_mask, window_size):
     """Banded attention (see :func:`band_attention_torch`).
 
@@ -108,15 +150,20 @@ def band_attention(q, k, v, kv_mask, window_size):
     Time-sharded (:func:`parallel.seq.active`), k, v and the key mask are
     widened by ``window_size // 2`` columns of each neighbour (masked past
     the video's ends), q by as many zero columns, whose outputs are cropped:
-    every query of the block sees the keys it sees in one process."""
+    every query of the block sees the keys it sees in one process. The
+    widened q, k and v are built time-minor, (B, H, D, T) buffers, so the
+    kernels read time-contiguous rows."""
     shard = seq.active()
     if shard is not None:
         h = window_size // 2
-        kh, vh, mh = shard.halo(k, v, kv_mask[:, None, :, None], left=h,
-                                right=h, axis=-2)
-        qh = F.pad(q, (0, 0, h, h))
+        kh, vh, mh = shard.halo(k.transpose(2, 3), v.transpose(2, 3),
+                                kv_mask[:, None, None, :], left=h, right=h,
+                                axis=-1)
+        qh = F.pad(q.transpose(2, 3), (h, h))
         with seq.replicated():
-            out = band_attention(qh, kh, vh, mh[:, 0, :, 0], window_size)
+            out = band_attention(qh.transpose(2, 3), kh.transpose(2, 3),
+                                 vh.transpose(2, 3), mh[:, 0, 0, :],
+                                 window_size)
         return out[..., h:out.shape[-2] - h, :]
     if cuda.recording(q, k, v):
         return _BandAttention.apply(q, k, v, kv_mask, window_size)
@@ -146,15 +193,17 @@ def _band_attention(q, k, v, kv_mask, window_size):
     if not cuda.use_kernel(q):
         return band_attention_torch(q, k, v, kv_mask, window_size)
     B, H, T, _ = q.shape
-    return launch_band_attention(
-        q, k, v, kv_mask, window_size,
-        band_attention_plan(B, H, T, cuda.sm_count(q.device)))
+    sms = cuda.sm_count(q.device)
+    plan = (band_attention_bf16_plan(B, H, T, sms, band_bf16_pipelined(q, k, v))
+            if q.dtype == torch.bfloat16 else band_attention_plan(B, H, T, sms))
+    return launch_band_attention(q, k, v, kv_mask, window_size, plan)
 
 
 def launch_band_attention(q, k, v, kv_mask, window_size, plan):
     """Check the arguments and launch csrc/band_attention.cu on CUDA tensors
-    with the launch plan ``(tile, split)`` (see :func:`band_attention_plan`;
-    the plan study script passes others)."""
+    with a launch plan: ``(tile, split)`` for f32 (see
+    :func:`band_attention_plan`), ``(split, grid)`` for bf16 (see
+    :func:`band_attention_bf16_plan`); the plan study script passes others."""
     name = "band_attention"
     B, H, T, D = q.shape
     halo = window_size // 2
@@ -176,14 +225,13 @@ def launch_band_attention(q, k, v, kv_mask, window_size, plan):
     if not (q.stride() == k.stride() == v.stride()):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     sb, sh, st, sd = q.stride()
-    tile, split = plan
     out = torch.empty((B, H, D, T), dtype=q.dtype, device=q.device)
     m8 = cuda.as_bytes(kv_mask)
     bf16 = q.dtype == torch.bfloat16
     entry = (cuda.library().decafnet_band_attention_bf16 if bf16
              else cuda.library().decafnet_band_attention_f32)
     err = entry(cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m8),
-                cuda.ptr(out), B, H, T, D, sb, sh, st, sd, halo, tile, split,
+                cuda.ptr(out), B, H, T, D, sb, sh, st, sd, halo, *plan,
                 cuda.stream())
     cuda.check(err, name + ("_bf16" if bf16 else ""))
     if bf16:

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Device time of the port's conv3 + LN + ReLU over one served decode call,
-as a given tree of the repository launches it, for A/B runs of two trees
-on one card:
+"""Device time of the port's conv3 + LN + ReLU (or band attention) over
+one served decode call, as a given tree of the repository launches it, for
+A/B runs of two trees on one card:
 
-    python3 scripts/torch_conv3_ab.py [--repo ROOT] [--label NAME]
+    python3 scripts/torch_conv3_ab.py [--repo ROOT] [--label NAME] [--op conv3|band]
 
 ``--repo`` names the root of the tree whose ``decafnet_tpu_torch`` runs
 (default: this one); each tree builds its own kernels under its own
@@ -16,6 +16,15 @@ over 20 calls; a head layer runs as one launch when the tree has
 ``conv3_ln_act_levels`` and as one launch per level otherwise. Also the
 time per decode call (2 embedding convs, 2 head layers at C = 128 and 4 at
 C = 160) and the card's name and power limit.
+
+``--op band``: band attention (window 5) at each of the 7 served levels
+(64 rows; 8 videos of chip_smoke.VIDEO_LENS clips x 8 queries, the
+head views of (64, 128, T) projections), per dtype the device ms per level
+(CUDA events over 20 calls) and their sum, the time per decode call (one
+launch per level); and per dtype at the 7 levels of a time-sharded rank
+(seq2: 32 rows, 1152 / 2^l columns and the halo of 2 on each side) in the
+two layouts band_attention has handed over under time sharding, (B, H, T,
+D) tensors and time-minor (B, H, D, T) buffers.
 """
 
 from __future__ import annotations
@@ -32,25 +41,44 @@ import torch
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--repo", default=HERE)
-    ap.add_argument("--label", default="")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("torch_conv3_ab: needs a CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
-    import chip_smoke as cs     # this tree's shapes and timing
-    sys.path.insert(0, os.path.abspath(args.repo))
-    import decafnet_tpu_torch  # noqa: F401  (TF32 off)
-    from decafnet_tpu_torch import ops
+def band_times(cs, ops, dev):
+    """Band attention at each served level, per dtype: ms per level and per
+    decode call."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=dev).manual_seed(cs.SEED)
+        levels = []
+        for lvl in range(cs.LEVELS):
+            T = cs.T0 // 2 ** lvl
+            args, _ = cs.band_case(dev, g, cs.ROWS, T, cs.row_lens(lvl), dtype=dtype)
+            levels.append(cs.time_ms(lambda: ops.band_attention(*args), 20))
+            del args
+        out["bf16" if dtype == torch.bfloat16 else "f32"] = {
+            "level_ms": levels, "decode_ms": sum(levels)}
+    # a time-sharded rank's blocks (seq2: 32 rows, level l's 1152 / 2^l
+    # columns and the halo on each side) in the two layouts band_attention
+    # has handed over under time sharding: (B, H, T, D) tensors, and
+    # time-minor (B, H, D, T) buffers
+    for dtype in (torch.float32, torch.bfloat16):
+        for how, name in (("contiguous", "BHTD"), ("as_is", "time_minor")):
+            g = torch.Generator(device=dev).manual_seed(cs.SEED)
+            levels = []
+            for lvl in range(cs.LEVELS):
+                T = cs.T0 // 2 // 2 ** lvl + 2 * (cs.WINDOW // 2)
+                lens = [min(n, T) for n in cs.row_lens(lvl)[:32]]
+                args, _ = cs.band_case(dev, g, 32, T, lens, how=how, dtype=dtype)
+                levels.append(cs.time_ms(lambda: ops.band_attention(*args), 20))
+                del args
+            key = ("bf16" if dtype == torch.bfloat16 else "f32") + "_seq2_rank_" + name
+            out[key] = {"level_ms": levels, "sum_ms": sum(levels)}
+    return out
 
-    assert os.path.dirname(ops.__file__).startswith(os.path.abspath(args.repo))
+
+def conv3_times(cs, ops, dev):
+    """conv3 + LN + ReLU per served call shape and per decode call, per
+    dtype."""
     grouped = getattr(ops, "conv3_ln_act_levels", None)
-    dev = torch.device("cuda")
-    out = {"label": args.label, "repo": os.path.relpath(args.repo, HERE),
-           "grouped": grouped is not None}
+    out = {"grouped": grouped is not None}
     for dtype in (torch.float32, torch.bfloat16):
         g = torch.Generator(device=dev).manual_seed(cs.SEED)
         rec = {}
@@ -76,6 +104,32 @@ def main():
             rec[f"head_C{C}_layers"] * rec[f"head_C{C}"]
             for C in (cs.EMBD, cs.EMBD + cs.RDIM))
         out["bf16" if dtype == torch.bfloat16 else "f32"] = rec
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--repo", default=HERE)
+    ap.add_argument("--label", default="")
+    ap.add_argument("--op", choices=("conv3", "band"), default="conv3")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_conv3_ab: needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs     # this tree's shapes and timing
+    sys.path.insert(0, os.path.abspath(args.repo))
+    import decafnet_tpu_torch  # noqa: F401  (TF32 off)
+    from decafnet_tpu_torch import ops
+
+    assert os.path.dirname(ops.__file__).startswith(os.path.abspath(args.repo))
+    dev = torch.device("cuda")
+    out = {"label": args.label, "repo": os.path.relpath(args.repo, HERE),
+           "op": args.op}
+    if args.op == "band":
+        out.update(band_times(cs, ops, dev))
+    else:
+        out.update(conv3_times(cs, ops, dev))
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
