@@ -10,7 +10,13 @@ rank) from the same flax weights:
   tests/test_torch_train_step.py holds it);
 * a non-lead ``checkpoint()`` writes nothing;
 * conv3's weight operand cache, built on rank 1 for its own weights, is
-  rebuilt after DDP's broadcast of rank 0's at construction.
+  rebuilt after DDP's broadcast of rank 0's at construction, and so are the
+  bf16 caches (conv3's bf16 operand and the bf16 casts of the parameters);
+* in bf16 (``tpu.compute_dtype bfloat16``, SGD, no warmup) the two-rank
+  step equals the one-process bf16 step on the global batch: its summed
+  gradients and its update within half the one-process bf16-vs-f32
+  distance (tests/test_torch_seq_train.py's rule), its f32 metrics at
+  rtol 1e-2.
 
 Helpers come from tests/test_torch_ddp.py."""
 
@@ -30,9 +36,11 @@ from decafnet_tpu.data import make_dataset as jax_make_dataset
 from decafnet_tpu.models import make_model as jax_make_model
 from decafnet_tpu.train import TrainState, build_train_step, make_optimizer
 from decafnet_tpu.train import make_schedule as jax_make_schedule
+from decafnet_tpu_torch.core import CfgNode
 from decafnet_tpu_torch.models import load_pth, make_model, save_pth
 from decafnet_tpu_torch.train import Trainer
 from test_torch_ddp import finish, spawn, synth  # noqa: F401 (a fixture)
+from test_torch_seq_train import one_process, rel_l2
 from test_torch_train import (_flax_params, assert_grads_close, cfg_pair,
                               flat_jax, flat_port, jax_points)
 
@@ -52,9 +60,12 @@ WORKER = textwrap.dedent("""
     from decafnet_tpu_torch import parallel
     from decafnet_tpu_torch.core import CfgNode
     from decafnet_tpu_torch.models import load_pth, make_model, init_random
-    from decafnet_tpu_torch.ops.fused_conv import (conv3_weight_fragments,
+    from decafnet_tpu_torch.ops.fused_conv import (conv3_bf16_fragments,
+                                                   conv3_bf16_operands,
+                                                   conv3_weight_fragments,
                                                    conv3_weight_operands,
                                                    tf32_split)
+    from decafnet_tpu_torch.ops.params import cast
     from decafnet_tpu_torch.train import Trainer
 
     torch.set_num_threads(1)
@@ -109,16 +120,40 @@ WORKER = textwrap.dedent("""
     # broadcast at construction overwrites them with rank 0's in place
     model = init_random(make_model(load("train")), 3 + rank)
     w = model.vid_net.embd_convs[0].conv.weight
-    stale = conv3_weight_operands(w)
-    DistributedDataParallel(model)
-    fresh = conv3_weight_operands(w)
+    # and so are the bf16 caches: conv3's bf16 operand and the bf16 copy
+    # of a parameter cast at its use (a projection's weight)
+    p = model.vid_net.embd_fc.conv.weight
+    with torch.no_grad():
+        stale = conv3_weight_operands(w)
+        stale16 = (conv3_bf16_operands(w), cast(p, torch.bfloat16))
+        DistributedDataParallel(model)
+        fresh = conv3_weight_operands(w)
+        fresh16 = (conv3_bf16_operands(w), cast(p, torch.bfloat16))
     want = tf32_split(conv3_weight_fragments(w.detach()))
     rebuilt = all(torch.equal(a, b) for a, b in zip(fresh.unbind(1), want))
     moved = not torch.equal(stale, fresh)
+    rebuilt16 = (torch.equal(fresh16[0], conv3_bf16_fragments(w.detach()))
+                 and torch.equal(fresh16[1], p.detach().to(torch.bfloat16)))
+    moved16 = [not torch.equal(a, b) for a, b in zip(stale16, fresh16)]
     ref = init_random(make_model(load("train")), 3)
+    broadcast = torch.equal(w, ref.vid_net.embd_convs[0].conv.weight) and \
+        torch.equal(p, ref.vid_net.embd_fc.conv.weight)
+
+    # one bf16 SGD step of the global batch from the flax weights and EMA
+    trainer = Trainer(load("bf16"), device="cpu")
+    assert trainer.model.compute_dtype == torch.bfloat16
+    load_pth(trainer.model, os.path.join(out_dir, "init.pth"), "model")
+    load_pth(trainer.ema, os.path.join(out_dir, "init.pth"), "model_ema")
+    trainer.model.train()
+    metrics = trainer.accumulate(block)
+    grads = {n: p.grad.clone() for n, p in trainer.model.named_parameters()}
+    trainer.update(metrics)
+    torch.save({"grads": grads, "model": trainer.model.state_dict(),
+                "metrics": {k: float(v) for k, v in metrics.items()}},
+               os.path.join(out_dir, f"bf16.r{rank}.pt"))
     print("WORKER::" + json.dumps({
         "rank": rank, "written": written, "rebuilt": rebuilt, "moved": moved,
-        "broadcast": torch.equal(w, ref.vid_net.embd_convs[0].conv.weight)}),
+        "rebuilt16": rebuilt16, "moved16": moved16, "broadcast": broadcast}),
         flush=True)
     parallel.barrier()
     parallel.destroy()
@@ -135,6 +170,12 @@ def worker_runs(synth, tmp_path_factory):
         c.train.batch_size = 4
         c.train.warmup_epochs = 2
     tc.dump_to_file(str(root / "train.yaml"))
+    bf16 = tc.clone()
+    bf16.optimizer.update(name="sgd", lr=1e-2, momentum=0.9)
+    # no warmup: a first step that moves the weights
+    bf16.train.warmup_epochs = bf16.scheduler.warmup_epochs = 0
+    bf16.tpu.compute_dtype = "bfloat16"
+    bf16.dump_to_file(str(root / "bf16.yaml"))
 
     ds = jax_make_dataset(jc, num_epochs=jc.train.epochs + jc.train.warmup_epochs,
                           is_training=True, rng=np.random.RandomState(jc.seed))
@@ -210,7 +251,28 @@ def test_lead_writes_the_checkpoint_and_broadcast_reaches_the_cache(worker_runs)
     assert results[0]["written"] == ["0-0.pth", "last.pth"]
     assert results[1]["written"] is False       # rank 1 made no directory
     for r in results:
-        assert r["broadcast"] and r["rebuilt"]
+        assert r["broadcast"] and r["rebuilt"] and r["rebuilt16"]
     assert results[1]["moved"] and not results[0]["moved"]
+    assert results[1]["moved16"] == [True, True]
+    assert results[0]["moved16"] == [False, False]
+
+
+def test_two_rank_bf16_step_matches_one_process_bf16(worker_runs):
+    root, _, tc, batch, _, _, _ = worker_runs
+    cfg = CfgNode.load_file(str(root / "bf16.yaml"))
+    want = one_process(root, cfg, batch, "one_bf16")
+    f32 = cfg.clone()
+    f32.tpu.compute_dtype = "float32"
+    floor = rel_l2(one_process(root, f32, batch, "one_f32")["grads"],
+                   want["grads"])
+    assert floor > 1e-3        # bf16 did run
+    for r in (0, 1):
+        got = torch.load(root / f"bf16.r{r}.pt", weights_only=True)
+        for k, v in want["metrics"].items():
+            np.testing.assert_allclose(got["metrics"][k], v, rtol=1e-2,
+                                       err_msg=k)
+        # DDP's summed gradients (a mean would land ~0.5 apart)
+        assert rel_l2(got["grads"], want["grads"]) <= 0.5 * floor
+        assert rel_l2(got["model"], want["model"], want["start"]) <= 0.5 * floor
 
 

@@ -140,6 +140,37 @@ def test_bf16_kernel_matches_plain_version(card, name, how, T, rows):
         assert float(((g - w).abs() / w.abs().clamp_min(1.0)).max()) <= TOL_BF16
 
 
+# the MAD decode's level 0 (configs/mad.yaml): 32 query rows of one movie at
+# T = 32768, conv3 at C = 128 (embedding convs, cls_head) and 160
+# (cls_head2, reg_head), the trio and band attention at C = 128
+MAD_ROWS, MAD_T = 32, 32768
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,C", [("conv3_ln_act", 128), ("conv3_ln_act", 160),
+                                    ("qkv_depthwise_ln", 128),
+                                    ("band_attention", 128)])
+def test_kernel_matches_plain_version_at_mad_level0(card, name, C, dtype):
+    op = getattr(ops, name)
+    args = _case(name, MAD_T, card, C=C, B=MAD_ROWS, dtype=dtype)
+    count = "launches_bf16" if dtype == torch.bfloat16 else "launches"
+    before = getattr(op, count)
+    got = op(*args)
+    with cuda.plain_versions():
+        want = op(*args)
+    assert getattr(op, count) == before + 1
+    torch.cuda.synchronize()
+    for g, w in zip(_flat(got), _flat(want)):
+        assert g.shape == w.shape and g.dtype == w.dtype == dtype
+        assert torch.isfinite(g).all()
+        g, w = g.float(), w.float()
+        if dtype == torch.bfloat16:
+            assert float(((g - w).abs() / w.abs().clamp_min(1.0)).max()) <= TOL_BF16
+        else:
+            assert float((g - w).abs().max()) <= TOL[name]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c_in,c_out,bias,affine,act", [
     (128, 128, False, True, "relu"), (160, 160, True, True, "relu"),

@@ -135,9 +135,11 @@ def test_forward_matches_flax(msf, scat, norm, Q):
                 np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-5)
 
 
-def test_port_defaults_match_jax_defaults():
-    """Every key the port's config tree keeps has the JAX package's default."""
-    jc, tc = jax_defaults("grounder"), get_cfg_defaults()
+@pytest.mark.parametrize("task", ["grounder", "mad", "charades"])
+def test_port_defaults_match_jax_defaults(task):
+    """Every key the port's config tree of ``task`` keeps has the JAX
+    package's default."""
+    jc, tc = jax_defaults(task), get_cfg_defaults(task)
 
     def walk(t, j, prefix=""):
         for k, v in t.items():
