@@ -37,6 +37,19 @@ Phases, each printing one JSON line:
            per activation element, conv3's products at the dense bf16 rate),
            each served level beside the f32 kernel's time; then the same
            at the MAD decode shape;
+  shapes   (after the MAD kernels) the general kernels
+           (csrc/*_general.cu: the shapes the tuned kernels are not built
+           for) against their plain versions in f32 and bf16: at the JAX
+           package's own kernel-test shapes (band attention B 2, H 4, D 16,
+           T 96 ... 7, windows 5 and 9; conv3 C_in 16 -> C_out 24 at T 100,
+           256, 700; the trio C 16 at T 200, 384; the launch helpers force
+           the general kernels there), band attention at D 16, 64 and 128
+           with window 11 over the served 7 levels, conv3 at C_out 288 and
+           544 over 7 levels in one launch (f32 also against f64), the trio
+           at C 512, and a head layer over 9 levels (two launches of the
+           routed kernel); times kernel, plain version, bound (conv3's
+           products at the f32 CUDA-core rate) and, for band attention,
+           SDPA;
   card_tests (after it) the bf16 autograd card cases of
            tests/test_torch_kernels.py through pytest in a subprocess;
   bf16     (after the http phase) the bf16 compute mode, tpu.compute_dtype
@@ -69,6 +82,23 @@ Phases, each printing one JSON line:
            packages' Decoders buffer points) against the plain versions;
            and the serve and eval paths in bf16 (bf16 launches only; R@k
            count flips and top-1 agreement with f32 printed, not asserted);
+  configs  (after the mad phase) configs/charades.yaml, tacos.yaml and
+           ego4d_goalstep.yaml at full width and depth with seeded random
+           weights: each kernel against its plain version in f32 and bf16
+           at 64 rows x max_seq_len over the config's pyramid; a
+           GroundingService serving 3 requests (lengths below max_seq_len)
+           in f32 (detections against the plain versions) and bf16 (the
+           decode's outputs by the noise-floor rule), launches by route and
+           dtype per decode call, wall, busy share (one profiled call) and
+           peak memory; the eval CLI's entry point over 8 synthetic videos
+           x 4 queries (device SoftNMS and the plain versions, tables,
+           detections and losses equal); one f32 train step through the
+           train CLI's entry point at the config's own batch and
+           microbatch. Then the widths legs, configs/ego4d_nlq.yaml at
+           --set model.vid_net.n_heads 8 (band D 16), embd_dim 256 (D 64,
+           conv3 at 256 and 288) and embd_dim 512 (every op on its general
+           kernel): kernels against plain and served in f32 and bf16, as
+           above;
   serve    builds GroundingService at the Ego4D-NLQ width
            (configs/ego4d_nlq.yaml) with seeded random weights on the card,
            answers requests through ground() and ground_many(), checks the
@@ -218,16 +248,21 @@ Phases, each printing one JSON line:
            T = 32768 eval with eval.shard_time 2 (every rank's table and the
            lead's detections equal the one-process run's, per-rank peak
            memory beside the one-process peak).
-Then one {"kernels": [...]} line (the three f32 kernels with their launches
-summed over the serve, eval, http, train, remat, variants, encode, encode
-CLI, mad serve, eval and pe, multi, seq2, dt2x2, seq2_global, seq2_mad,
+Then a "walls" line (each phase's seconds) and one {"kernels": [...]} line:
+the three f32 kernels with their launches summed over the serve, eval,
+http, train, remat, variants, encode, encode CLI, mad serve, eval and pe,
+configs (tuned launches), multi, seq2, dt2x2, seq2_global, seq2_mad,
 evalseq2, evalseq2_global and evalseq2_mad paths, and the three bf16
 variants with theirs over the bf16 phase's serve, eval and http paths, the
-bf16 train, MAD remat and encode legs, the mad phase's bf16 serve and eval
-and the ddp2_bf16 and seq2_bf16 legs, each with the breakdown; each kernel
-also carries its record at the MAD decode shape ("mad_decode"); the bf16
-records also carry ptxas's registers, spills and shared memory of their
-kernels, conv3's HGMMA count, and the f32 kernel's time), the nvidia-smi
+bf16 train, MAD remat and encode legs, the mad phase's bf16 serve and
+eval, the configs phase's bf16 serve calls and the ddp2_bf16 and seq2_bf16
+legs, each with the breakdown; each kernel also carries its record at the
+MAD decode shape ("mad_decode"); the bf16 records also carry ptxas's
+registers, spills and shared memory of their kernels, conv3's HGMMA count,
+and the f32 kernel's time; then the six general kernels, f32 and bf16,
+with their launches over the configs phase's paths and their times summed
+over the shapes phase's timed calls, per shape in "shapes". Every kernel
+must have launched on the main path. Then the nvidia-smi
 name/power-limit line, and last {"ok": true, "device": {...}}. Any failed check raises: the
 script exits non-zero and prints no result. Without CUDA it exits 2.
 """
@@ -839,13 +874,15 @@ def make_request(rng, cfg, t, q, tokens=(5, 20)):
                 fps=30.0, clip_size=32, clip_stride=16)
 
 
-def check_detections(results, request, k):
+def check_detections(results, request, k, least=1):
+    """Each query's answer: ``least`` to ``k`` detections, finite, inside
+    the video, scores non-increasing."""
     duration = request["vid"].shape[1] * request["clip_stride"] / request["fps"]
     assert len(results) == len(request["texts"])
     for r in results:
         segs = np.asarray(r["segments"], np.float64).reshape(-1, 2)
         scores = np.asarray(r["scores"], np.float64)
-        assert 0 < len(scores) <= k and len(segs) == len(scores), r
+        assert least <= len(scores) <= k and len(segs) == len(scores), r
         assert np.isfinite(segs).all() and np.isfinite(scores).all(), r
         assert (segs >= 0).all() and (segs <= duration + 1e-4).all(), r
         assert (np.diff(scores) <= 0).all(), r
@@ -1089,12 +1126,13 @@ def annotated_recall(runs, ranks, threshs):
     return tables, len(targets)
 
 
-def eval_modes(argv, modes, phase, n_calls, n_videos, n_queries):
+def eval_modes(argv, modes, phase, n_calls, n_videos, n_queries,
+               per_decode=PER_DECODE):
     """The eval CLI's entry point (``build_evaluator`` + ``run``, what
     ``python -m decafnet_tpu_torch.eval`` does) on ``argv``, once per mode
     ({mode: extra --set pairs}; "plain_versions" runs through the plain
-    versions): each run's table, launches per decode call (none for the
-    plain versions), wall, per-video wall and peak memory, under
+    versions): each run's table, launches per decode call (``per_decode``;
+    none for the plain versions), wall, per-video wall and peak memory, under
     ``phase``. Returns ({mode: (metrics, results, losses)}, the kernel
     launches of the other modes, the last Evaluator, {mode: peak GB})."""
     from decafnet_tpu_torch import ops
@@ -1102,7 +1140,7 @@ def eval_modes(argv, modes, phase, n_calls, n_videos, n_queries):
     from decafnet_tpu_torch.ops import cuda
     from decafnet_tpu_torch.utils import EvalResults
 
-    runs, peaks, launches = {}, {}, {n: 0 for n in PER_DECODE}
+    runs, peaks, launches = {}, {}, {n: 0 for n in per_decode}
     for mode, sets in modes.items():
         torch.cuda.reset_peak_memory_stats()
         ev = build_evaluator(argv + sets)
@@ -1118,7 +1156,7 @@ def eval_modes(argv, modes, phase, n_calls, n_videos, n_queries):
         wall_s = time.perf_counter() - t0
         counts, calls = ops.launch_counts(), ev.decoder.decode_calls
         want = {n: 0 if mode == "plain_versions" else c * calls
-                for n, c in PER_DECODE.items()}
+                for n, c in per_decode.items()}
         results = EvalResults.load(os.path.join(ev.cfg.aux.logdir,
                                                 "results_last.pk"))
         losses = [l for v in results.videos for l in v["losses"]]
@@ -1140,7 +1178,7 @@ def eval_modes(argv, modes, phase, n_calls, n_videos, n_queries):
                    for k in ("cls_loss", "reg_loss")), mode
         runs[mode] = (metrics, results, losses)
         if mode != "plain_versions":
-            launches = {n: launches[n] + counts[n] for n in PER_DECODE}
+            launches = {n: launches[n] + counts[n] for n in per_decode}
     return runs, launches, ev, peaks
 
 
@@ -1960,15 +1998,15 @@ def variant_cfg(overrides):
     return update_opt(cfg)
 
 
-def variant_inputs(cfg, dev, V=8, Q=8, L=16):
-    """One video-major batch: V videos at T0 (VIDEO_LENS valid) and V*Q
+def variant_inputs(cfg, dev, V=8, Q=8, L=16, T=T0, lens=VIDEO_LENS):
+    """One video-major batch: V videos at T (``lens`` valid) and V*Q
     queries of 9-16 tokens, from the seed, on the card."""
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
     cv, ct = cfg.model.vid_net.in_dim, cfg.model.text_net.in_dim
     n_tokens = torch.randint(9, L + 1, (V * Q,), generator=g, device=dev)
-    return (torch.randn(V, cv, T0, generator=g, device=dev),
-            torch.randn(V, cv, T0, generator=g, device=dev),
-            prefix_mask(VIDEO_LENS, T0, dev),
+    return (torch.randn(V, cv, T, generator=g, device=dev),
+            torch.randn(V, cv, T, generator=g, device=dev),
+            prefix_mask(lens, T, dev),
             torch.randn(V * Q, ct, L, generator=g, device=dev),
             torch.randn(V * Q, cv, generator=g, device=dev),
             torch.arange(L, device=dev)[None, :] < n_tokens[:, None])
@@ -4024,6 +4062,657 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi, mad_ref, mad_eval):
     return paths, paths16
 
 
+# ------------------------------------------------------------------- shapes
+# The general kernels (csrc/*_general.cu): the shapes the tuned kernels are
+# not built for. At the JAX package's own kernel-test shapes
+# (tests/test_local_attention.py, tests/test_fused_conv.py; the launch
+# helpers force the general kernels there) and at the widths of the widths
+# legs of the configs phase, 64 rows x T = 2304 x 7 levels.
+GENERAL = {"band_attention": ("decafnet_tpu_torch/csrc/band_attention_general.cu",
+                              "decafnet_tpu/ops/local_attention.py:244"),
+           "conv3_ln_act": ("decafnet_tpu_torch/csrc/conv3_ln_act_general.cu",
+                            "decafnet_tpu/ops/fused_conv.py:79"),
+           "qkv_depthwise_ln": ("decafnet_tpu_torch/csrc/qkv_depthwise_ln_general.cu",
+                                "decafnet_tpu/ops/fused_conv.py:294")}
+JAX_BAND_SHAPES = ((96, 5), (40, 9), (130, 5), (8, 5), (7, 5), (96, 9), (7, 9))
+JAX_CONV3_T = (100, 256, 700)
+JAX_TRIO_T = (200, 384)
+SHAPES_HEAD_DIMS, SHAPES_WINDOW = (16, 64, 128), 11
+SHAPES_CONV3_C = (288, 544)      # embd 256 and 512 plus the heads' 32
+SHAPES_TRIO_C = 512
+SHAPES_PER = {
+    "band_attention": "7 levels at 64 rows x T=2304, 4 heads of D = 16, 64 "
+                      "and 128 each, window 11",
+    "conv3_ln_act": "one launch over 7 levels at 64 rows x T=2304 at C_in = "
+                    "C_out = 288 and one at 544",
+    "qkv_depthwise_ln": "64 rows x T=2304 at C = 512"}
+
+
+def check_outputs(phase, name, dtype, got, want, what, general=True):
+    """One kernel result against its plain version on the same inputs: f32
+    max |diff| within TOL, bf16 within TOL_BF16 of max(1, |plain|); a line
+    under ``phase``. Returns (max |diff|, max relative diff)."""
+    outs = got if isinstance(got, tuple) else (got,)
+    abs_err, rel_err = bf16_err(got, want)
+    bf16 = dtype == torch.bfloat16
+    ok = all(t.dtype == dtype and torch.isfinite(t).all() for t in outs) and (
+        rel_err <= TOL_BF16 if bf16 else abs_err <= TOL[name])
+    kernel = name + ("_general" if general else "") + ("_bf16" if bf16 else "")
+    emit({"phase": phase, "kernel": kernel, "check": what,
+          "max_abs_err": abs_err, "max_rel_err": rel_err,
+          "tol": TOL_BF16 if bf16 else TOL[name], "ok": ok})
+    if not ok:
+        raise AssertionError(f"{kernel} disagrees with its plain version at "
+                             f"{what}: {abs_err}, {rel_err}")
+    return abs_err, rel_err
+
+
+def bf16_nearest(x64):
+    """f64 to bf16 in one correct rounding (to nearest, ties to even): to f32
+    rounding to odd, then to bf16; a plain cast rounds twice."""
+    f = x64.float()
+    back = f.double()
+    inexact = back != x64
+    bits = f.view(torch.int32)
+    bits = torch.where(inexact & (back.abs() > x64.abs()), bits - 1, bits)
+    return torch.where(inexact, bits | 1, bits).view(torch.float32).to(torch.bfloat16)
+
+
+def conv3_bf16_exact(x, mask, w, bias, ln_w, ln_b, eps=1e-5):
+    """The bf16 conv3 composition (conv3_ln_act_torch on bf16 x, then ReLU)
+    with each of its roundings made exactly: the conv of the bf16 values in
+    f64 rounded once to bf16, the bias added and rounded once, the LN and
+    affine in f64, the result rounded once. What the plain bf16 version
+    approximates: its conv sums in f32, in cuDNN's order."""
+    d = torch.float64
+    xm = (x * mask[:, None, :].to(x.dtype)).to(d)
+    y = bf16_nearest(torch.nn.functional.conv1d(
+        xm, w.to(torch.bfloat16).to(d), padding=1)).to(d)
+    if bias is not None:
+        y = bf16_nearest(y + bias.to(torch.bfloat16).to(d)[None, :, None]).to(d)
+    y = y - y.mean(dim=1, keepdim=True)
+    y = y * torch.rsqrt(y.square().mean(dim=1, keepdim=True) + eps)
+    y = y * ln_w.reshape(-1, 1).to(d) + ln_b.reshape(-1, 1).to(d)
+    return bf16_nearest(torch.relu(y))
+
+
+# the bf16 conv3 at several seeds: the kernels' f32 sums run in another
+# order than cuDNN's, so which pre-LN bf16 roundings flip depends on the data
+SWEEP_SEEDS, SWEEP_ROWS, SWEEP_C = 8, 16, (160, 288, 544)
+
+
+def conv3_bf16_sweep(dev, rec):
+    """The bf16 conv3 kernels (the tuned one at C 160, the general one at
+    288 and 544; ``rec`` is the general one's record) at SWEEP_SEEDS seeds over 7 levels of SWEEP_ROWS rows, x
+    randn or relu(randn) (a head layer's input is the layer before's ReLU
+    output), without a bias (as every conv3 of the model runs) and with a
+    randn one. Each output is held against the plain bf16 version and
+    against :func:`conv3_bf16_exact`; the plain version is held against the
+    latter too. Every case holds the kernel within TOL_BF16 of the exact
+    composition, and those without a bias within TOL_BF16 of the plain
+    version; with a bias the plain version itself can be further than that
+    from the exact composition (a conv output that a bias cancels keeps its
+    rounding flip at its own scale, which the LN magnifies), so that case's
+    distance to it is recorded, not held. Returns the largest relative
+    errors per case."""
+    from decafnet_tpu_torch import ops
+    from decafnet_tpu_torch.ops import cuda, fused_conv
+
+    Ts = [T0 // 2 ** lvl for lvl in range(LEVELS)]
+    lens = [row_lens(lvl)[::ROWS // SWEEP_ROWS] for lvl in range(LEVELS)]
+    out = {"seeds": SWEEP_SEEDS, "rows": SWEEP_ROWS, "levels": Ts, "cases": []}
+    for C in SWEEP_C:
+        for bias in (False, True):
+            for kind in ("randn", "relu"):
+                case = {"C": C, "route": fused_conv.conv3_route(C), "bias": bias,
+                        "x": kind, "kernel_vs_plain": 0.0,
+                        "kernel_vs_exact": 0.0, "plain_vs_exact": 0.0,
+                        "seeds_over_tol_vs_plain": 0}
+                for seed in range(SWEEP_SEEDS):
+                    g = torch.Generator(device=dev).manual_seed(
+                        SEED + 1000 * C + 100 * (kind == "relu") + 10 * bias + seed)
+                    xs, masks, (w, _, lw, lb) = conv3_levels_case(
+                        dev, g, SWEEP_ROWS, C, Ts, lens, dtype=torch.bfloat16)
+                    if kind == "relu":
+                        xs = [x.relu() for x in xs]
+                    b = torch.randn(C, generator=g, device=dev) if bias else None
+                    got = tuple(ops.conv3_ln_act_levels(xs, masks, w, b, lw, lb))
+                    with cuda.plain_versions():
+                        want = tuple(ops.conv3_ln_act(x, m, w, b, lw, lb)
+                                     for x, m in zip(xs, masks))
+                    exact = tuple(conv3_bf16_exact(x, m, w, b, lw, lb)
+                                  for x, m in zip(xs, masks))
+                    assert all(y.dtype == torch.bfloat16 and torch.isfinite(y).all()
+                               for y in got)
+                    kp, ke, pe = (bf16_err(u, v)[1] for u, v in (
+                        (got, want), (got, exact), (want, exact)))
+                    case["kernel_vs_plain"] = max(case["kernel_vs_plain"], kp)
+                    case["kernel_vs_exact"] = max(case["kernel_vs_exact"], ke)
+                    case["plain_vs_exact"] = max(case["plain_vs_exact"], pe)
+                    case["seeds_over_tol_vs_plain"] += kp > TOL_BF16
+                    if not bias and case["route"] == "general":
+                        rec["max_abs_err"] = max(rec["max_abs_err"], bf16_err(got, want)[0])
+                        rec["max_rel_err"] = max(rec["max_rel_err"], kp)
+                    del xs, masks, got, want, exact
+                case["ok"] = case["kernel_vs_exact"] <= TOL_BF16 and (
+                    bias or case["kernel_vs_plain"] <= TOL_BF16)
+                emit({"phase": "shapes", "kernel": "conv3_ln_act_bf16",
+                      "check": "seed sweep", "tol": TOL_BF16, **case})
+                out["cases"].append(case)
+                assert case["ok"], case
+    return out
+
+
+def run_shapes(dev):
+    """Hold every general-kernel path against its plain version in f32 and
+    bf16 (the JAX kernel tests' shapes, the widths legs' widths, C_out 544,
+    a head layer over 9 levels), and time the widths' calls: kernel, plain
+    version, bound and, for band attention, SDPA. Returns a record per
+    (kernel, dtype)."""
+    from decafnet_tpu_torch import ops
+    from decafnet_tpu_torch.ops import cuda, fused_conv, local_attention
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    recs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16, esz = dtype == torch.bfloat16, 2 if dtype == torch.bfloat16 else 4
+        # the least time of conv3's products is the tensor cores', as the
+        # tuned rows count it: f32 products as three TF32 passes, bf16 ones
+        # as one bf16 pass (the general kernel itself runs on the CUDA cores)
+        tc_rate, tc_passes = (BF16_FLOPS, 1) if bf16 else (TF32_FLOPS, 3)
+        for name in GENERAL:
+            recs[name, dtype] = {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                 "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                 "byte_ms": 0.0, "flop_ms": 0.0,
+                                 "library_ms": None, "per": SHAPES_PER[name],
+                                 "shapes": []}
+
+        def hold(name, fn, plain, what):
+            got = fn()
+            with cuda.plain_versions():
+                want = plain()
+            torch.cuda.synchronize()
+            a, r = check_outputs("shapes", name, dtype, got, want, what)
+            rec = recs[name, dtype]
+            rec["max_abs_err"] = max(rec["max_abs_err"], a)
+            rec["max_rel_err"] = max(rec["max_rel_err"], r)
+            return got
+
+        def timed(name, fn, plain, n_bytes, n_flops, shape, lib=None,
+                  tc_flops=0):
+            ms = time_ms(fn, 10)
+            with cuda.plain_versions():
+                plain_ms = time_ms(plain, 3, warmup=1)
+            lib_ms = time_ms(lib, 3, warmup=1) if lib else None
+            b_ms, by = bound_ms(n_bytes, n_flops, tc_flops, tc_rate)
+            rec = recs[name, dtype]
+            rec["ms"] += ms
+            rec["plain_ms"] += plain_ms
+            rec["bound_ms"] += b_ms
+            rec["byte_ms"] += 1e3 * n_bytes / HBM_BYTES_PER_S
+            rec["flop_ms"] += 1e3 * max(n_flops / F32_FLOPS, tc_flops / tc_rate)
+            if lib_ms is not None:
+                rec["library_ms"] = (rec["library_ms"] or 0.0) + lib_ms
+            rec["shapes"].append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": b_ms, "bound_by": by,
+                                  "share_of_bound": b_ms / ms, "library_ms": lib_ms})
+
+        # band attention, the general kernel: the JAX kernel tests' shapes
+        # (B 2, H 4, D 16), then 64 rows x 7 levels at D 16, 64, 128
+        band = ops.band_attention
+        for T, w in JAX_BAND_SHAPES:
+            args, _ = band_case(dev, g, 2, T, [T, max(1, T * 2 // 3)], D=16,
+                                dtype=dtype, window=w)
+            hold("band_attention", lambda: band(*args), lambda: band(*args),
+                 f"JAX test shape B 2, H 4, D 16, T {T}, window {w}")
+        for D in SHAPES_HEAD_DIMS:
+            for level in range(LEVELS):
+                T = T0 // 2 ** level
+                lens = row_lens(level)
+                args, _ = band_case(dev, g, ROWS, T, lens, D=D, dtype=dtype,
+                                    window=SHAPES_WINDOW)
+                what = f"64 rows, D {D}, window {SHAPES_WINDOW}, level {level} (T {T})"
+                hold("band_attention", lambda: band(*args), lambda: band(*args), what)
+                n_valid = sum(min(n, T) for n in lens)
+                W = SHAPES_WINDOW
+                timed("band_attention", lambda: band(*args), lambda: band(*args),
+                      esz * (3 * n_valid * HEADS * D + ROWS * HEADS * T * D) + ROWS * T,
+                      n_valid * HEADS * (4 * W * D + 4 * W), [ROWS, HEADS, T, D],
+                      lib=lambda: sdpa_band(*args))
+                del args
+
+        # conv3, the general kernel: the JAX kernel tests' shapes (C_in 16,
+        # C_out 24, lengths T and 0.6 T; forced), then C_out 288 and 544
+        # over 7 levels, then 9 levels (two launches)
+        conv3 = ops.conv3_ln_act
+        for T in JAX_CONV3_T:
+            x = torch.randn(2, 16, T, generator=g, device=dev).to(dtype)
+            m = prefix_mask([T, int(0.6 * T)], T, dev)
+            p = (torch.randn(24, 16, 3, generator=g, device=dev) * 0.2,
+                 torch.randn(24, generator=g, device=dev),
+                 1 + 0.1 * torch.randn(24, generator=g, device=dev),
+                 0.1 * torch.randn(24, generator=g, device=dev))
+            hold("conv3_ln_act", lambda: fused_conv.launch_conv3_ln_act_general(
+                [x], [m], *p, "relu", 1e-5)[0],
+                lambda: conv3(x, m, *p), f"JAX test shape C_in 16 -> C_out 24, T {T}")
+        for C in SHAPES_CONV3_C:
+            Ts = [T0 // 2 ** lvl for lvl in range(LEVELS)]
+            xs, masks, params = conv3_levels_case(
+                dev, g, ROWS, C, Ts, [row_lens(lvl) for lvl in range(LEVELS)],
+                dtype=dtype)
+            got = hold("conv3_ln_act", lambda: tuple(ops.conv3_ln_act_levels(
+                xs, masks, *params)), lambda: tuple(
+                    conv3(x, m, *params) for x, m in zip(xs, masks)),
+                f"64 rows, C {C}, 7 levels in one launch")
+            if not bf16:
+                refs = [conv3_f64(x, m, *params) for x, m in zip(xs, masks)]
+                err64 = max(max_err(y.double(), r) for y, r in zip(got, refs))
+                with cuda.plain_versions():
+                    plain64 = max(max_err(conv3(x, m, *params).double(), r)
+                                  for x, m, r in zip(xs, masks, refs))
+                del refs
+                emit({"phase": "shapes", "kernel": "conv3_ln_act_general",
+                      "check": f"vs f64, 64 rows, C {C}, 7 levels",
+                      "max_abs_err_f64": err64, "plain_max_abs_err_f64": plain64,
+                      "tol": TOL_F64, "ok": err64 <= TOL_F64})
+                assert err64 <= TOL_F64, (C, err64)
+                recs["conv3_ln_act", dtype]["max_abs_err_f64"] = max(
+                    recs["conv3_ln_act", dtype].get("max_abs_err_f64", 0.0), err64)
+            cols = ROWS * sum(Ts)
+            timed("conv3_ln_act", lambda: ops.conv3_ln_act_levels(xs, masks, *params),
+                  lambda: [conv3(x, m, *params) for x, m in zip(xs, masks)],
+                  esz * 2 * C * cols + ROWS * sum(Ts) + 4 * (3 * C * C + 2 * C),
+                  8 * cols * C, [ROWS, C, Ts],
+                  tc_flops=tc_passes * 2 * cols * C * 3 * C)
+            del xs, masks, got
+        for C in (EMBD + RDIM, SHAPES_CONV3_C[0]):
+            Ts = [T0 // 2 ** lvl for lvl in range(9)]
+            xs, masks, params = conv3_levels_case(
+                dev, g, 4, C, Ts, [[T, max(T - 3, 1), T // 2, 0] for T in Ts],
+                dtype=dtype)
+            counts0 = [getattr(conv3, a) for a in ops.COUNTERS]
+            hold("conv3_ln_act", lambda: tuple(ops.conv3_ln_act_levels(
+                xs, masks, *params)), lambda: tuple(
+                    conv3(x, m, *params) for x, m in zip(xs, masks)),
+                f"4 rows, C {C}, 9 levels (two launches)")
+            made = [getattr(conv3, a) - c for a, c in zip(ops.COUNTERS, counts0)]
+            slot = 2 * (fused_conv.conv3_route(C) == "general") + bf16
+            assert made == [2 * (i == slot) for i in range(4)], made
+            emit({"phase": "shapes", "check": f"9 levels at C {C} ({dtype})",
+                  "launches": dict(zip(ops.COUNTERS, made))})
+
+        if bf16:
+            recs["conv3_ln_act", dtype]["seed_sweep"] = conv3_bf16_sweep(
+                dev, recs["conv3_ln_act", dtype])
+
+        # the trio, the general kernel: the JAX kernel tests' shapes (C 16;
+        # forced), then C 512 at 64 rows x T = 2304
+        trio = ops.qkv_depthwise_ln
+        for T in JAX_TRIO_T:
+            args, _ = trio_case(dev, g, 2, 16, T, [T, int(0.6 * T)], dtype=dtype)
+            hold("qkv_depthwise_ln", lambda: fused_conv.launch_qkv_depthwise_ln_general(
+                *args, 1e-5), lambda: trio(*args),
+                f"JAX test shape C 16, T {T}")
+        C = SHAPES_TRIO_C
+        args, _ = trio_case(dev, g, ROWS, C, T0, row_lens(0), dtype=dtype)
+        hold("qkv_depthwise_ln", lambda: trio(*args), lambda: trio(*args),
+             f"64 rows, C {C}, T {T0}")
+        timed("qkv_depthwise_ln", lambda: trio(*args), lambda: trio(*args),
+              esz * 4 * ROWS * C * T0 + 4 * 15 * C + ROWS * T0,
+              3 * ROWS * C * T0 * (5 + 8), [ROWS, C, T0])
+        del args
+        torch.cuda.empty_cache()
+    return recs
+
+
+# ------------------------------------------------------------------ configs
+# The shipped configurations the other phases do not run, at full width and
+# depth with seeded random weights, and the widths legs: configs/ego4d_nlq.yaml
+# at other head counts and embedding widths, which the JAX package runs too.
+CONFIG_FILES = ("charades", "tacos", "ego4d_goalstep")
+WIDTH_LEGS = {"heads8": ["model.vid_net.n_heads", "8"],
+              "embd256": ["model.vid_net.embd_dim", "256"],
+              "embd512": ["model.vid_net.embd_dim", "512"]}
+CONFIG_VIDEOS, CONFIG_QUERIES = 8, 4
+
+
+def per_forward(cfg):
+    """Launches of each op's kernels per forward of the live model under
+    ``cfg``, by route: conv3 once per embedding conv (at embd) and once per
+    trunk layer of the three heads (cls_head at embd, cls_head2 and reg_head
+    at embd + rdim), CONV3_MAX_LEVELS levels a launch; band attention once
+    per FPN level; the trio once (at embd). Returns ({op: tuned}, {op:
+    general})."""
+    from decafnet_tpu_torch.ops import fused_conv, local_attention
+
+    m = cfg.model
+    E, L = m.vid_net.embd_dim, m.vid_net.arch[-1]
+    D = E // m.vid_net.n_heads
+    groups = len(fused_conv.conv3_launch_groups(L))
+    tuned = {"conv3_ln_act": 0, "band_attention": 0, "qkv_depthwise_ln": 0}
+    general = dict(tuned)
+    for C, n in ((E, m.vid_net.arch[0] + 2 * groups),
+                 (E + (m.get("rdim") or 32), 4 * groups)):
+        (tuned if fused_conv.conv3_route(C) == "tuned" else general)["conv3_ln_act"] += n
+    route = local_attention.band_attention_route(D, m.vid_net.mha_win_size)
+    (tuned if route == "tuned" else general)["band_attention"] += L
+    (tuned if fused_conv.qkv_route(E) == "tuned" else general)["qkv_depthwise_ln"] += 1
+    return tuned, general
+
+
+def read_counts():
+    """Every launch counter: {(dtype, general): {op: count}}."""
+    from decafnet_tpu_torch import ops
+
+    return {(dt, gen): ops.launch_counts(dt, general=gen)
+            for dt in (torch.float32, torch.bfloat16) for gen in (False, True)}
+
+
+def expect_counts(counts, cfg, n, dtype, what):
+    """The counters after ``n`` forwards in ``dtype`` under ``cfg``: each
+    route's per-forward launches times ``n``, nothing in the other dtype."""
+    tuned, general = per_forward(cfg)
+    zero = {k: 0 for k in tuned}
+    want = {(dt, gen): ({k: v * n for k, v in (general if gen else tuned).items()}
+                        if dt == dtype else zero)
+            for dt, gen in counts}
+    got = {f"{'bf16' if dt == torch.bfloat16 else 'f32'}"
+           f"{'_general' if gen else ''}": c for (dt, gen), c in counts.items()}
+    emit({"phase": "configs", "check": f"launches, {what}", "forwards": n,
+          "launches": got})
+    assert counts == want, (what, counts, want)
+
+
+def config_kernels(dev, cfg, tag):
+    """Each kernel the config's forward runs against its plain version, in
+    f32 and bf16, at 64 rows x max_seq_len over its pyramid: band attention
+    at every level, the trio at level 0, conv3's head layers over all levels
+    in one launch per CONV3_MAX_LEVELS."""
+    from decafnet_tpu_torch import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    m = cfg.model
+    T, L, E = m.vid_net.max_seq_len, m.vid_net.arch[-1], m.vid_net.embd_dim
+    D, W = E // m.vid_net.n_heads, m.vid_net.mha_win_size
+    lens = [max(1, T - (T // ROWS) * i) for i in range(ROWS)]
+    Ts = [T // 2 ** lvl for lvl in range(L)]
+    lvl_lens = [[math.ceil(n / 2 ** lvl) for n in lens] for lvl in range(L)]
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs = []
+        for lvl, Tl in enumerate(Ts):
+            args, _ = band_case(dev, g, ROWS, Tl, lvl_lens[lvl], D=D, dtype=dtype,
+                                window=W)
+            errs.append(config_check("band_attention", ops.band_attention, args,
+                                     dtype, f"{tag} level {lvl} (T {Tl})"))
+        args, _ = trio_case(dev, g, ROWS, E, T, lens, dtype=dtype)
+        errs.append(config_check("qkv_depthwise_ln", ops.qkv_depthwise_ln, args,
+                                 dtype, f"{tag} level 0 (T {T})"))
+        for C in (E, E + (m.get("rdim") or 32)):
+            xs, masks, params = conv3_levels_case(dev, g, ROWS, C, Ts, lvl_lens,
+                                                  dtype=dtype)
+            errs.append(config_check(
+                "conv3_ln_act", lambda *a: tuple(ops.conv3_ln_act_levels(*a)),
+                (xs, masks, *params), dtype, f"{tag} C {C}, {L} levels"))
+        worst["bf16" if dtype == torch.bfloat16 else "f32"] = max(errs)
+    return worst
+
+
+def config_check(name, op, args, dtype, what):
+    """``op(*args)`` against its plain version (:func:`check_outputs`, under
+    the configs phase; the kernel named by its route); the error its rule
+    holds."""
+    from decafnet_tpu_torch.ops import cuda
+
+    got = op(*args)
+    with cuda.plain_versions():
+        want = op(*args)
+    torch.cuda.synchronize()
+    a, r = check_outputs("configs", name, dtype, got, want, what, general=False)
+    return r if dtype == torch.bfloat16 else a
+
+
+def config_requests(cfg, rng):
+    """Three requests on the config's clip grid, lengths spread below
+    max_seq_len, 3 / 4 / 2 queries."""
+    T = cfg.model.vid_net.max_seq_len
+    reqs = [make_request(rng, cfg, t, q, tokens=(9, 16))
+            for t, q in ((T, 3), (T * 3 // 4 + 1, 4), (T // 3 + 2, 2))]
+    for r in reqs:
+        r.update(clip_size=cfg.data.clip_size, clip_stride=cfg.data.clip_stride)
+    return reqs
+
+
+def config_serve(dev, cfg, tag):
+    """GroundingService under ``cfg`` with seeded random weights, in f32 and
+    bf16 on the same weights: ground_many of a few requests (launches by
+    route and dtype per decode call; detections checked, kernels against
+    the plain versions within SEG_TOL_S / SCORE_TOL in f32; in bf16 the
+    decode's outputs by the noise-floor rule against the plain versions and
+    f32). Returns {dtype: counters} of the two main-path calls."""
+    from decafnet_tpu_torch import ops
+    from decafnet_tpu_torch.models import random_params
+    from decafnet_tpu_torch.ops import cuda
+    from decafnet_tpu_torch.serve import GroundingService
+
+    params = random_params(cfg, SEED)
+    rng = np.random.default_rng(SEED + 3)
+    reqs = config_requests(cfg, rng)
+    k = cfg.nms.max_num_segs
+    services, out = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        c = cfg.clone()
+        c.tpu.compute_dtype = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        svc = services[dtype] = GroundingService(c, params=params)
+        assert svc.device.type == "cuda"
+        svc.ground_many(reqs)              # warm-up outside the counts
+        torch.cuda.synchronize()
+        dec = svc.decoder
+        calls0 = dec.decode_calls
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        answers = svc.ground_many(reqs)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        counts, calls = read_counts(), dec.decode_calls - calls0
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        expect_counts(counts, c, calls, dtype, f"{tag} serve {dtype}")
+        out[dtype] = counts
+        prof = profile_call(lambda: svc.ground_many(reqs),
+                            f"{tag}: one ground_many of the 3 requests, "
+                            f"{dtype} (profiler on)", "configs", top=5)
+        # random weights may leave a query's every score under the
+        # config's min_score: no detections for it, but some for the batch
+        for req, ans in zip(reqs, answers):
+            check_detections(ans, req, k, least=0)
+        assert any(a["scores"] for ans in answers for a in ans), tag
+        record = {"phase": "configs", "leg": tag, "path": "serve",
+                  "dtype": str(dtype), "requests": [
+                      (r["vid"].shape[1], len(r["texts"])) for r in reqs],
+                  "decode_calls": calls, "wall_ms": wall_ms,
+                  "busy_share": prof["device_busy_ms"] / prof["wall_ms"],
+                  "peak_mem_gb": peak_gb}
+        if dtype == torch.float32:
+            with cuda.plain_versions():
+                plain = svc.ground_many(reqs)
+            seg, sc = same_detections(answers, plain)
+            record["kernels_vs_plain"] = {"seg_s": seg, "score": sc}
+            emit(record)
+            assert seg <= SEG_TOL_S and sc <= SCORE_TOL, (tag, seg, sc)
+            continue
+        T = c.model.vid_net.max_seq_len
+        inputs = variant_inputs(c, dev, V=4, Q=4, T=T, lens=(
+            T, T * 3 // 4 + 1, T // 2 + 3, T // 4 + 5))
+        with torch.inference_mode():
+            out16 = svc.model(*inputs, queries_per_video=4)
+            with cuda.plain_versions():
+                plain16 = svc.model(*inputs, queries_per_video=4)
+            out32 = services[torch.float32].model(*inputs, queries_per_video=4)
+        for group, key in ((1, "logits2"), (2, "offsets")):
+            flat = [torch.cat([t.float().reshape(-1) for t in o[group]])
+                    for o in (out16, plain16, out32)]
+            record[key] = floor_rule(*flat)
+        emit(record)
+        assert record["logits2"]["ok"] and record["offsets"]["ok"], record
+    return out
+
+
+def write_config_data(root, name, cfg, splits, num_videos, num_queries, lo):
+    """A synthetic split for ``cfg`` on its clip grid (lengths from ``lo`` to
+    max_seq_len clips) and a yaml pointing the train and eval data trees at
+    it (both streams on one grid: shallow_ds 1)."""
+    import yaml
+
+    from decafnet_tpu_torch.data import make_synthetic_dataset
+
+    T = cfg.model.vid_net.max_seq_len
+    paths = make_synthetic_dataset(
+        os.path.join(root, name), num_videos=num_videos, num_queries=num_queries,
+        clip_range=(lo, T + 1), vid_dim=cfg.model.vid_net.in_dim,
+        shallow_dim=cfg.model.vid_net.in_dim, text_dim=cfg.model.text_net.in_dim,
+        clip_size=cfg.data.clip_size, clip_stride=cfg.data.clip_stride,
+        splits=splits, seed=SEED + 4)
+    keys = ("anno_file", "vid_feat_dir", "shallow_vid_feat_dir",
+            "clip_token_fname", "text_cls_fname")
+    tree = {**{k: paths[k] for k in keys}, "shallow_ds": 1,
+            "name": "video_centric_clip_twofeat", "vid_load": "npy",
+            "shallow_vid_load": "npy"}
+    path = os.path.join(root, name + ".yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump({"data": tree, "eval": {"data": dict(tree)}}, f)
+    return paths, path
+
+
+def config_eval(root, name, cfg_file, cfg):
+    """The eval CLI's entry point over CONFIG_VIDEOS synthetic videos x
+    CONFIG_QUERIES queries (lengths spread below max_seq_len) of an
+    experiment directory under ``cfg`` with seeded random weights: device
+    SoftNMS and the plain versions, tables, detections and losses equal
+    (check_eval_modes). Returns the kernel launches of the device run."""
+    from decafnet_tpu_torch.core import load_config
+    from decafnet_tpu_torch.data import apply_synthetic_cfg
+    from decafnet_tpu_torch.models import random_params, save_pth
+
+    T = cfg.model.vid_net.max_seq_len
+    data, _ = write_config_data(root, name + "_val", cfg, ("val",), CONFIG_VIDEOS,
+                                CONFIG_QUERIES, T // 4)
+    full = apply_synthetic_cfg(load_config(cfg_file), data, cfg.data.clip_size,
+                               cfg.data.clip_stride)
+    logdir = os.path.join(root, name + "_exp")
+    os.makedirs(os.path.join(logdir, "models"))
+    full.dump_to_file(os.path.join(logdir, "opt.yaml"))
+    save_pth(os.path.join(logdir, "models", "last.pth"), random_params(full, SEED))
+    tuned, _ = per_forward(full)
+    runs, launches, ev, _ = eval_modes(
+        ["--name", logdir, "--set", "eval.save_results", "True"],
+        {"device_nms": [], "plain_versions": []}, "configs", CONFIG_VIDEOS,
+        CONFIG_VIDEOS, CONFIG_VIDEOS * CONFIG_QUERIES, per_decode=tuned)
+    check_eval_modes(runs, ev.cfg, "configs")
+    return launches
+
+
+def config_train(root, name, cfg_file):
+    """One train step in f32 through the train CLI's entry point
+    (``build_trainer`` + ``train`` with aux.dryrun) at the config's own
+    batch and microbatch sizes on a synthetic train split: launches per
+    forward microbatch, finite losses and weights, wall and peak memory.
+    Returns the kernel launches."""
+    from decafnet_tpu_torch import ops
+    from decafnet_tpu_torch.core import load_config
+    from decafnet_tpu_torch.train.__main__ import build_trainer, train
+
+    cfg = load_config(cfg_file)
+    _, data = write_config_data(root, name + "_train", cfg, ("train", "val"),
+                             cfg.train.batch_size, cfg.data.max_num_text,
+                             cfg.model.vid_net.max_seq_len // 2)
+    trainer = build_trainer(["--cfg", cfg_file, data, "--set", "log.root",
+                             os.path.join(root, name + "_log"), "seed", str(SEED),
+                             "aux.dryrun", "True", "aux.eval_run", "0"])
+    assert trainer.device.type == "cuda"
+    n_micro = max(trainer.cfg.train.batch_size // trainer.micro, 1)
+    probe = StepProbe(trainer)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    train(trainer)
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    emit({"phase": "configs", "leg": name, "path": "train",
+          "videos_per_step": trainer.cfg.train.batch_size,
+          "rows_per_step": trainer.cfg.train.batch_size * trainer.cfg.data.max_num_text,
+          "microbatches": n_micro, "T": trainer.cfg.data.max_vid_len,
+          "steps": trainer.step, "per_step": probe.records, "run_s": run_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    assert trainer.step == 1 and len(probe.records) == 1, trainer.step
+    expect_counts(counts, trainer.cfg, n_micro, torch.float32, f"{name} train")
+    assert all(np.isfinite(probe.records[0][k]) for k in ("cls", "reg", "total"))
+    assert all(torch.isfinite(p).all() for p in trainer.model.parameters())
+    return counts[torch.float32, False]
+
+
+def run_configs(dev, root):
+    """The configs phase: each of CONFIG_FILES at full width and depth
+    (kernels vs plain versions at 64 rows x its pyramid, served in f32 and
+    bf16, the eval CLI, one train step), then the WIDTH_LEGS of
+    configs/ego4d_nlq.yaml (kernels vs plain and served in f32 and bf16).
+    Returns {(dtype, general): {path: {op: launches}}}."""
+    from decafnet_tpu_torch.core import load_config, update_opt
+
+    paths = {(dt, gen): {} for dt in (torch.float32, torch.bfloat16)
+             for gen in (False, True)}
+
+    def book(path, counts):
+        for key, c in counts.items():
+            paths[key][path] = c
+
+    for name in CONFIG_FILES:
+        t0 = time.perf_counter()
+        cfg_file = os.path.join(REPO, "configs", name + ".yaml")
+        cfg = load_config(cfg_file)
+        m = cfg.model
+        emit({"phase": "configs", "leg": name, "config": f"configs/{name}.yaml",
+              "task": cfg.task, "max_seq_len": m.vid_net.max_seq_len,
+              "arch": list(m.vid_net.arch), "embd": m.vid_net.embd_dim,
+              "vid_in": m.vid_net.in_dim, "sn": m.sn, "sratio": m.sratio,
+              "batch_size": cfg.train.batch_size,
+              "microbatch_size": cfg.train.get("microbatch_size"),
+              "group_method": cfg.data.get("group_method"),
+              "clip": [cfg.data.clip_size, cfg.data.clip_stride]})
+        worst = config_kernels(dev, cfg, name)
+        served = config_serve(dev, cfg, name)
+        for dt, counts in served.items():
+            book(f"{name}_serve" + ("_bf16" if dt == torch.bfloat16 else ""),
+                 {key: c for key, c in counts.items() if key[0] == dt})
+        evals = config_eval(root, name, cfg_file, cfg)
+        paths[torch.float32, False][f"{name}_eval"] = evals
+        paths[torch.float32, False][f"{name}_train"] = config_train(root, name,
+                                                                    cfg_file)
+        emit({"phase": "configs", "leg": name, "kernels_vs_plain": worst,
+              "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+    for leg, override in WIDTH_LEGS.items():
+        t0 = time.perf_counter()
+        cfg = load_config(os.path.join(REPO, "configs", "ego4d_nlq.yaml"))
+        cfg.merge_from_list(override)
+        update_opt(cfg)
+        m = cfg.model
+        tuned, general = per_forward(cfg)
+        emit({"phase": "configs", "leg": leg, "config": "configs/ego4d_nlq.yaml",
+              "set": override, "embd": m.vid_net.embd_dim,
+              "heads": m.vid_net.n_heads,
+              "head_dim": m.vid_net.embd_dim // m.vid_net.n_heads,
+              "per_forward": {"tuned": tuned, "general": general}})
+        worst = config_kernels(dev, cfg, leg)
+        served = config_serve(dev, cfg, leg)
+        for dt, counts in served.items():
+            book(f"{leg}_serve" + ("_bf16" if dt == torch.bfloat16 else ""),
+                 {key: c for key, c in counts.items() if key[0] == dt})
+        emit({"phase": "configs", "leg": leg, "kernels_vs_plain": worst,
+              "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4049,16 +4738,19 @@ def main():
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     path, compile_s = cuda.build()
     cuda.library()
     emit({"phase": "build", "library": os.path.relpath(path, REPO),
           "nvcc_s": compile_s, "seconds": time.perf_counter() - t0})
     for kernel in ("conv3_ln_act", "band_attention", "qkv_depthwise_ln"):
-        emit({"phase": "build", "kernel": kernel, "ptxas":
-              ptxas_report(cuda.build_log(kernel + ".cu"))})
-    # both conv3 kernels on wgmma (HGMMA)
-    mma = sass_mma(path, "conv3_ln_act")
+        for source in (kernel, kernel + "_general"):
+            emit({"phase": "build", "kernel": source, "ptxas":
+                  ptxas_report(cuda.build_log(source + ".cu"))})
+    # both tuned conv3 kernels on wgmma (HGMMA; the general kernel of
+    # csrc/conv3_ln_act_general.cu multiplies on the CUDA cores)
+    mma = {k: c for k, c in sass_mma(path, "conv3_ln_act").items()
+           if "general" not in k}
     emit({"phase": "build", "kernel": "conv3_ln_act", "sass_mma": mma})
     assert mma and all(c["HGMMA"] > 0 for c in mma.values()), \
         "conv3_ln_act does not run on the tensor cores"
@@ -4071,34 +4763,59 @@ def main():
         c["UTMALDG"] > 0 and c["SYNCS"] > 0 for c in piped), \
         "the bf16 band kernel's pipeline does not load by TMA under mbarriers"
 
+    walls, t_mark = {}, [time.perf_counter()]
+
+    def lap(phase):
+        """Wall seconds since the last lap, under ``phase``."""
+        now = time.perf_counter()
+        walls[phase] = walls.get(phase, 0.0) + now - t_mark[0]
+        t_mark[0] = now
+
+    lap("device_and_build")
     rec = run_kernels(dev)
     rec16 = run_bf16_kernels(dev, rec)
     mad_rec = run_kernels(dev, MAD)
     mad_rec16 = run_bf16_kernels(dev, mad_rec, MAD)
     torch.cuda.empty_cache()
+    lap("kernels_and_bf16_kernels")
+    shape_recs = run_shapes(dev)
+    lap("shapes")
     run_card_tests()
+    lap("card_tests")
     by_path = {}
     by_path["serve"], service, requests = run_serve(dev)
+    lap("serve")
     with tempfile.TemporaryDirectory() as root:
         by_path["eval"], logdir, eval_base = run_eval(root)
         by_path["http"] = run_http(logdir, service, requests)
+        lap("eval_and_http")
         by_path16, service16 = run_bf16(dev, service, logdir, eval_base, requests)
+        lap("bf16")
         mad_paths, mad_paths16, mad_logdir, mad_eval = run_mad(root, smi)
         by_path.update(mad_paths)
         by_path16.update(mad_paths16)
+        lap("mad")
+        cfg_paths = run_configs(dev, root)
+        by_path.update(cfg_paths[torch.float32, False])
+        by_path16.update(cfg_paths[torch.bfloat16, False])
+        lap("configs")
         cfg_file = write_train_data(root)
         by_path["train"], train32 = run_train(root, cfg_file)
         by_path16["bf16_train"] = run_train_bf16(root, cfg_file, train32)
         by_path["remat"], by_path16["bf16_remat_mad"], mad_ref = run_remat(
             root, cfg_file)
+        lap("train")
         by_path["variants"] = run_variants(dev, root)
+        lap("variants")
         by_path["encode"], by_path["encode_cli"], by_path16["bf16_encode"] = run_encode(
             dev, service, smi, root, service16)
         del service, service16
+        lap("encode")
         multi, multi16 = run_multi(root, cfg_file, logdir, eval_base, smi,
                                    mad_ref, (mad_logdir, mad_eval))
         by_path.update(multi)
         by_path16.update(multi16)
+        lap("multi")
     launches = {n: sum(p[n] for p in by_path.values()) for n in PER_DECODE}
 
     sources = {"conv3_ln_act": ("decafnet_tpu_torch/csrc/conv3_ln_act.cu",
@@ -4168,6 +4885,28 @@ def main():
             **{k: r[k] for k in ("per_level_launch_ms", "grouping_rule", "heads")
                if k in r},
             "levels": r["levels"]})
+    for (n, dtype), r in shape_recs.items():
+        bf16 = dtype == torch.bfloat16
+        by = cfg_paths[dtype, True]
+        src, rep = GENERAL[n]
+        kernels.append({
+            "name": n + "_general" + ("_bf16" if bf16 else ""), "route": "cuda",
+            "source": src, "replaces": rep,
+            "launches": sum(p[n] for p in by.values()),
+            "launches_by_path": {p: c[n] for p, c in by.items()},
+            "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes" if r["byte_ms"] >= r["flop_ms"] else "operations",
+            "library_ms": r["library_ms"], "per": r["per"],
+            "ptxas": [k for k in ptxas_report(cuda.build_log(n + "_general.cu"))
+                      if ("bfloat16" in k["kernel"]) == bf16],
+            **{k: r[k] for k in ("max_abs_err_f64", "seed_sweep") if k in r},
+            "shapes": r["shapes"]})
+    emit({"phase": "walls", "seconds": walls,
+          "total_s": time.perf_counter() - t_start})
+    # every kernel of the paths ran on the main path
+    assert all(k["launches"] > 0 for k in kernels), \
+        [k["name"] for k in kernels if not k["launches"]]
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -17,13 +17,22 @@ from .nms import (batched_nms_device, batched_nms_host, hard_nms_topk,
 KERNEL_OPS = (conv3_ln_act, band_attention, qkv_depthwise_ln)
 
 
+# each op's launch counters: the tuned kernels' (f32, bf16) and the general
+# kernels' (the shapes the tuned ones are not built for)
+COUNTERS = ("launches", "launches_bf16", "launches_general",
+            "launches_general_bf16")
+
+
 def reset_launch_counts():
     for op in KERNEL_OPS:
-        op.launches = op.launches_bf16 = 0
+        for attr in COUNTERS:
+            setattr(op, attr, 0)
 
 
-def launch_counts(dtype=torch.float32):
-    """Launches of each op's kernel for ``dtype`` activations (f32 or bf16)
-    since the last :func:`reset_launch_counts`."""
-    attr = {torch.float32: "launches", torch.bfloat16: "launches_bf16"}[dtype]
+def launch_counts(dtype=torch.float32, general=False):
+    """Launches of each op's tuned kernel (``general``: its general kernel)
+    for ``dtype`` activations (f32 or bf16) since the last
+    :func:`reset_launch_counts`."""
+    attr = ("launches" + ("_general" if general else "")
+            + {torch.float32: "", torch.bfloat16: "_bf16"}[dtype])
     return {op.__name__: getattr(op, attr) for op in KERNEL_OPS}

@@ -50,7 +50,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-I", CSRC_DIR)
 
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C signatures of the entry points (csrc/*.cu), all returning cudaError_t
+# C signatures of the entry points (csrc/*.cu), all returning an int: a
+# cudaError_t, or for decafnet_conv3_ln_act_general_tile a tile width
 _SIGNATURES = {
     "decafnet_conv3_ln_act_f32": [_vp, _i, _vp, _i] + [_vp] * 4 + [_i] * 2 + [_f, _i, _vp],
     "decafnet_conv3_ln_act_bf16": [_vp, _i, _vp, _i] + [_vp] * 4 + [_i] * 2 + [_f, _i, _vp],
@@ -58,6 +59,13 @@ _SIGNATURES = {
     "decafnet_qkv_depthwise_ln_bf16": [_vp] * 14 + [_i] * 3 + [_f, _i, _vp],
     "decafnet_band_attention_f32": [_vp] * 5 + [_i] * 4 + [_ll] * 4 + [_i] * 3 + [_vp],
     "decafnet_band_attention_bf16": [_vp] * 5 + [_i] * 4 + [_ll] * 4 + [_i] * 3 + [_vp],
+    "decafnet_conv3_ln_act_general_f32": [_vp, _i, _vp, _i] + [_vp] * 4 + [_i] * 3 + [_f, _i, _vp],
+    "decafnet_conv3_ln_act_general_bf16": [_vp, _i, _vp, _i] + [_vp] * 4 + [_i] * 3 + [_f, _i, _vp],
+    "decafnet_conv3_ln_act_general_tile": [_i],
+    "decafnet_qkv_depthwise_ln_general_f32": [_vp] * 14 + [_i] * 3 + [_f, _vp],
+    "decafnet_qkv_depthwise_ln_general_bf16": [_vp] * 14 + [_i] * 3 + [_f, _vp],
+    "decafnet_band_attention_general_f32": [_vp] * 5 + [_i] * 4 + [_ll] * 4 + [_i, _vp],
+    "decafnet_band_attention_general_bf16": [_vp] * 5 + [_i] * 4 + [_ll] * 4 + [_i, _vp],
 }
 
 

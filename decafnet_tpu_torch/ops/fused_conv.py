@@ -2,13 +2,18 @@
 q/k/v trio (port of decafnet_tpu/ops/fused_conv.py).
 
 Each op has a plain PyTorch version (``*_torch``) and hand-written CUDA
-kernels (csrc/conv3_ln_act.cu, csrc/qkv_depthwise_ln.cu), one for f32 and
-one for bf16 activations. The public op takes the plain version for a
-tensor on the CPU and launches the kernel of the input's dtype for a CUDA
-tensor; ``.launches`` on the op counts launches of the f32 kernel,
-``.launches_bf16`` of the bf16 one (for conv3, one launch covers every level
-of a :func:`conv3_ln_act_levels` call). Under autograd each op's backward
-recomputes through its plain version (the rule in ops/cuda.py).
+kernels: tuned ones (csrc/conv3_ln_act.cu, csrc/qkv_depthwise_ln.cu) for
+the channel counts they are built for (up to 256), and general ones
+(csrc/conv3_ln_act_general.cu, csrc/qkv_depthwise_ln_general.cu) for wider
+layers, each in f32 and bf16. The public op takes the plain version for a
+tensor on the CPU and, for a CUDA tensor, launches the kernel that its
+route rule (:func:`conv3_route`, :func:`qkv_route`) picks from the width,
+in the input's dtype; ``.launches`` / ``.launches_bf16`` on the op count
+launches of the tuned f32 / bf16 kernel, ``.launches_general`` /
+``.launches_general_bf16`` of the general ones (for conv3, one launch covers
+up to CONV3_MAX_LEVELS levels of a :func:`conv3_ln_act_levels` call). Under
+autograd each op's backward recomputes through its plain version (the rule
+in ops/cuda.py).
 """
 
 from __future__ import annotations
@@ -135,8 +140,31 @@ def conv3_tile(dtype, C_out):
     """Time columns per work item of the ``dtype`` kernel at ``C_out``."""
     return CONV3_TILE_T // 2 if dtype == torch.float32 and C_out > 160 else CONV3_TILE_T
 
-# FPN levels one launch takes (MAX_LEVELS there)
+# FPN levels one launch takes (MAX_LEVELS in both conv3 sources): a longer
+# level list is split into launches of at most this many levels
 CONV3_MAX_LEVELS = 8
+
+
+def conv3_route(C_out):
+    """The kernel a CUDA launch at ``C_out`` output channels takes, in either
+    dtype: "tuned" (the wgmma kernels of csrc/conv3_ln_act.cu, built for N
+    up to CONV3_WIDTHS[-1]) or "general" (csrc/conv3_ln_act_general.cu)."""
+    return "tuned" if C_out <= CONV3_WIDTHS[-1] else "general"
+
+
+def conv3_general_tile(C_out):
+    """Time columns per work item of the general conv3 kernel at ``C_out``:
+    the widest of 32, 16, 8 and 4 whose block's shared memory fits the
+    card's, as csrc/conv3_ln_act_general.cu lays it out (32 up to C_out
+    ~1,600, 4 up to ~8,000; the C query decafnet_conv3_ln_act_general_tile).
+    Wider C_out raises: the TPU kernel holds three (C_in, C_out) f32 weight
+    tiles in VMEM, 128 MiB at most, so it takes no C_out above ~3,300
+    either."""
+    tile = cuda.library().decafnet_conv3_ln_act_general_tile(C_out)
+    if tile <= 0:
+        raise ValueError(f"conv3_ln_act: C_out {C_out} exceeds the shared "
+                         "memory of one block of the general kernel")
+    return tile
 
 
 def conv3_work_table(shapes, tile=CONV3_TILE_T):
@@ -176,16 +204,19 @@ def conv3_ln_act_levels(xs, masks, w, bias=None, ln_w=None, ln_b=None,
     ``masks`` (the FPN levels of one head layer: the same C_in and weights,
     any B and T each), as a list.
 
-    On CUDA this is one launch of csrc/conv3_ln_act.cu, the counterpart of
-    the TPU kernel decafnet_tpu/ops/fused_conv.py:_conv3_ln_act_pallas_impl,
-    over a table of (level, row, column tile) work items
-    (:func:`conv3_work_table`): the short levels' tiles fill the card beside
-    the long ones' instead of taking launches of their own. Both kernels run
-    on ``wgmma``, x brought by TMA and the weights laid out once per weight:
-    for f32 x in three TF32 passes (f32 accuracy;
-    :func:`conv3_weight_operands`), for bf16 x in one bf16 pass with f32
-    accumulation (:func:`conv3_bf16_operands`), the function of the bf16
-    plain version. The outputs have x's dtype.
+    On CUDA this is one launch (per CONV3_MAX_LEVELS levels) of the
+    counterpart of the TPU kernel
+    decafnet_tpu/ops/fused_conv.py:_conv3_ln_act_pallas_impl, over a table
+    of (level, row, column tile) work items (:func:`conv3_work_table`): the
+    short levels' tiles fill the card beside the long ones' instead of
+    taking launches of their own. Up to C_out 256 (:func:`conv3_route`) the
+    tuned kernels of csrc/conv3_ln_act.cu run on ``wgmma``, x brought by TMA
+    and the weights laid out once per weight: for f32 x in three TF32
+    passes (f32 accuracy; :func:`conv3_weight_operands`), for bf16 x in one
+    bf16 pass with f32 accumulation (:func:`conv3_bf16_operands`), the
+    function of the bf16 plain version. Wider layers take the general
+    kernel of csrc/conv3_ln_act_general.cu, which reads the plain weight and
+    multiplies on the CUDA cores. The outputs have x's dtype.
 
     Under autograd (:func:`cuda.recording`) the same forward runs inside
     :class:`_Conv3LnAct`, whose backward recomputes each level through
@@ -239,15 +270,33 @@ class _Conv3LnAct(torch.autograd.Function):
 
 
 def _conv3_ln_act_levels(xs, masks, w, bias, ln_w, ln_b, act, eps):
-    """The forward: the plain version for CPU tensors, one kernel launch for
-    CUDA tensors."""
+    """The forward: the plain version for CPU tensors, for CUDA tensors the
+    kernel :func:`conv3_route` picks, one launch per CONV3_MAX_LEVELS
+    levels."""
     if not cuda.use_kernel(xs[0]):
         return [conv3_ln_act_torch(x, m, w, bias, ln_w, ln_b, act=act, eps=eps)
                 for x, m in zip(xs, masks)]
-    name = "conv3_ln_act"
+    launch = (launch_conv3_ln_act_general if conv3_route(w.shape[0]) == "general"
+              else launch_conv3_ln_act_levels)
+    return [y for i, j in conv3_launch_groups(len(xs))
+            for y in launch(xs[i:j], masks[i:j], w, bias, ln_w, ln_b, act, eps)]
+
+
+def conv3_launch_groups(n_levels):
+    """The launches of a list of ``n_levels`` levels on the card, as
+    ``(first, end)`` level ranges of at most CONV3_MAX_LEVELS, in order."""
+    n = CONV3_MAX_LEVELS
+    return [(i, min(i + n, n_levels)) for i in range(0, n_levels, n)]
+
+
+def _conv3_launch_args(name, xs, masks, w, bias, ln_w, ln_b, act, tile):
+    """The checks every conv3 kernel makes, then what a launch over up to
+    CONV3_MAX_LEVELS levels of CUDA tensors passes first: (levels, n_levels,
+    work table, n_work) at ``tile`` columns per work item (a function of
+    C_out), the f32 bias, ln_w and ln_b, and the output buffers."""
     x0 = xs[0]
     C_out, C_in = w.shape[0], x0.shape[1]
-    bf16 = x0.dtype == torch.bfloat16
+    cuda.require(x0.is_cuda, name, "the kernel takes CUDA tensors")
     cuda.require(x0.dtype in KERNEL_DTYPES, name, "f32 or bf16 x")
     cuda.require(1 <= len(xs) == len(masks) <= CONV3_MAX_LEVELS, name,
                  f"1 to {CONV3_MAX_LEVELS} levels, a mask each")
@@ -260,17 +309,18 @@ def _conv3_ln_act_levels(xs, masks, w, bias, ln_w, ln_b, act, eps):
                      and mask.device == x.device, name,
                      "mask must be (B, T) bool on x's device")
         cuda.require(B > 0 and T > 0, name, "empty level")
-    p_dtypes = KERNEL_DTYPES if bf16 else (torch.float32,)
+    p_dtypes = KERNEL_DTYPES if x0.dtype == torch.bfloat16 else (torch.float32,)
     cuda.require(all(t.dtype in p_dtypes and t.device == x0.device
                      for t in (w, bias, ln_w, ln_b) if t is not None), name,
                  "parameters on x's device, f32 (or bf16 for bf16 x)")
     cuda.require(tuple(w.shape) == (C_out, C_in, 3), name, f"w shape {w.shape}")
     cuda.require(all(p.numel() == C_out for p in (bias, ln_w, ln_b)
                      if p is not None), name, "per-channel params of C_out")
-    cuda.require(C_out <= 256, name, "C_out > 256 is not supported")
     cuda.require(act in ("relu", "none"), name, f"act {act!r}")
+    cuda.require((ln_w is None) == (ln_b is None), name,
+                 "ln_w and ln_b both or neither")
+    tile = tile(C_out)
     vec = lambda p: None if p is None else p.reshape(-1).float().contiguous()  # noqa: E731
-    bias, ln_w, ln_b = vec(bias), vec(ln_w), vec(ln_b)
     m8s = [cuda.as_bytes(m) for m in masks]
     outs = [torch.empty((x.shape[0], C_out, x.shape[2]), dtype=x.dtype,
                         device=x.device) for x in xs]
@@ -278,8 +328,24 @@ def _conv3_ln_act_levels(xs, masks, w, bias, ln_w, ln_b, act, eps):
     levels = (_Level * len(xs))(*(
         _Level(x.data_ptr(), m.data_ptr(), o.data_ptr(), B, T)
         for x, m, o, (B, T) in zip(xs, m8s, outs, shapes)))
-    work = _device_work_table(shapes, conv3_tile(x0.dtype, C_out), x0.device)
-    head = (levels, len(xs), cuda.ptr(work), work.shape[0])
+    work = _device_work_table(shapes, tile, x0.device)
+    # m8s and work stay alive through the launch in the caller's frame
+    return ((levels, len(xs), cuda.ptr(work), work.shape[0]),
+            (vec(bias), vec(ln_w), vec(ln_b)), outs, (m8s, work, tile))
+
+
+def launch_conv3_ln_act_levels(xs, masks, w, bias, ln_w, ln_b, act, eps):
+    """Check the arguments and make one launch of the tuned kernels of
+    csrc/conv3_ln_act.cu (C_out up to CONV3_WIDTHS[-1]) over up to
+    CONV3_MAX_LEVELS levels of CUDA tensors."""
+    name = "conv3_ln_act"
+    C_out, C_in = w.shape[0], xs[0].shape[1]
+    cuda.require(conv3_route(C_out) == "tuned", name,
+                 f"C_out {C_out}: the tuned kernels take up to {CONV3_WIDTHS[-1]}")
+    bf16 = xs[0].dtype == torch.bfloat16
+    head, (bias, ln_w, ln_b), outs, _keep = _conv3_launch_args(
+        name, xs, masks, w, bias, ln_w, ln_b, act,
+        lambda C_out: conv3_tile(xs[0].dtype, C_out))
     tail = (cuda.ptr(bias), cuda.ptr(ln_w), cuda.ptr(ln_b), C_in, C_out,
             float(eps), int(act == "relu"), cuda.stream())
     if bf16:
@@ -295,7 +361,33 @@ def _conv3_ln_act_levels(xs, masks, w, bias, ln_w, ln_b, act, eps):
     return outs
 
 
+def launch_conv3_ln_act_general(xs, masks, w, bias, ln_w, ln_b, act, eps):
+    """Check the arguments and make one launch of the general kernel of
+    csrc/conv3_ln_act_general.cu (any C_out; the card checks hold it at
+    small widths too) over up to CONV3_MAX_LEVELS levels of CUDA tensors."""
+    name = "conv3_ln_act_general"
+    C_out, C_in = w.shape[0], xs[0].shape[1]
+    bf16 = xs[0].dtype == torch.bfloat16
+    head, (bias, ln_w, ln_b), outs, (_m8s, _work, tile) = _conv3_launch_args(
+        name, xs, masks, w, bias, ln_w, ln_b, act, conv3_general_tile)
+    # the plain (C_out, C_in, 3) weight in f32; the bf16 kernel rounds it to
+    # bf16 as the plain version's cast does
+    wf = w.float().contiguous()
+    entry = (cuda.library().decafnet_conv3_ln_act_general_bf16 if bf16
+             else cuda.library().decafnet_conv3_ln_act_general_f32)
+    err = entry(*head, cuda.ptr(wf), cuda.ptr(bias), cuda.ptr(ln_w),
+                cuda.ptr(ln_b), C_in, C_out, tile, float(eps),
+                int(act == "relu"), cuda.stream())
+    cuda.check(err, name + ("_bf16" if bf16 else ""))
+    if bf16:
+        conv3_ln_act.launches_general_bf16 += 1
+    else:
+        conv3_ln_act.launches_general += 1
+    return outs
+
+
 conv3_ln_act.launches = conv3_ln_act.launches_bf16 = 0
+conv3_ln_act.launches_general = conv3_ln_act.launches_general_bf16 = 0
 
 
 def qkv_depthwise_ln_torch(x, mask, ws, ln_ws, ln_bs, eps=1e-5):
@@ -324,6 +416,18 @@ QKV_MAX_TILE = 64
 QKV_LANES = 4
 
 
+# the widest C the tuned trio kernels take
+QKV_MAX_C = 256
+
+
+def qkv_route(C):
+    """The kernel a CUDA launch at ``C`` channels takes, in either dtype:
+    "tuned" (csrc/qkv_depthwise_ln.cu, which stages all C channels of a
+    tile in shared memory and is built for C up to QKV_MAX_C) or "general"
+    (csrc/qkv_depthwise_ln_general.cu)."""
+    return "tuned" if C <= QKV_MAX_C else "general"
+
+
 def qkv_depthwise_ln_plan(T, dtype=torch.float32):
     """Time columns per block of csrc/qkv_depthwise_ln.cu: each block owns
     ``tile`` columns of one batch row, each column's channels (in bf16, each
@@ -338,9 +442,11 @@ def qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps=1e-5):
     """Depthwise q/k/v trio: x read once, three depthwise conv3 + channel LN
     outputs (see :func:`qkv_depthwise_ln_torch` for the arguments).
 
-    On CUDA this launches csrc/qkv_depthwise_ln.cu (its f32 or bf16 kernel,
-    after x's dtype), the counterpart of the TPU kernel
-    decafnet_tpu/ops/fused_conv.py:_qkv_depthwise_ln_pallas_impl.
+    On CUDA this launches the counterpart of the TPU kernel
+    decafnet_tpu/ops/fused_conv.py:_qkv_depthwise_ln_pallas_impl in x's
+    dtype: up to QKV_MAX_C channels the tuned kernel of
+    csrc/qkv_depthwise_ln.cu, above that the general one of
+    csrc/qkv_depthwise_ln_general.cu (:func:`qkv_route`).
     Under autograd the same forward runs inside :class:`_QkvDepthwiseLn`,
     whose backward recomputes through :func:`qkv_depthwise_ln_torch`, as the
     JAX ``custom_vjp`` recomputes through ``qkv_depthwise_ln_xla``
@@ -387,15 +493,48 @@ def _qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps):
     tensors."""
     if not cuda.use_kernel(x):
         return qkv_depthwise_ln_torch(x, mask, ws, ln_ws, ln_bs, eps=eps)
+    if qkv_route(x.shape[1]) == "general":
+        return launch_qkv_depthwise_ln_general(x, mask, ws, ln_ws, ln_bs, eps)
     return launch_qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps,
                                    qkv_depthwise_ln_plan(x.shape[-1], x.dtype))
 
 
 def launch_qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps, tile):
-    """Check the arguments and launch csrc/qkv_depthwise_ln.cu on CUDA
-    tensors with ``tile`` time columns per block (see
-    :func:`qkv_depthwise_ln_plan`; the plan study script passes others)."""
+    """Check the arguments and launch the tuned kernel of
+    csrc/qkv_depthwise_ln.cu (C up to QKV_MAX_C) on CUDA tensors with
+    ``tile`` time columns per block (see :func:`qkv_depthwise_ln_plan`; the
+    plan study script passes others)."""
     name = "qkv_depthwise_ln"
+    C = x.shape[1]
+    cuda.require(C <= QKV_MAX_C, name,
+                 f"C {C}: the tuned kernel takes up to {QKV_MAX_C}")
+    bf16 = x.dtype == torch.bfloat16
+    outs = _launch_trio(name, x, mask, ws, ln_ws, ln_bs, eps, tile)
+    if bf16:
+        qkv_depthwise_ln.launches_bf16 += 1
+    else:
+        qkv_depthwise_ln.launches += 1
+    return outs
+
+
+def launch_qkv_depthwise_ln_general(x, mask, ws, ln_ws, ln_bs, eps):
+    """Check the arguments and launch the general kernel of
+    csrc/qkv_depthwise_ln_general.cu (any C, no launch plan) on CUDA
+    tensors."""
+    name = "qkv_depthwise_ln_general"
+    bf16 = x.dtype == torch.bfloat16
+    outs = _launch_trio(name, x, mask, ws, ln_ws, ln_bs, eps)
+    if bf16:
+        qkv_depthwise_ln.launches_general_bf16 += 1
+    else:
+        qkv_depthwise_ln.launches_general += 1
+    return outs
+
+
+def _launch_trio(name, x, mask, ws, ln_ws, ln_bs, eps, *plan):
+    """The checks every trio kernel makes, then one launch of the entry
+    point of kernel ``name`` in x's dtype with the launch ``plan`` (the
+    tuned kernel's tile, or nothing)."""
     B, C, T = x.shape
     params = list(ws) + list(ln_ws) + list(ln_bs)
     cuda.require(x.is_cuda, name, "the kernel takes CUDA tensors")
@@ -415,27 +554,23 @@ def launch_qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps, tile):
     cuda.require(tuple(mask.shape) == (B, T) and mask.dtype == torch.bool
                  and mask.device == x.device,
                  name, "mask must be (B, T) bool on x's device")
-    cuda.require(C <= 256, name, "C > 256 is not supported")
-    # the kernels read f32 taps and LN params; the bf16 kernel rounds the
+    # the kernels read f32 taps and LN params; the bf16 kernels round the
     # taps to bf16, as the plain version's cast does
     flat = [p.reshape(-1).float().contiguous() for p in params]
     outs = [torch.empty((B, C, T), dtype=x.dtype, device=x.device)
             for _ in range(3)]
     m8 = cuda.as_bytes(mask)
     wq, wk, wv, lwq, lwk, lwv, lbq, lbk, lbv = flat
-    entry = (cuda.library().decafnet_qkv_depthwise_ln_bf16 if bf16
-             else cuda.library().decafnet_qkv_depthwise_ln_f32)
+    entry = getattr(cuda.library(),
+                    f"decafnet_{name}_{'bf16' if bf16 else 'f32'}")
     err = entry(
         cuda.ptr(x), cuda.ptr(m8), cuda.ptr(wq), cuda.ptr(wk), cuda.ptr(wv),
         cuda.ptr(lwq), cuda.ptr(lbq), cuda.ptr(lwk), cuda.ptr(lbk),
         cuda.ptr(lwv), cuda.ptr(lbv), *map(cuda.ptr, outs), B, C, T,
-        float(eps), tile, cuda.stream())
+        float(eps), *plan, cuda.stream())
     cuda.check(err, name + ("_bf16" if bf16 else ""))
-    if bf16:
-        qkv_depthwise_ln.launches_bf16 += 1
-    else:
-        qkv_depthwise_ln.launches += 1
     return tuple(outs)
 
 
 qkv_depthwise_ln.launches = qkv_depthwise_ln.launches_bf16 = 0
+qkv_depthwise_ln.launches_general = qkv_depthwise_ln.launches_general_bf16 = 0

@@ -5,9 +5,12 @@ For query i and band offset r in [-w//2, w//2], key j = i + r takes part
 when 0 <= j < T and kv_mask[j]; softmax over those keys, rows with an
 invalid query (or no valid key) are zero. ``band_attention_torch`` is the
 plain version (the per-diagonal form of the JAX ``band_attention_diag``);
-``band_attention`` launches csrc/band_attention.cu for CUDA tensors, its f32
-or its bf16 kernel after the inputs' dtype, each with its own launch plan
-(``band_attention_plan``, ``band_attention_bf16_plan``).
+``band_attention`` launches a kernel for CUDA tensors, after the shape
+(``band_attention_route``) and the inputs' dtype: at the served shapes
+(D = 32, windows 3..9) the tuned f32 or bf16 kernel of
+csrc/band_attention.cu, each with its own launch plan
+(``band_attention_plan``, ``band_attention_bf16_plan``); at any other D or
+odd window the general kernel of csrc/band_attention_general.cu.
 """
 
 from __future__ import annotations
@@ -69,8 +72,22 @@ def band_attention_torch(q, k, v, kv_mask, window_size):
     return (out * mask_f).to(q.dtype)
 
 
-# head widths csrc/band_attention.cu is instantiated for (embd 128 / 4 heads)
+# head widths and halos (window // 2) the tuned kernels of
+# csrc/band_attention.cu are instantiated for (embd 128 / 4 heads, windows
+# 3..9); the general kernel takes every other D and odd window
 BAND_HEAD_DIMS = (32,)
+BAND_HALOS = (1, 2, 3, 4)
+
+
+def band_attention_route(D, window_size):
+    """The kernel a CUDA launch at head width ``D`` and ``window_size`` takes:
+    "tuned" (csrc/band_attention.cu) at the shapes it is built for, else
+    "general" (csrc/band_attention_general.cu), in either dtype."""
+    if D in BAND_HEAD_DIMS and window_size // 2 in BAND_HALOS:
+        return "tuned"
+    return "general"
+
+
 BAND_MAX_TILE = 128
 
 
@@ -131,13 +148,18 @@ def band_bf16_pipelined(q, k, v):
 def band_attention(q, k, v, kv_mask, window_size):
     """Banded attention (see :func:`band_attention_torch`).
 
-    On CUDA this launches csrc/band_attention.cu, the counterpart of the TPU
-    kernel decafnet_tpu/ops/local_attention.py:_band_attention_pallas_impl:
-    its f32 kernel for f32 inputs, its bf16 kernel (bf16 tiles, f32 scores,
-    softmax and sums, a bf16 result) for bf16 ones; ``.launches`` counts the
-    first, ``.launches_bf16`` the second. q, k and v may be any strided (B, H, T, D) views that share their
-    strides (the head view of a (B, C, T) projection is read in place); the
-    result is a (B, H, T, D) view of a (B, H, D, T) contiguous buffer.
+    On CUDA this launches the counterpart of the TPU kernel
+    decafnet_tpu/ops/local_attention.py:_band_attention_pallas_impl, picked
+    by :func:`band_attention_route` from D and the window: at the shapes the
+    tuned kernels of csrc/band_attention.cu are built for, its f32 kernel
+    for f32 inputs, its bf16 kernel (bf16 tiles, f32 scores, softmax and
+    sums, a bf16 result) for bf16 ones (``.launches``, ``.launches_bf16``
+    count them); at any other shape the general kernel of
+    csrc/band_attention_general.cu in the inputs' dtype
+    (``.launches_general``, ``.launches_general_bf16``). q, k and v may be
+    any strided (B, H, T, D) views that share their strides (the head view
+    of a (B, C, T) projection is read in place); the result is a (B, H, T,
+    D) view of a (B, H, D, T) contiguous buffer.
 
     Under autograd (:func:`cuda.recording`) the same forward runs inside
     :class:`_BandAttention`, which saves q, k, v (not the result) and whose
@@ -192,7 +214,9 @@ def _band_attention(q, k, v, kv_mask, window_size):
     tensors."""
     if not cuda.use_kernel(q):
         return band_attention_torch(q, k, v, kv_mask, window_size)
-    B, H, T, _ = q.shape
+    B, H, T, D = q.shape
+    if band_attention_route(D, window_size) == "general":
+        return launch_band_attention_general(q, k, v, kv_mask, window_size)
     sms = cuda.sm_count(q.device)
     plan = (band_attention_bf16_plan(B, H, T, sms, band_bf16_pipelined(q, k, v))
             if q.dtype == torch.bfloat16 else band_attention_plan(B, H, T, sms))
@@ -205,40 +229,77 @@ def launch_band_attention(q, k, v, kv_mask, window_size, plan):
     :func:`band_attention_plan`), ``(split, grid)`` for bf16 (see
     :func:`band_attention_bf16_plan`); the plan study script passes others."""
     name = "band_attention"
+    q, k, v = _checked(name, q, k, v, kv_mask, window_size)
+    cuda.require(window_size // 2 in BAND_HALOS, name,
+                 f"window_size {window_size}: the tuned kernels take 3..9")
+    cuda.require(q.shape[-1] in BAND_HEAD_DIMS, name,
+                 f"head width {q.shape[-1]}: the tuned kernels are built for "
+                 f"{BAND_HEAD_DIMS}")
+    bf16 = q.dtype == torch.bfloat16
+    entry = (cuda.library().decafnet_band_attention_bf16 if bf16
+             else cuda.library().decafnet_band_attention_f32)
+    out = _launch(entry, name + ("_bf16" if bf16 else ""), q, k, v, kv_mask,
+                  window_size, *plan)
+    if bf16:
+        band_attention.launches_bf16 += 1
+    else:
+        band_attention.launches += 1
+    return out
+
+
+def launch_band_attention_general(q, k, v, kv_mask, window_size):
+    """Check the arguments and launch the general kernel of
+    csrc/band_attention_general.cu (any D, any odd window; a thread per
+    query, no launch plan) on CUDA tensors."""
+    name = "band_attention_general"
+    q, k, v = _checked(name, q, k, v, kv_mask, window_size)
+    bf16 = q.dtype == torch.bfloat16
+    entry = (cuda.library().decafnet_band_attention_general_bf16 if bf16
+             else cuda.library().decafnet_band_attention_general_f32)
+    out = _launch(entry, name + ("_bf16" if bf16 else ""), q, k, v, kv_mask,
+                  window_size)
+    if bf16:
+        band_attention.launches_general_bf16 += 1
+    else:
+        band_attention.launches_general += 1
+    return out
+
+
+def _checked(name, q, k, v, kv_mask, window_size):
+    """The checks every band-attention kernel makes; q, k and v as one
+    launch reads them (contiguous copies where their strides differ)."""
     B, H, T, D = q.shape
-    halo = window_size // 2
     cuda.require(q.is_cuda, name, "the kernel takes CUDA tensors")
-    cuda.require(window_size % 2 == 1 and 1 <= halo <= 4, name,
-                 f"window_size {window_size} (odd, 3..9)")
+    cuda.require(window_size % 2 == 1 and window_size > 0, name,
+                 f"window_size {window_size} (odd)")
     cuda.require(q.dtype in (torch.float32, torch.bfloat16)
                  and all(t.dtype == q.dtype and t.device == q.device
                          for t in (k, v)), name,
                  "f32 or bf16 tensors of one dtype on one device")
     cuda.require(k.shape == q.shape and v.shape == q.shape, name,
                  "q, k, v shapes differ")
-    cuda.require(D in BAND_HEAD_DIMS, name,
-                 f"head width {D}: the kernel is built for {BAND_HEAD_DIMS}")
     cuda.require(tuple(kv_mask.shape) == (B, T)
                  and kv_mask.dtype == torch.bool
                  and kv_mask.device == q.device, name,
                  "kv_mask must be (B, T) bool on q's device")
     if not (q.stride() == k.stride() == v.stride()):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return q, k, v
+
+
+def _launch(entry, name, q, k, v, kv_mask, window_size, *plan):
+    """One launch of a band-attention entry point into a (B, H, D, T)
+    buffer; returns its (B, H, T, D) view."""
+    B, H, T, D = q.shape
     sb, sh, st, sd = q.stride()
     out = torch.empty((B, H, D, T), dtype=q.dtype, device=q.device)
     m8 = cuda.as_bytes(kv_mask)
-    bf16 = q.dtype == torch.bfloat16
-    entry = (cuda.library().decafnet_band_attention_bf16 if bf16
-             else cuda.library().decafnet_band_attention_f32)
     err = entry(cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(m8),
-                cuda.ptr(out), B, H, T, D, sb, sh, st, sd, halo, *plan,
-                cuda.stream())
-    cuda.check(err, name + ("_bf16" if bf16 else ""))
-    if bf16:
-        band_attention.launches_bf16 += 1
-    else:
-        band_attention.launches += 1
+                cuda.ptr(out), B, H, T, D, sb, sh, st, sd, window_size // 2,
+                *plan, cuda.stream())
+    cuda.check(err, name)
     return out.transpose(2, 3)
 
 
 band_attention.launches = band_attention.launches_bf16 = 0
+band_attention.launches_general = band_attention.launches_general_bf16 = 0

@@ -247,3 +247,204 @@ def test_trio_channel_split_order_matches_xla(C, T):
                                       for p in (ws, lws, lbs)])
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------------------ dispatch rule
+# Each wrapper picks a kernel from the shape and dtype before it launches
+# (band_attention_route, conv3_route, qkv_route). These tests run the public
+# ops as they run on a CUDA tensor, with the library replaced by a stand-in
+# that records which entry point each launch reaches and refuses, as the C
+# entry points do, the arguments that entry point does not take. So every
+# shape of the envelope below reaches a kernel that takes it, and the served
+# and MAD shapes reach the tuned kernels.
+
+INT_MAX = 2 ** 31 - 1
+
+
+def _entry_refuses(name, a):
+    """Why the C entry point ``name`` would return cudaErrorInvalidValue for
+    the arguments ``a`` of a ctypes call (None: it takes them); mirrors the
+    checks at the top of each entry point in csrc/."""
+    if name.startswith("decafnet_band_attention"):
+        B, H, T, D, halo = a[5], a[6], a[7], a[8], a[13]
+        if "general" in name:
+            return None if D >= 1 and halo >= 0 and B * H * -(-T // 128) <= INT_MAX \
+                else "general band arguments"
+        if D != 32 or not 1 <= halo <= 4:
+            return f"tuned band kernel at D {D}, halo {halo}"
+        if name.endswith("f32"):
+            tile, split = a[14], a[15]
+            ok = (split in (1, 2, 4) and tile > 0 and tile % 4 == 0
+                  and tile % (32 // split) == 0 and tile * split <= MAX_THREADS)
+            return None if ok else f"f32 band plan {(tile, split)}"
+        return None if a[14] in (1, 4) and a[15] >= 1 else f"bf16 band plan {a[14:16]}"
+    if name.startswith("decafnet_conv3_ln_act"):
+        n_levels, C_out = a[1], a[9]
+        if not 1 <= n_levels <= tfc.CONV3_MAX_LEVELS:
+            return f"{n_levels} levels"
+        if "general" in name:
+            tile = a[10]
+            return None if tile == _StubLibrary.GENERAL_TILE \
+                else f"general conv3 tile {tile} at C_out {C_out}"
+        return None if C_out <= 256 else f"tuned conv3 at C_out {C_out}"
+    if name.startswith("decafnet_qkv_depthwise_ln"):
+        C = a[15]
+        if "general" in name:
+            return None if C >= 1 else "general trio arguments"
+        tile = a[18]
+        if C > 256:
+            return f"tuned trio at C {C}"
+        ok = (tile % 16 == 0 and 2 * tile <= MAX_THREADS if name.endswith("bf16")
+              else tile % 8 == 0 and tile * 4 <= MAX_THREADS)
+        return None if ok else f"trio tile {tile}"
+    raise AssertionError(name)
+
+
+class _StubLibrary:
+    """The kernel library as the wrappers see it: each entry point records
+    its name and returns 0 (cudaSuccess), or fails the test where the real
+    one would refuse the arguments. The general conv3 kernel's tile query
+    (which reads the card's shared memory) answers GENERAL_TILE, or
+    ``tile`` where a test sets it."""
+
+    GENERAL_TILE = 32
+
+    def __init__(self, tile=GENERAL_TILE):
+        self.calls = []
+        self.tile = tile
+
+    def __getattr__(self, name):
+        if name == "decafnet_conv3_ln_act_general_tile":
+            return lambda C_out: self.tile
+        def entry(*args):
+            a = [x.value if hasattr(x, "value") else x for x in args]
+            why = _entry_refuses(name, a)
+            assert why is None, f"{name} refuses: {why}"
+            self.calls.append(name)
+            return 0
+        return entry
+
+
+@pytest.fixture
+def dry_card(monkeypatch):
+    """CPU tensors routed as CUDA tensors are, into _StubLibrary."""
+    lib = _StubLibrary()
+    require = cuda.require
+
+    def require_but_device(cond, name, what):
+        if "CUDA tensors" not in what:
+            require(cond, name, what)
+
+    monkeypatch.setattr(cuda, "use_kernel", lambda x: True)
+    monkeypatch.setattr(cuda, "require", require_but_device)
+    monkeypatch.setattr(cuda, "library", lambda: lib)
+    monkeypatch.setattr(cuda, "stream", lambda: None)
+    monkeypatch.setattr(cuda, "sm_count", lambda device: SMS[0])
+    return lib
+
+
+def _band_args(B, H, T, D, window, dtype):
+    # torch.empty: the stand-in reads no element, and the MAD shapes' inputs
+    # then take no memory
+    qkv = [torch.empty(B, H * D, T, dtype=dtype).reshape(B, H, D, T).transpose(2, 3)
+           for _ in range(3)]
+    return (*qkv, torch.ones(B, T, dtype=torch.bool), window)
+
+
+def _band_entry(route, dtype):
+    return ("decafnet_band_attention" + ("_general" if route == "general" else "")
+            + ("_bf16" if dtype == torch.bfloat16 else "_f32"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 4, 16, 32, 40, 64, 128, 256])
+def test_band_dispatch_takes_every_head_width_and_window(dry_card, D, dtype):
+    from decafnet_tpu_torch import ops
+
+    for window in (1, 3, 5, 9, 11, 33):
+        for T in (7, 301, 2304):
+            ops.band_attention(*_band_args(2, 2, T, D, window, dtype))
+            route = tla.band_attention_route(D, window)
+            assert route == ("tuned" if D == 32 and 3 <= window <= 9 else "general")
+            assert dry_card.calls[-1] == _band_entry(route, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C_out", [24, 160, 256, 257, 288, 544, 1024, 3000, 8000])
+def test_conv3_dispatch_takes_every_width_and_level_count(dry_card, C_out, dtype):
+    from decafnet_tpu_torch import ops
+
+    route = "tuned" if C_out <= 256 else "general"
+    assert tfc.conv3_route(C_out) == route
+    entry = ("decafnet_conv3_ln_act" + ("_general" if route == "general" else "")
+             + ("_bf16" if dtype == torch.bfloat16 else "_f32"))
+    w = torch.zeros(C_out, 16, 3)
+    lw, lb = torch.ones(C_out, 1), torch.zeros(C_out, 1)
+    for n_levels in (1, 7, 8, 9, 17):
+        xs = [torch.zeros(2, 16, max(1, 64 >> lvl), dtype=dtype)
+              for lvl in range(n_levels)]
+        masks = [torch.ones(2, x.shape[2], dtype=torch.bool) for x in xs]
+        before = len(dry_card.calls)
+        ys = ops.conv3_ln_act_levels(xs, masks, w, None, lw, lb)
+        assert [y.shape for y in ys] == [(2, C_out, x.shape[2]) for x in xs]
+        assert dry_card.calls[before:] == [entry] * -(-n_levels // 8)
+
+
+def test_conv3_general_tile_comes_from_the_kernel_source(dry_card):
+    """The general conv3 wrapper takes its work-item width from the C query
+    of csrc/conv3_ln_act_general.cu and raises where no tile fits a block."""
+    from decafnet_tpu_torch import ops
+
+    assert tfc.conv3_general_tile(544) == _StubLibrary.GENERAL_TILE
+    dry_card.tile = 0
+    with pytest.raises(ValueError, match="C_out 9000 exceeds the shared memory"):
+        ops.conv3_ln_act(torch.zeros(2, 16, 40), torch.ones(2, 40, dtype=torch.bool),
+                         torch.zeros(9000, 16, 3))
+    assert not dry_card.calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [16, 128, 256, 257, 320, 512, 2048])
+def test_trio_dispatch_takes_every_width(dry_card, C, dtype):
+    from decafnet_tpu_torch import ops
+
+    route = "tuned" if C <= 256 else "general"
+    assert tfc.qkv_route(C) == route
+    for T in (7, 301, 2304):
+        ops.qkv_depthwise_ln(torch.zeros(2, C, T, dtype=dtype),
+                             torch.ones(2, T, dtype=torch.bool),
+                             [torch.zeros(C, 1, 3)] * 3, [torch.ones(C)] * 3,
+                             [torch.zeros(C)] * 3)
+        assert dry_card.calls[-1] == (
+            "decafnet_qkv_depthwise_ln" + ("_general" if route == "general" else "")
+            + ("_bf16" if dtype == torch.bfloat16 else "_f32"))
+
+
+# the served decode call (64 rows, T = 2304) and the MAD one (32 rows,
+# T = 32768), all 7 levels, at embd 128 (4 heads of 32, window 5; conv3 at
+# C_out 128 and 160, the trio at 128)
+DECODE_SHAPES = [(64, 2304), (32, 32768)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,t0", DECODE_SHAPES)
+def test_served_and_mad_shapes_keep_the_tuned_kernels(dry_card, rows, t0, dtype):
+    from decafnet_tpu_torch import ops
+
+    suffix = "_bf16" if dtype == torch.bfloat16 else "_f32"
+    Ts = [t0 >> lvl for lvl in range(7)]
+    for T in Ts:
+        ops.band_attention(*_band_args(rows, 4, T, 32, 5, dtype))
+    assert dry_card.calls == ["decafnet_band_attention" + suffix] * 7
+    ops.qkv_depthwise_ln(torch.empty(rows, 128, t0, dtype=dtype),
+                         torch.ones(rows, t0, dtype=torch.bool),
+                         [torch.zeros(128, 1, 3)] * 3, [torch.ones(128)] * 3,
+                         [torch.zeros(128)] * 3)
+    assert dry_card.calls[-1] == "decafnet_qkv_depthwise_ln" + suffix
+    for C in (128, 160):
+        xs = [torch.empty(rows, C, T, dtype=dtype) for T in Ts]
+        masks = [torch.ones(rows, T, dtype=torch.bool) for T in Ts]
+        ops.conv3_ln_act_levels(xs, masks, torch.zeros(C, C, 3), torch.zeros(C),
+                                torch.ones(C, 1), torch.zeros(C, 1))
+        assert dry_card.calls[-1] == "decafnet_conv3_ln_act" + suffix
+    assert not any("general" in c for c in dry_card.calls)

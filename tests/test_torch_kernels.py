@@ -498,8 +498,175 @@ def test_kernel_rejects_bad_input(card):
                          mask, w, b, lw, lb)
     with pytest.raises(ValueError):
         ops.conv3_ln_act(x, mask.float(), w, b, lw, lb)
-    with pytest.raises(ValueError):  # head width 40: no instantiation
-        ops.band_attention(*_case("band_attention", 64, card, C=160))
+    with pytest.raises(ValueError):  # an even window: no band is centred
+        ops.band_attention(*_case("band_attention", 64, card, C=160)[:4], 4)
+
+
+# ---------------------------------------------------------------- general
+# The general kernels (csrc/*_general.cu) at the shapes the tuned ones are
+# not built for, and at the JAX package's own kernel-test shapes
+# (tests/test_local_attention.py, tests/test_fused_conv.py), where the
+# launch helpers force them.
+
+def _assert_close(got, want, dtype, tol):
+    for g, w in zip(_flat(got), _flat(want), strict=True):
+        assert g.shape == w.shape and g.dtype == w.dtype == dtype
+        assert torch.isfinite(g).all()
+        g, w = g.float(), w.float()
+        if dtype == torch.bfloat16:
+            assert float(((g - w).abs() / w.abs().clamp_min(1.0)).max()) <= TOL_BF16
+        else:
+            assert float((g - w).abs().max()) <= tol
+
+
+def _counts(op):
+    return tuple(getattr(op, a) for a in ops.COUNTERS)
+
+
+def _band_general_case(card, B, D, T, window, dtype, seed, how="as_is"):
+    g = torch.Generator(device=card).manual_seed(seed)
+    lens = ([T, max(1, T * 3 // 5)] * B)[:B]
+    qkv = [moved((torch.randn(B, 4 * D, T, generator=g, device=card)
+                  * D ** -0.25).to(dtype), how).reshape(B, 4, D, T).transpose(2, 3)
+           for _ in range(3)]
+    return (*qkv, _mask(lens, T, card), window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,T,window,B", [
+    (16, 96, 5, 2), (16, 40, 9, 2), (16, 130, 5, 2), (16, 8, 5, 2),
+    (16, 7, 5, 2), (16, 7, 9, 2),            # the JAX kernel tests' shapes
+    (16, 2304, 11, 64), (64, 2304, 11, 64), (128, 1152, 11, 64),
+    (64, 301, 5, 4), (40, 36, 1, 4), (32, 300, 11, 4), (32, 17, 21, 4)])
+def test_general_band_attention_matches_plain(card, dtype, D, T, window, B):
+    args = _band_general_case(card, B, D, T, window, dtype, D + T + window)
+    assert local_attention.band_attention_route(D, window) == "general"
+    op = ops.band_attention
+    before = _counts(op)
+    got = op(*args)
+    bf16 = dtype == torch.bfloat16
+    assert _counts(op) == (before[0], before[1], before[2] + (not bf16),
+                           before[3] + bf16)
+    with cuda.plain_versions():
+        want = op(*args)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype, TOL["band_attention"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("how", ["offset", "padded", "contiguous"])
+def test_general_band_attention_layouts(card, dtype, how):
+    args = _band_general_case(card, 4, 16, 301, 5, dtype, 7,
+                              "as_is" if how == "contiguous" else how)
+    if how == "contiguous":
+        args = (*[t.contiguous() for t in args[:3]], *args[3:])
+    got = local_attention.launch_band_attention_general(*args)
+    with cuda.plain_versions():
+        want = ops.band_attention(*args)
+    _assert_close(got, want, dtype, TOL["band_attention"])
+
+
+def _conv3_general_case(card, B, c_in, c_out, T, lens, dtype, seed, bias=True,
+                        affine=True):
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=card)
+
+    return (rn(B, c_in, T).to(dtype), _mask(lens, T, card),
+            rn(c_out, c_in, 3) / math.sqrt(3 * c_in),
+            rn(c_out) if bias else None,
+            1 + 0.1 * rn(c_out, 1) if affine else None,
+            0.1 * rn(c_out, 1) if affine else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_out,T,bias,affine,act", [
+    (16, 24, 100, True, True, "relu"), (16, 24, 256, True, False, "none"),
+    (16, 24, 700, False, True, "relu"),      # the JAX kernel tests' shapes
+    (288, 288, 301, True, True, "relu"), (256, 288, 2304, True, True, "relu"),
+    (544, 544, 1000, True, True, "relu"), (13, 2000, 37, True, True, "relu")])
+def test_general_conv3_matches_plain_and_f64(card, dtype, c_in, c_out, T, bias,
+                                             affine, act):
+    args = _conv3_general_case(card, 2, c_in, c_out, T, [T, int(0.6 * T)],
+                               dtype, c_in + c_out + T, bias, affine)
+    op = ops.conv3_ln_act
+    before = _counts(op)
+    got = fused_conv.launch_conv3_ln_act_general(
+        [args[0]], [args[1]], *args[2:], act, 1e-5)[0]
+    bf16 = dtype == torch.bfloat16
+    assert _counts(op) == (before[0], before[1], before[2] + (not bf16),
+                           before[3] + bf16)
+    if fused_conv.conv3_route(c_out) == "general":
+        assert float((op(*args, act=act) - got).float().abs().max()) == 0.0
+    with cuda.plain_versions():
+        want = op(*args, act=act)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype, TOL["conv3_ln_act"])
+    if not bf16:
+        ref = _conv3_f64(*args, act=act)
+        assert float((got.double() - ref).abs().max()) <= TOL_F64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [160, 288])
+def test_conv3_nine_levels_launch_twice(card, dtype, C):
+    """Nine levels (more than CONV3_MAX_LEVELS) take two launches of the
+    routed kernel, the first over 8 levels."""
+    g = torch.Generator(device=card).manual_seed(C)
+    Ts = [2304 // 2 ** lvl for lvl in range(9)]
+    xs = [torch.randn(4, C, T, generator=g, device=card).to(dtype) for T in Ts]
+    masks = [_mask([T, max(T - 3, 1), T // 2, 0], T, card) for T in Ts]
+    params = (torch.randn(C, C, 3, generator=g, device=card) / math.sqrt(3 * C),
+              None, 1 + 0.1 * torch.randn(C, 1, generator=g, device=card),
+              0.1 * torch.randn(C, 1, generator=g, device=card))
+    op = ops.conv3_ln_act
+    before = _counts(op)
+    got = ops.conv3_ln_act_levels(xs, masks, *params)
+    slot = 2 * (fused_conv.conv3_route(C) == "general") + (dtype == torch.bfloat16)
+    assert [a - b for a, b in zip(_counts(op), before)] == [
+        2 * (i == slot) for i in range(4)]
+    for x, m, y in zip(xs, masks, got, strict=True):
+        with cuda.plain_versions():
+            want = op(x, m, *params)
+        _assert_close(y, want, dtype, TOL["conv3_ln_act"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,T,how", [
+    (16, 200, "as_is"), (16, 384, "as_is"),  # the JAX kernel tests' shapes
+    (320, 301, "offset"), (512, 2304, "as_is"), (512, 7, "as_is")])
+def test_general_trio_matches_plain(card, dtype, C, T, how):
+    args = _case("qkv_depthwise_ln", T, card, C=C, how=how, B=4, dtype=dtype)
+    op = ops.qkv_depthwise_ln
+    before = _counts(op)
+    got = fused_conv.launch_qkv_depthwise_ln_general(*args, 1e-5)
+    bf16 = dtype == torch.bfloat16
+    assert _counts(op) == (before[0], before[1], before[2] + (not bf16),
+                           before[3] + bf16)
+    with cuda.plain_versions():
+        want = op(*args)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype, TOL["qkv_depthwise_ln"])
+
+
+@pytest.mark.cuda
+def test_wide_shapes_route_to_the_general_kernels(card):
+    """The wrappers route C > 256 and D != 32 to the general kernels on
+    their own; nothing raises."""
+    ops.reset_launch_counts()
+    ops.qkv_depthwise_ln(*_case("qkv_depthwise_ln", 64, card, C=320))
+    ops.conv3_ln_act(*_case("conv3_ln_act", 64, card, C=288))
+    ops.band_attention(*_case("band_attention", 64, card, C=64))
+    assert ops.launch_counts(general=True) == {
+        "conv3_ln_act": 1, "band_attention": 1, "qkv_depthwise_ln": 1}
+    assert ops.launch_counts() == {
+        "conv3_ln_act": 0, "band_attention": 0, "qkv_depthwise_ln": 0}
 
 
 def test_launch_helpers_refuse_cpu_tensors():
@@ -513,6 +680,15 @@ def test_launch_helpers_refuse_cpu_tensors():
                                   C=16)
     with pytest.raises(ValueError, match="CUDA"):
         fused_conv.launch_qkv_depthwise_ln(x, mask, ws, lws, lbs, 1e-5, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_conv.launch_qkv_depthwise_ln_general(x, mask, ws, lws, lbs, 1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        local_attention.launch_band_attention_general(q, k, v, mask[:, :40],
+                                                      window)
+    x, mask, w, b, lw, lb = _case("conv3_ln_act", 40, torch.device("cpu"), C=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_conv.launch_conv3_ln_act_general([x], [mask], w, b, lw, lb,
+                                               "relu", 1e-5)
 
 
 @pytest.mark.parametrize("name", KERNELS)

@@ -1,0 +1,164 @@
+"""The port's plain versions of the three kernel ops against the JAX
+package's XLA compositions (and, at one small shape each, its Pallas kernels
+in interpret mode) at the shapes outside the tuned CUDA kernels' envelope,
+which the general kernels (csrc/*_general.cu) take on the card: band
+attention at head widths 16 and 64 and window 11, conv3 at C_out 288 and
+over 9 FPN levels, the trio at C 320. Same numpy inputs on both sides;
+tolerance 1e-5 absolute, the conv ops with rtol 1e-4 as
+tests/test_torch_ops.py holds them (3 * C_in-term f32 sums before the LN).
+The general kernels themselves are held against these plain versions on
+the card in tests/test_torch_kernels.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from decafnet_tpu.ops import fused_conv as jfc
+from decafnet_tpu.ops import local_attention as jla
+from decafnet_tpu_torch.ops import fused_conv as tfc
+from decafnet_tpu_torch.ops import local_attention as tla
+
+# one intra-op thread per test process: the suite runs several processes
+# side by side, and torch's default (one thread per core) in each of them
+# oversubscribes the CPU
+torch.set_num_threads(1)
+
+ATOL, CONV_RTOL = 1e-5, 1e-4
+
+
+def _jit(fn, *static):
+    """``fn`` jitted (one compile per shape: eager JAX compiles every
+    primitive on its own), ``static`` its static argument positions."""
+    return jax.jit(fn, static_argnums=static)
+
+
+def _mask(B, T, seed):
+    rng = np.random.RandomState(seed)
+    lens = [T] + list(rng.randint(1, T + 1, B - 1))
+    return np.arange(T)[None, :] < np.asarray(lens)[:, None]
+
+
+def _band_inputs(B, H, T, D, seed):
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.randn(B, H, T, D).astype(np.float32) * D ** -0.25
+               for _ in range(3))
+    return q, k, v, _mask(B, T, seed)
+
+
+@pytest.mark.parametrize("D,T,window", [
+    (16, 96, 5), (16, 7, 9), (64, 40, 11), (48, 9, 1)])
+def test_band_attention_plain_matches_jax(D, T, window):
+    q, k, v, mask = _band_inputs(2, 4, T, D, D + T + window)
+    want = np.asarray(_jit(jla.band_attention_diag, 4)(
+        *map(jnp.asarray, (q, k, v, mask)), window))
+    got = tla.band_attention_torch(*map(torch.from_numpy, (q, k, v, mask)),
+                                   window).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    assert tla.band_attention_route(D, window) == "general"
+
+
+def test_band_attention_plain_matches_pallas_interpret():
+    """D 16, window 11 through the JAX Pallas kernel in interpret mode."""
+    q, k, v, mask = _band_inputs(2, 4, 40, 16, 3)
+    want = np.asarray(jla.band_attention_pallas(
+        *map(jnp.asarray, (q, k, v, mask)), 11, chunk=16, interpret=True))
+    got = tla.band_attention_torch(*map(torch.from_numpy, (q, k, v, mask)),
+                                   11).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def _conv3_inputs(B, c_in, c_out, T, seed, bias=True):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, c_in, T).astype(np.float32)
+    w = (rng.randn(c_out, c_in, 3) / np.sqrt(3 * c_in)).astype(np.float32)
+    b = rng.randn(c_out).astype(np.float32) if bias else None
+    lw = (1 + 0.1 * rng.randn(c_out)).astype(np.float32)
+    lb = (0.1 * rng.randn(c_out)).astype(np.float32)
+    return x, _mask(B, T, seed), w, b, lw, lb
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(np.asarray(a))
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+@pytest.mark.parametrize("c_in,c_out,T,bias", [
+    (256, 288, 37, False), (160, 544, 20, True)])
+def test_conv3_plain_matches_jax_wide(c_in, c_out, T, bias):
+    args = _conv3_inputs(2, c_in, c_out, T, c_out + T, bias)
+    want = np.asarray(_jit(jfc.conv3_ln_act_xla)(*map(_j, args)))
+    got = tfc.conv3_ln_act_torch(*map(_t, args)).numpy()
+    np.testing.assert_allclose(got, want, rtol=CONV_RTOL, atol=ATOL)
+    assert tfc.conv3_route(c_out) == "general"
+
+
+def test_conv3_plain_matches_pallas_interpret_wide():
+    """C_out 288 through the JAX Pallas kernel in interpret mode."""
+    args = _conv3_inputs(2, 32, 288, 40, 5)
+    want = np.asarray(jfc.conv3_ln_act_pallas(*map(_j, args), interpret=True))
+    got = tfc.conv3_ln_act_torch(*map(_t, args)).numpy()
+    np.testing.assert_allclose(got, want, rtol=CONV_RTOL, atol=ATOL)
+
+
+def test_conv3_nine_levels_match_jax():
+    """One head layer over 9 FPN levels (an arch[2] of 9): the levels' list
+    API against the JAX composition level by level; on the card the list
+    takes two launches (CONV3_MAX_LEVELS per launch)."""
+    C = 288
+    rng = np.random.RandomState(C)
+    Ts = [256 // 2 ** lvl for lvl in range(9)]
+    xs = [rng.randn(2, C, T).astype(np.float32) for T in Ts]
+    masks = [_mask(2, T, i) for i, T in enumerate(Ts)]
+    w = (rng.randn(C, C, 3) / np.sqrt(3 * C)).astype(np.float32)
+    lw = (1 + 0.1 * rng.randn(C)).astype(np.float32)
+    lb = (0.1 * rng.randn(C)).astype(np.float32)
+    got = tfc.conv3_ln_act_levels(list(map(_t, xs)), list(map(_t, masks)),
+                                  _t(w), None, _t(lw), _t(lb))
+    assert len(got) == 9
+    for x, m, y in zip(xs, masks, got, strict=True):
+        want = np.asarray(_jit(jfc.conv3_ln_act_xla)(_j(x), _j(m), _j(w), None,
+                                                     _j(lw), _j(lb)))
+        np.testing.assert_allclose(y.numpy(), want, rtol=CONV_RTOL, atol=ATOL)
+    assert tfc.conv3_launch_groups(9) == [(0, 8), (8, 9)]
+
+
+def _trio_inputs(B, C, T, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, C, T).astype(np.float32)
+    ws = [(rng.randn(C, 1, 3) / np.sqrt(3)).astype(np.float32) for _ in range(3)]
+    lws = [(1 + 0.1 * rng.randn(C)).astype(np.float32) for _ in range(3)]
+    lbs = [(0.1 * rng.randn(C)).astype(np.float32) for _ in range(3)]
+    return x, _mask(B, T, seed), ws, lws, lbs
+
+
+@pytest.mark.parametrize("C,T", [(320, 60), (512, 17)])
+def test_trio_plain_matches_jax_wide(C, T):
+    x, mask, ws, lws, lbs = _trio_inputs(2, C, T, C + T)
+    want = _jit(jfc.qkv_depthwise_ln_xla)(
+        _j(x), _j(mask), list(map(_j, ws)), list(map(_j, lws)),
+        list(map(_j, lbs)))
+    got = tfc.qkv_depthwise_ln_torch(_t(x), _t(mask), list(map(_t, ws)),
+                                     list(map(_t, lws)), list(map(_t, lbs)))
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=CONV_RTOL,
+                                   atol=ATOL)
+    assert tfc.qkv_route(C) == "general"
+
+
+def test_trio_plain_matches_pallas_interpret_wide():
+    """C 320 through the JAX Pallas kernel in interpret mode."""
+    x, mask, ws, lws, lbs = _trio_inputs(2, 320, 40, 7)
+    want = jfc.qkv_depthwise_ln_pallas(
+        _j(x), _j(mask), list(map(_j, ws)), list(map(_j, lws)),
+        list(map(_j, lbs)), interpret=True)
+    got = tfc.qkv_depthwise_ln_torch(_t(x), _t(mask), list(map(_t, ws)),
+                                     list(map(_t, lws)), list(map(_t, lbs)))
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=CONV_RTOL,
+                                   atol=ATOL)
