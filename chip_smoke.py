@@ -8,9 +8,9 @@ Phases, each printing one JSON line:
   build    compiles the CUDA kernels from decafnet_tpu_torch/csrc with nvcc,
            prints ptxas's registers / shared memory / spills of every
            kernel and checks in the SASS (cuobjdump) that the conv3
-           kernels run on wgmma (HGMMA, in f32 and in bf16) and that the
-           bf16 band-attention kernel loads by TMA (UTMALDG) under
-           mbarriers (SYNCS);
+           kernels, tuned and wide, run on wgmma (HGMMA, in f32 and in
+           bf16) and that the bf16 band-attention kernel loads by TMA
+           (UTMALDG) under mbarriers (SYNCS);
   kernels  holds each kernel against its plain PyTorch version on the card at
            the served shapes (V=8 videos x Q=8 queries = 64 rows, T=2304, all
            7 FPN levels) and at edge shapes (ragged and odd T, masked tails,
@@ -39,17 +39,24 @@ Phases, each printing one JSON line:
            at the MAD decode shape;
   shapes   (after the MAD kernels) the general kernels
            (csrc/*_general.cu: the shapes the tuned kernels are not built
-           for) against their plain versions in f32 and bf16: at the JAX
+           for) and conv3's wide kernels (csrc/conv3_ln_act_wide.cu: C_out
+           257 to 1024, a thread-block cluster splitting the channels)
+           against their plain versions in f32 and bf16: at the JAX
            package's own kernel-test shapes (band attention B 2, H 4, D 16,
            T 96 ... 7, windows 5 and 9; conv3 C_in 16 -> C_out 24 at T 100,
            256, 700; the trio C 16 at T 200, 384; the launch helpers force
            the general kernels there), band attention at D 16, 64 and 128
-           with window 11 over the served 7 levels, conv3 at C_out 288 and
-           544 over 7 levels in one launch (f32 also against f64), the trio
-           at C 512, and a head layer over 9 levels (two launches of the
-           routed kernel); times kernel, plain version, bound (conv3's
-           products at the f32 CUDA-core rate) and, for band attention,
-           SDPA;
+           with window 11 over the served 7 levels, conv3 at C_out 288, 512
+           and 544 over 7 levels in one launch, the wide kernel routed and
+           the general one forced (f32 also against f64), the wide kernel at
+           C_out 300 and 1024 over 16 rows, the trio at C 512, and a head
+           layer over 9 levels (two launches of the routed kernel) at C_out
+           160 (tuned), 288 (wide) and 1056 (general); a bf16 seed sweep of
+           conv3 (tuned at 160, wide at 288, 512, 544) against the plain
+           version and the exactly rounded composition; times kernel, plain
+           version, bound (conv3's products at the tensor cores' rate) and,
+           for band attention, SDPA; conv3's wide and general kernels in
+           turns (general, wide, wide, general) at 288, 512 and 544;
   card_tests (after it) the bf16 autograd card cases of
            tests/test_torch_kernels.py through pytest in a subprocess;
   bf16     (after the http phase) the bf16 compute mode, tpu.compute_dtype
@@ -96,9 +103,11 @@ Phases, each printing one JSON line:
            train CLI's entry point at the config's own batch and
            microbatch. Then the widths legs, configs/ego4d_nlq.yaml at
            --set model.vid_net.n_heads 8 (band D 16), embd_dim 256 (D 64,
-           conv3 at 256 and 288) and embd_dim 512 (every op on its general
-           kernel): kernels against plain and served in f32 and bf16, as
-           above;
+           conv3 at 256 tuned and 288 wide), embd_dim 512 (conv3 at 512 and
+           544 on the wide kernels, band attention and the trio on their
+           general ones) and embd_dim 1024 (conv3 at 1024 wide and 1056 on
+           the general kernel): kernels against plain and served in f32 and
+           bf16, as above;
   serve    builds GroundingService at the Ego4D-NLQ width
            (configs/ego4d_nlq.yaml) with seeded random weights on the card,
            answers requests through ground() and ground_many(), checks the
@@ -259,10 +268,12 @@ eval, the configs phase's bf16 serve calls and the ddp2_bf16 and seq2_bf16
 legs, each with the breakdown; each kernel also carries its record at the
 MAD decode shape ("mad_decode"); the bf16 records also carry ptxas's
 registers, spills and shared memory of their kernels, conv3's HGMMA count,
-and the f32 kernel's time; then the six general kernels, f32 and bf16,
-with their launches over the configs phase's paths and their times summed
-over the shapes phase's timed calls, per shape in "shapes". Every kernel
-must have launched on the main path. Then the nvidia-smi
+and the f32 kernel's time; then the six general kernels and conv3's two
+wide ones, f32 and bf16, with their launches over the configs phase's
+paths and their times summed over the shapes phase's timed calls, per
+shape in "shapes" (the wide ones beside the general kernel's time at the
+same shapes, "general_ms"). Every kernel must have launched on the main
+path. Then the nvidia-smi
 name/power-limit line, and last {"ok": true, "device": {...}}. Any failed check raises: the
 script exits non-zero and prints no result. Without CUDA it exits 2.
 """
@@ -4063,41 +4074,54 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi, mad_ref, mad_eval):
 
 
 # ------------------------------------------------------------------- shapes
-# The general kernels (csrc/*_general.cu): the shapes the tuned kernels are
-# not built for. At the JAX package's own kernel-test shapes
+# The kernels of the shapes the tuned kernels are not built for: the general
+# kernels (csrc/*_general.cu) and conv3's wide ones (csrc/conv3_ln_act_wide.cu,
+# C_out 257 to 1024). At the JAX package's own kernel-test shapes
 # (tests/test_local_attention.py, tests/test_fused_conv.py; the launch
 # helpers force the general kernels there) and at the widths of the widths
 # legs of the configs phase, 64 rows x T = 2304 x 7 levels.
-GENERAL = {"band_attention": ("decafnet_tpu_torch/csrc/band_attention_general.cu",
-                              "decafnet_tpu/ops/local_attention.py:244"),
-           "conv3_ln_act": ("decafnet_tpu_torch/csrc/conv3_ln_act_general.cu",
-                            "decafnet_tpu/ops/fused_conv.py:79"),
-           "qkv_depthwise_ln": ("decafnet_tpu_torch/csrc/qkv_depthwise_ln_general.cu",
-                                "decafnet_tpu/ops/fused_conv.py:294")}
+REPLACES = {"band_attention": "decafnet_tpu/ops/local_attention.py:244",
+            "conv3_ln_act": "decafnet_tpu/ops/fused_conv.py:79",
+            "qkv_depthwise_ln": "decafnet_tpu/ops/fused_conv.py:294"}
+# the records of the shapes phase, (op, route): the kernel's source
+SHAPE_KERNELS = {
+    ("band_attention", "general"): "decafnet_tpu_torch/csrc/band_attention_general.cu",
+    ("conv3_ln_act", "general"): "decafnet_tpu_torch/csrc/conv3_ln_act_general.cu",
+    ("conv3_ln_act", "wide"): "decafnet_tpu_torch/csrc/conv3_ln_act_wide.cu",
+    ("qkv_depthwise_ln", "general"): "decafnet_tpu_torch/csrc/qkv_depthwise_ln_general.cu"}
 JAX_BAND_SHAPES = ((96, 5), (40, 9), (130, 5), (8, 5), (7, 5), (96, 9), (7, 9))
 JAX_CONV3_T = (100, 256, 700)
 JAX_TRIO_T = (200, 384)
 SHAPES_HEAD_DIMS, SHAPES_WINDOW = (16, 64, 128), 11
-SHAPES_CONV3_C = (288, 544)      # embd 256 and 512 plus the heads' 32
+# conv3 at embd 256 plus the heads' 32, and at embd 512 and 512 + 32: the
+# wide kernels, timed in turns against the general kernel (forced) there
+SHAPES_CONV3_C = (288, 512, 544)
+# the wide kernels also at a C_out off 8 and at their widest, over fewer
+# rows; the general kernel routed above them (9 levels, 4 rows)
+SHAPES_WIDE_EDGE_C, SHAPES_WIDE_EDGE_ROWS, SHAPES_ABOVE_WIDE_C = (300, 1024), 16, 1056
 SHAPES_TRIO_C = 512
 SHAPES_PER = {
-    "band_attention": "7 levels at 64 rows x T=2304, 4 heads of D = 16, 64 "
-                      "and 128 each, window 11",
-    "conv3_ln_act": "one launch over 7 levels at 64 rows x T=2304 at C_in = "
-                    "C_out = 288 and one at 544",
-    "qkv_depthwise_ln": "64 rows x T=2304 at C = 512"}
+    ("band_attention", "general"): "7 levels at 64 rows x T=2304, 4 heads of "
+                                   "D = 16, 64 and 128 each, window 11",
+    ("conv3_ln_act", "wide"): "one launch over 7 levels at 64 rows x T=2304 at "
+                              "C_in = C_out = 288, one at 512 and one at 544",
+    ("conv3_ln_act", "general"): "one launch over 7 levels at 64 rows x "
+                                 "T=2304 at C_in = C_out = 288, one at 512 and "
+                                 "one at 544, forced (the wide kernels' widths)",
+    ("qkv_depthwise_ln", "general"): "64 rows x T=2304 at C = 512"}
 
 
-def check_outputs(phase, name, dtype, got, want, what, general=True):
+def check_outputs(phase, name, dtype, got, want, what, route="general"):
     """One kernel result against its plain version on the same inputs: f32
     max |diff| within TOL, bf16 within TOL_BF16 of max(1, |plain|); a line
-    under ``phase``. Returns (max |diff|, max relative diff)."""
+    under ``phase`` naming the kernel of ``route``. Returns (max |diff|, max
+    relative diff)."""
     outs = got if isinstance(got, tuple) else (got,)
     abs_err, rel_err = bf16_err(got, want)
     bf16 = dtype == torch.bfloat16
     ok = all(t.dtype == dtype and torch.isfinite(t).all() for t in outs) and (
         rel_err <= TOL_BF16 if bf16 else abs_err <= TOL[name])
-    kernel = name + ("_general" if general else "") + ("_bf16" if bf16 else "")
+    kernel = name + ("" if route == "tuned" else "_" + route) + ("_bf16" if bf16 else "")
     emit({"phase": phase, "kernel": kernel, "check": what,
           "max_abs_err": abs_err, "max_rel_err": rel_err,
           "tol": TOL_BF16 if bf16 else TOL[name], "ok": ok})
@@ -4138,12 +4162,13 @@ def conv3_bf16_exact(x, mask, w, bias, ln_w, ln_b, eps=1e-5):
 
 # the bf16 conv3 at several seeds: the kernels' f32 sums run in another
 # order than cuDNN's, so which pre-LN bf16 roundings flip depends on the data
-SWEEP_SEEDS, SWEEP_ROWS, SWEEP_C = 8, 16, (160, 288, 544)
+SWEEP_SEEDS, SWEEP_ROWS, SWEEP_C = 8, 16, (160, 288, 512, 544)
 
 
 def conv3_bf16_sweep(dev, rec):
-    """The bf16 conv3 kernels (the tuned one at C 160, the general one at
-    288 and 544; ``rec`` is the general one's record) at SWEEP_SEEDS seeds over 7 levels of SWEEP_ROWS rows, x
+    """The bf16 conv3 kernels (the tuned one at C 160, the wide one at 288,
+    512 and 544; ``rec`` is the wide one's record) at SWEEP_SEEDS seeds over
+    7 levels of SWEEP_ROWS rows, x
     randn or relu(randn) (a head layer's input is the layer before's ReLU
     output), without a bias (as every conv3 of the model runs) and with a
     randn one. Each output is held against the plain bf16 version and
@@ -4190,7 +4215,7 @@ def conv3_bf16_sweep(dev, rec):
                     case["kernel_vs_exact"] = max(case["kernel_vs_exact"], ke)
                     case["plain_vs_exact"] = max(case["plain_vs_exact"], pe)
                     case["seeds_over_tol_vs_plain"] += kp > TOL_BF16
-                    if not bias and case["route"] == "general":
+                    if not bias and case["route"] == "wide":
                         rec["max_abs_err"] = max(rec["max_abs_err"], bf16_err(got, want)[0])
                         rec["max_rel_err"] = max(rec["max_rel_err"], kp)
                     del xs, masks, got, want, exact
@@ -4204,11 +4229,13 @@ def conv3_bf16_sweep(dev, rec):
 
 
 def run_shapes(dev):
-    """Hold every general-kernel path against its plain version in f32 and
-    bf16 (the JAX kernel tests' shapes, the widths legs' widths, C_out 544,
-    a head layer over 9 levels), and time the widths' calls: kernel, plain
-    version, bound and, for band attention, SDPA. Returns a record per
-    (kernel, dtype)."""
+    """Hold every general-kernel path and conv3's wide kernels against their
+    plain versions in f32 and bf16 (the JAX kernel tests' shapes, the widths
+    legs' widths, C_out 300, 1024 and 1056, a head layer over 9 levels),
+    and time the widths' calls: kernel, plain version, bound and, for band
+    attention, SDPA; conv3 at C 288, 512 and 544 the wide kernel and the
+    general one in turns (general, wide, wide, general). Returns a record
+    per (op, route, dtype)."""
     from decafnet_tpu_torch import ops
     from decafnet_tpu_torch.ops import cuda, fused_conv, local_attention
 
@@ -4220,32 +4247,31 @@ def run_shapes(dev):
         # tuned rows count it: f32 products as three TF32 passes, bf16 ones
         # as one bf16 pass (the general kernel itself runs on the CUDA cores)
         tc_rate, tc_passes = (BF16_FLOPS, 1) if bf16 else (TF32_FLOPS, 3)
-        for name in GENERAL:
-            recs[name, dtype] = {"max_abs_err": 0.0, "max_rel_err": 0.0,
-                                 "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                                 "byte_ms": 0.0, "flop_ms": 0.0,
-                                 "library_ms": None, "per": SHAPES_PER[name],
-                                 "shapes": []}
+        for name, route in SHAPE_KERNELS:
+            recs[name, route, dtype] = {
+                "max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0,
+                "plain_ms": 0.0, "bound_ms": 0.0, "byte_ms": 0.0, "flop_ms": 0.0,
+                "library_ms": None, "per": SHAPES_PER[name, route], "shapes": []}
 
-        def hold(name, fn, plain, what):
+        def hold(name, fn, plain, what, route="general"):
+            """``fn()`` against ``plain()`` (under plain_versions), booked
+            in the record of (name, route); a tuned route is checked only."""
             got = fn()
             with cuda.plain_versions():
                 want = plain()
             torch.cuda.synchronize()
-            a, r = check_outputs("shapes", name, dtype, got, want, what)
-            rec = recs[name, dtype]
-            rec["max_abs_err"] = max(rec["max_abs_err"], a)
-            rec["max_rel_err"] = max(rec["max_rel_err"], r)
+            a, r = check_outputs("shapes", name, dtype, got, want, what, route)
+            if route != "tuned":
+                rec = recs[name, route, dtype]
+                rec["max_abs_err"] = max(rec["max_abs_err"], a)
+                rec["max_rel_err"] = max(rec["max_rel_err"], r)
             return got
 
-        def timed(name, fn, plain, n_bytes, n_flops, shape, lib=None,
-                  tc_flops=0):
-            ms = time_ms(fn, 10)
-            with cuda.plain_versions():
-                plain_ms = time_ms(plain, 3, warmup=1)
-            lib_ms = time_ms(lib, 3, warmup=1) if lib else None
+        def book(name, route, ms, plain_ms, n_bytes, n_flops, shape,
+                 lib_ms=None, tc_flops=0, **extra):
+            """One timed shape in the record of (name, route)."""
             b_ms, by = bound_ms(n_bytes, n_flops, tc_flops, tc_rate)
-            rec = recs[name, dtype]
+            rec = recs[name, route, dtype]
             rec["ms"] += ms
             rec["plain_ms"] += plain_ms
             rec["bound_ms"] += b_ms
@@ -4255,7 +4281,17 @@ def run_shapes(dev):
                 rec["library_ms"] = (rec["library_ms"] or 0.0) + lib_ms
             rec["shapes"].append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
                                   "bound_ms": b_ms, "bound_by": by,
-                                  "share_of_bound": b_ms / ms, "library_ms": lib_ms})
+                                  "share_of_bound": b_ms / ms, "library_ms": lib_ms,
+                                  **extra})
+
+        def timed(name, fn, plain, n_bytes, n_flops, shape, lib=None,
+                  tc_flops=0):
+            ms = time_ms(fn, 10)
+            with cuda.plain_versions():
+                plain_ms = time_ms(plain, 3, warmup=1)
+            lib_ms = time_ms(lib, 3, warmup=1) if lib else None
+            book(name, "general", ms, plain_ms, n_bytes, n_flops, shape, lib_ms,
+                 tc_flops)
 
         # band attention, the general kernel: the JAX kernel tests' shapes
         # (B 2, H 4, D 16), then 64 rows x 7 levels at D 16, 64, 128
@@ -4282,8 +4318,10 @@ def run_shapes(dev):
                 del args
 
         # conv3, the general kernel: the JAX kernel tests' shapes (C_in 16,
-        # C_out 24, lengths T and 0.6 T; forced), then C_out 288 and 544
-        # over 7 levels, then 9 levels (two launches)
+        # C_out 24, lengths T and 0.6 T; forced); the wide kernels at C_out
+        # 288, 512 and 544 over 7 levels beside the general one (forced),
+        # and at 300 and 1024; then 9 levels (two launches) at a tuned, a
+        # wide and a general C_out
         conv3 = ops.conv3_ln_act
         for T in JAX_CONV3_T:
             x = torch.randn(2, 16, T, generator=g, device=dev).to(dtype)
@@ -4295,37 +4333,64 @@ def run_shapes(dev):
             hold("conv3_ln_act", lambda: fused_conv.launch_conv3_ln_act_general(
                 [x], [m], *p, "relu", 1e-5)[0],
                 lambda: conv3(x, m, *p), f"JAX test shape C_in 16 -> C_out 24, T {T}")
-        for C in SHAPES_CONV3_C:
-            Ts = [T0 // 2 ** lvl for lvl in range(LEVELS)]
+        Ts = [T0 // 2 ** lvl for lvl in range(LEVELS)]
+        for C in SHAPES_CONV3_C + SHAPES_WIDE_EDGE_C:
+            rows = ROWS if C in SHAPES_CONV3_C else min(ROWS, SHAPES_WIDE_EDGE_ROWS)
             xs, masks, params = conv3_levels_case(
-                dev, g, ROWS, C, Ts, [row_lens(lvl) for lvl in range(LEVELS)],
-                dtype=dtype)
-            got = hold("conv3_ln_act", lambda: tuple(ops.conv3_ln_act_levels(
-                xs, masks, *params)), lambda: tuple(
-                    conv3(x, m, *params) for x, m in zip(xs, masks)),
-                f"64 rows, C {C}, 7 levels in one launch")
+                dev, g, rows, C, Ts,
+                [row_lens(lvl)[::ROWS // rows] for lvl in range(LEVELS)], dtype=dtype)
+            assert fused_conv.conv3_route(C) == "wide", C
+
+            def wide():
+                return tuple(ops.conv3_ln_act_levels(xs, masks, *params))
+
+            def general():
+                return tuple(fused_conv.launch_conv3_ln_act_general(
+                    xs, masks, *params, "relu", 1e-5))
+
+            def plain():
+                return tuple(conv3(x, m, *params) for x, m in zip(xs, masks))
+
+            where = f"{rows} rows, C {C}, 7 levels in one launch"
+            outs = {"wide": hold("conv3_ln_act", wide, plain, where, "wide")}
+            if C in SHAPES_CONV3_C:
+                outs["general"] = hold("conv3_ln_act", general, plain,
+                                       where + ", forced", "general")
             if not bf16:
                 refs = [conv3_f64(x, m, *params) for x, m in zip(xs, masks)]
-                err64 = max(max_err(y.double(), r) for y, r in zip(got, refs))
                 with cuda.plain_versions():
                     plain64 = max(max_err(conv3(x, m, *params).double(), r)
                                   for x, m, r in zip(xs, masks, refs))
+                for route, got in outs.items():
+                    err64 = max(max_err(y.double(), r) for y, r in zip(got, refs))
+                    emit({"phase": "shapes", "kernel": "conv3_ln_act_" + route,
+                          "check": f"vs f64, {where}",
+                          "max_abs_err_f64": err64, "plain_max_abs_err_f64": plain64,
+                          "tol": TOL_F64, "ok": err64 <= TOL_F64})
+                    assert err64 <= TOL_F64, (route, C, err64)
+                    rec = recs["conv3_ln_act", route, dtype]
+                    rec["max_abs_err_f64"] = max(rec.get("max_abs_err_f64", 0.0), err64)
                 del refs
-                emit({"phase": "shapes", "kernel": "conv3_ln_act_general",
-                      "check": f"vs f64, 64 rows, C {C}, 7 levels",
-                      "max_abs_err_f64": err64, "plain_max_abs_err_f64": plain64,
-                      "tol": TOL_F64, "ok": err64 <= TOL_F64})
-                assert err64 <= TOL_F64, (C, err64)
-                recs["conv3_ln_act", dtype]["max_abs_err_f64"] = max(
-                    recs["conv3_ln_act", dtype].get("max_abs_err_f64", 0.0), err64)
-            cols = ROWS * sum(Ts)
-            timed("conv3_ln_act", lambda: ops.conv3_ln_act_levels(xs, masks, *params),
-                  lambda: [conv3(x, m, *params) for x, m in zip(xs, masks)],
-                  esz * 2 * C * cols + ROWS * sum(Ts) + 4 * (3 * C * C + 2 * C),
-                  8 * cols * C, [ROWS, C, Ts],
-                  tc_flops=tc_passes * 2 * cols * C * 3 * C)
-            del xs, masks, got
-        for C in (EMBD + RDIM, SHAPES_CONV3_C[0]):
+            del outs
+            if C in SHAPES_CONV3_C:
+                # the wide and the general kernel in turns (general, wide,
+                # wide, general), then the plain version
+                ab = time_in_turns(general, wide, 5)
+                with cuda.plain_versions():
+                    plain_ms = time_ms(plain, 3, warmup=1)
+                cols = ROWS * sum(Ts)
+                work = (esz * 2 * C * cols + ROWS * sum(Ts) + 4 * (3 * C * C + 2 * C),
+                        8 * cols * C, [ROWS, C, Ts])
+                tc = tc_passes * 2 * cols * C * 3 * C
+                book("conv3_ln_act", "wide", ab["new_ms"], plain_ms, *work,
+                     tc_flops=tc, general_ms=ab["old_ms"],
+                     spread_ms=ab["new_spread_ms"])
+                book("conv3_ln_act", "general", ab["old_ms"], plain_ms, *work,
+                     tc_flops=tc, wide_ms=ab["new_ms"],
+                     spread_ms=ab["old_spread_ms"])
+            del xs, masks
+        for C in (EMBD + RDIM, SHAPES_CONV3_C[0], SHAPES_ABOVE_WIDE_C):
+            route = fused_conv.conv3_route(C)
             Ts = [T0 // 2 ** lvl for lvl in range(9)]
             xs, masks, params = conv3_levels_case(
                 dev, g, 4, C, Ts, [[T, max(T - 3, 1), T // 2, 0] for T in Ts],
@@ -4334,16 +4399,18 @@ def run_shapes(dev):
             hold("conv3_ln_act", lambda: tuple(ops.conv3_ln_act_levels(
                 xs, masks, *params)), lambda: tuple(
                     conv3(x, m, *params) for x, m in zip(xs, masks)),
-                f"4 rows, C {C}, 9 levels (two launches)")
+                f"4 rows, C {C}, 9 levels (two launches)", route)
             made = [getattr(conv3, a) - c for a, c in zip(ops.COUNTERS, counts0)]
-            slot = 2 * (fused_conv.conv3_route(C) == "general") + bf16
-            assert made == [2 * (i == slot) for i in range(4)], made
+            attr = ("launches" + ("" if route == "tuned" else "_" + route)
+                    + ("_bf16" if bf16 else ""))
+            assert made == [2 * (a == attr) for a in ops.COUNTERS], made
             emit({"phase": "shapes", "check": f"9 levels at C {C} ({dtype})",
-                  "launches": dict(zip(ops.COUNTERS, made))})
+                  "route": route, "launches": dict(zip(ops.COUNTERS, made))})
+            del xs, masks
 
         if bf16:
-            recs["conv3_ln_act", dtype]["seed_sweep"] = conv3_bf16_sweep(
-                dev, recs["conv3_ln_act", dtype])
+            recs["conv3_ln_act", "wide", dtype]["seed_sweep"] = conv3_bf16_sweep(
+                dev, recs["conv3_ln_act", "wide", dtype])
 
         # the trio, the general kernel: the JAX kernel tests' shapes (C 16;
         # forced), then C 512 at 64 rows x T = 2304
@@ -4372,7 +4439,8 @@ def run_shapes(dev):
 CONFIG_FILES = ("charades", "tacos", "ego4d_goalstep")
 WIDTH_LEGS = {"heads8": ["model.vid_net.n_heads", "8"],
               "embd256": ["model.vid_net.embd_dim", "256"],
-              "embd512": ["model.vid_net.embd_dim", "512"]}
+              "embd512": ["model.vid_net.embd_dim", "512"],
+              "embd1024": ["model.vid_net.embd_dim", "1024"]}
 CONFIG_VIDEOS, CONFIG_QUERIES = 8, 4
 
 
@@ -4381,43 +4449,49 @@ def per_forward(cfg):
     ``cfg``, by route: conv3 once per embedding conv (at embd) and once per
     trunk layer of the three heads (cls_head at embd, cls_head2 and reg_head
     at embd + rdim), CONV3_MAX_LEVELS levels a launch; band attention once
-    per FPN level; the trio once (at embd). Returns ({op: tuned}, {op:
-    general})."""
+    per FPN level; the trio once (at embd). Returns {route: {op:
+    launches}} over ops.ROUTES."""
+    from decafnet_tpu_torch import ops
     from decafnet_tpu_torch.ops import fused_conv, local_attention
 
     m = cfg.model
     E, L = m.vid_net.embd_dim, m.vid_net.arch[-1]
     D = E // m.vid_net.n_heads
     groups = len(fused_conv.conv3_launch_groups(L))
-    tuned = {"conv3_ln_act": 0, "band_attention": 0, "qkv_depthwise_ln": 0}
-    general = dict(tuned)
+    out = {r: {"conv3_ln_act": 0, "band_attention": 0, "qkv_depthwise_ln": 0}
+           for r in ops.ROUTES}
     for C, n in ((E, m.vid_net.arch[0] + 2 * groups),
                  (E + (m.get("rdim") or 32), 4 * groups)):
-        (tuned if fused_conv.conv3_route(C) == "tuned" else general)["conv3_ln_act"] += n
-    route = local_attention.band_attention_route(D, m.vid_net.mha_win_size)
-    (tuned if route == "tuned" else general)["band_attention"] += L
-    (tuned if fused_conv.qkv_route(E) == "tuned" else general)["qkv_depthwise_ln"] += 1
-    return tuned, general
+        out[fused_conv.conv3_route(C)]["conv3_ln_act"] += n
+    out[local_attention.band_attention_route(D, m.vid_net.mha_win_size)][
+        "band_attention"] += L
+    out[fused_conv.qkv_route(E)]["qkv_depthwise_ln"] += 1
+    return out
 
 
 def read_counts():
-    """Every launch counter: {(dtype, general): {op: count}}."""
+    """Every launch counter: {(dtype, route): {op: count}}."""
     from decafnet_tpu_torch import ops
 
-    return {(dt, gen): ops.launch_counts(dt, general=gen)
-            for dt in (torch.float32, torch.bfloat16) for gen in (False, True)}
+    return {(dt, route): ops.launch_counts(dt, route)
+            for dt in (torch.float32, torch.bfloat16) for route in ops.ROUTES}
+
+
+def counts_label(dtype, route):
+    """The name of a (dtype, route) counter set in the JSON lines."""
+    return (("bf16" if dtype == torch.bfloat16 else "f32")
+            + ("" if route == "tuned" else "_" + route))
 
 
 def expect_counts(counts, cfg, n, dtype, what):
     """The counters after ``n`` forwards in ``dtype`` under ``cfg``: each
     route's per-forward launches times ``n``, nothing in the other dtype."""
-    tuned, general = per_forward(cfg)
-    zero = {k: 0 for k in tuned}
-    want = {(dt, gen): ({k: v * n for k, v in (general if gen else tuned).items()}
-                        if dt == dtype else zero)
-            for dt, gen in counts}
-    got = {f"{'bf16' if dt == torch.bfloat16 else 'f32'}"
-           f"{'_general' if gen else ''}": c for (dt, gen), c in counts.items()}
+    per = per_forward(cfg)
+    zero = {k: 0 for k in per["tuned"]}
+    want = {(dt, route): ({k: v * n for k, v in per[route].items()}
+                          if dt == dtype else zero)
+            for dt, route in counts}
+    got = {counts_label(dt, route): c for (dt, route), c in counts.items()}
     emit({"phase": "configs", "check": f"launches, {what}", "forwards": n,
           "launches": got})
     assert counts == want, (what, counts, want)
@@ -4468,7 +4542,7 @@ def config_check(name, op, args, dtype, what):
     with cuda.plain_versions():
         want = op(*args)
     torch.cuda.synchronize()
-    a, r = check_outputs("configs", name, dtype, got, want, what, general=False)
+    a, r = check_outputs("configs", name, dtype, got, want, what, route="tuned")
     return r if dtype == torch.bfloat16 else a
 
 
@@ -4602,7 +4676,7 @@ def config_eval(root, name, cfg_file, cfg):
     os.makedirs(os.path.join(logdir, "models"))
     full.dump_to_file(os.path.join(logdir, "opt.yaml"))
     save_pth(os.path.join(logdir, "models", "last.pth"), random_params(full, SEED))
-    tuned, _ = per_forward(full)
+    tuned = per_forward(full)["tuned"]
     runs, launches, ev, _ = eval_modes(
         ["--name", logdir, "--set", "eval.save_results", "True"],
         {"device_nms": [], "plain_versions": []}, "configs", CONFIG_VIDEOS,
@@ -4647,7 +4721,7 @@ def config_train(root, name, cfg_file):
     expect_counts(counts, trainer.cfg, n_micro, torch.float32, f"{name} train")
     assert all(np.isfinite(probe.records[0][k]) for k in ("cls", "reg", "total"))
     assert all(torch.isfinite(p).all() for p in trainer.model.parameters())
-    return counts[torch.float32, False]
+    return counts[torch.float32, "tuned"]
 
 
 def run_configs(dev, root):
@@ -4655,11 +4729,12 @@ def run_configs(dev, root):
     (kernels vs plain versions at 64 rows x its pyramid, served in f32 and
     bf16, the eval CLI, one train step), then the WIDTH_LEGS of
     configs/ego4d_nlq.yaml (kernels vs plain and served in f32 and bf16).
-    Returns {(dtype, general): {path: {op: launches}}}."""
+    Returns {(dtype, route): {path: {op: launches}}}."""
+    from decafnet_tpu_torch import ops
     from decafnet_tpu_torch.core import load_config, update_opt
 
-    paths = {(dt, gen): {} for dt in (torch.float32, torch.bfloat16)
-             for gen in (False, True)}
+    paths = {(dt, route): {} for dt in (torch.float32, torch.bfloat16)
+             for route in ops.ROUTES}
 
     def book(path, counts):
         for key, c in counts.items():
@@ -4684,9 +4759,9 @@ def run_configs(dev, root):
             book(f"{name}_serve" + ("_bf16" if dt == torch.bfloat16 else ""),
                  {key: c for key, c in counts.items() if key[0] == dt})
         evals = config_eval(root, name, cfg_file, cfg)
-        paths[torch.float32, False][f"{name}_eval"] = evals
-        paths[torch.float32, False][f"{name}_train"] = config_train(root, name,
-                                                                    cfg_file)
+        paths[torch.float32, "tuned"][f"{name}_eval"] = evals
+        paths[torch.float32, "tuned"][f"{name}_train"] = config_train(root, name,
+                                                                      cfg_file)
         emit({"phase": "configs", "leg": name, "kernels_vs_plain": worst,
               "seconds": time.perf_counter() - t0})
         torch.cuda.empty_cache()
@@ -4696,12 +4771,11 @@ def run_configs(dev, root):
         cfg.merge_from_list(override)
         update_opt(cfg)
         m = cfg.model
-        tuned, general = per_forward(cfg)
         emit({"phase": "configs", "leg": leg, "config": "configs/ego4d_nlq.yaml",
               "set": override, "embd": m.vid_net.embd_dim,
               "heads": m.vid_net.n_heads,
               "head_dim": m.vid_net.embd_dim // m.vid_net.n_heads,
-              "per_forward": {"tuned": tuned, "general": general}})
+              "per_forward": per_forward(cfg)})
         worst = config_kernels(dev, cfg, leg)
         served = config_serve(dev, cfg, leg)
         for dt, counts in served.items():
@@ -4744,16 +4818,24 @@ def main():
     emit({"phase": "build", "library": os.path.relpath(path, REPO),
           "nvcc_s": compile_s, "seconds": time.perf_counter() - t0})
     for kernel in ("conv3_ln_act", "band_attention", "qkv_depthwise_ln"):
-        for source in (kernel, kernel + "_general"):
+        for source in (kernel, kernel + "_general") + (
+                ("conv3_ln_act_wide",) if kernel == "conv3_ln_act" else ()):
             emit({"phase": "build", "kernel": source, "ptxas":
                   ptxas_report(cuda.build_log(source + ".cu"))})
-    # both tuned conv3 kernels on wgmma (HGMMA; the general kernel of
+    # the tuned conv3 kernels and the wide ones (one per slice width of each
+    # dtype), on wgmma (HGMMA; the general kernel of
     # csrc/conv3_ln_act_general.cu multiplies on the CUDA cores)
-    mma = {k: c for k, c in sass_mma(path, "conv3_ln_act").items()
-           if "general" not in k}
+    all_mma = sass_mma(path, "conv3_ln_act")
+    mma = {k: c for k, c in all_mma.items() if "general" not in k and "wide" not in k}
+    mma_wide = {k: c for k, c in all_mma.items() if "wide" in k}
     emit({"phase": "build", "kernel": "conv3_ln_act", "sass_mma": mma})
+    emit({"phase": "build", "kernel": "conv3_ln_act_wide", "sass_mma": mma_wide})
     assert mma and all(c["HGMMA"] > 0 for c in mma.values()), \
         "conv3_ln_act does not run on the tensor cores"
+    from decafnet_tpu_torch.ops.fused_conv import CONV3_WIDE_SLICES
+    assert len(mma_wide) == sum(map(len, CONV3_WIDE_SLICES.values())) and all(
+        c["HGMMA"] > 0 for c in mma_wide.values()), \
+        "conv3_ln_act_wide does not run on the tensor cores"
     # the bf16 band kernel's pipeline (split 1, its instantiations
     # <halo, 1>) loads its tiles by TMA (UTMALDG) under mbarriers (SYNCS)
     tma = sass_counts(path, "band_attention_bf16_kernel", ("UTMALDG", "SYNCS"))
@@ -4796,8 +4878,8 @@ def main():
         by_path16.update(mad_paths16)
         lap("mad")
         cfg_paths = run_configs(dev, root)
-        by_path.update(cfg_paths[torch.float32, False])
-        by_path16.update(cfg_paths[torch.bfloat16, False])
+        by_path.update(cfg_paths[torch.float32, "tuned"])
+        by_path16.update(cfg_paths[torch.bfloat16, "tuned"])
         lap("configs")
         cfg_file = write_train_data(root)
         by_path["train"], train32 = run_train(root, cfg_file)
@@ -4885,21 +4967,25 @@ def main():
             **{k: r[k] for k in ("per_level_launch_ms", "grouping_rule", "heads")
                if k in r},
             "levels": r["levels"]})
-    for (n, dtype), r in shape_recs.items():
+    for (n, route, dtype), r in shape_recs.items():
         bf16 = dtype == torch.bfloat16
-        by = cfg_paths[dtype, True]
-        src, rep = GENERAL[n]
+        by = cfg_paths[dtype, route]
+        src = SHAPE_KERNELS[n, route]
+        wide = route == "wide"
         kernels.append({
-            "name": n + "_general" + ("_bf16" if bf16 else ""), "route": "cuda",
-            "source": src, "replaces": rep,
+            "name": f"{n}_{route}" + ("_bf16" if bf16 else ""), "route": "cuda",
+            "source": src, "replaces": REPLACES[n],
             "launches": sum(p[n] for p in by.values()),
             "launches_by_path": {p: c[n] for p, c in by.items()},
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["byte_ms"] >= r["flop_ms"] else "operations",
             "library_ms": r["library_ms"], "per": r["per"],
-            "ptxas": [k for k in ptxas_report(cuda.build_log(n + "_general.cu"))
-                      if ("bfloat16" in k["kernel"]) == bf16],
+            **({"general_ms": sum(sh["general_ms"] for sh in r["shapes"]),
+                "sass_mma": {k: c for k, c in mma_wide.items()
+                             if ("bf16" in k) == bf16}} if wide else {}),
+            "ptxas": [k for k in ptxas_report(cuda.build_log(os.path.basename(src)))
+                      if ("bf16" in k["kernel"] or "bfloat16" in k["kernel"]) == bf16],
             **{k: r[k] for k in ("max_abs_err_f64", "seed_sweep") if k in r},
             "shapes": r["shapes"]})
     emit({"phase": "walls", "seconds": walls,

@@ -2,7 +2,7 @@
 // Memory Accelerator: mbarriers, bulk and tensor copies into shared memory,
 // the shared-state-space address of a pointer, named barriers, the grid of a
 // persistent launch, and the host's cuTensorMapEncodeTiled. Shared by
-// csrc/conv3_ln_act.cu and csrc/band_attention.cu.
+// csrc/conv3_ln_act.cu, csrc/conv3_ln_act_wide.cu and csrc/band_attention.cu.
 
 #pragma once
 

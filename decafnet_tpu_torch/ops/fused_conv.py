@@ -3,23 +3,26 @@ q/k/v trio (port of decafnet_tpu/ops/fused_conv.py).
 
 Each op has a plain PyTorch version (``*_torch``) and hand-written CUDA
 kernels: tuned ones (csrc/conv3_ln_act.cu, csrc/qkv_depthwise_ln.cu) for
-the channel counts they are built for (up to 256), and general ones
-(csrc/conv3_ln_act_general.cu, csrc/qkv_depthwise_ln_general.cu) for wider
-layers, each in f32 and bf16. The public op takes the plain version for a
-tensor on the CPU and, for a CUDA tensor, launches the kernel that its
-route rule (:func:`conv3_route`, :func:`qkv_route`) picks from the width,
-in the input's dtype; ``.launches`` / ``.launches_bf16`` on the op count
-launches of the tuned f32 / bf16 kernel, ``.launches_general`` /
-``.launches_general_bf16`` of the general ones (for conv3, one launch covers
-up to CONV3_MAX_LEVELS levels of a :func:`conv3_ln_act_levels` call). Under
-autograd each op's backward recomputes through its plain version (the rule
-in ops/cuda.py).
+the channel counts they are built for (up to 256), for conv3 wide ones
+(csrc/conv3_ln_act_wide.cu: a thread-block cluster splits C_out up to
+1024), and general ones (csrc/conv3_ln_act_general.cu,
+csrc/qkv_depthwise_ln_general.cu) for wider layers, each in f32 and bf16.
+The public op takes the plain version for a tensor on the CPU and, for a
+CUDA tensor, launches the kernel that its route rule (:func:`conv3_route`,
+:func:`qkv_route`) picks from the width, in the input's dtype;
+``.launches`` / ``.launches_bf16`` on the op count launches of the tuned
+f32 / bf16 kernel, ``.launches_wide`` / ``.launches_wide_bf16`` of conv3's
+wide ones, ``.launches_general`` / ``.launches_general_bf16`` of the
+general ones (for conv3, one launch covers up to CONV3_MAX_LEVELS levels of
+a :func:`conv3_ln_act_levels` call). Under autograd each op's backward
+recomputes through its plain version (the rule in ops/cuda.py).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -67,15 +70,16 @@ def tf32_split(a):
 CONV3_WIDTHS = (64, 128, 160, 256)
 
 
-def conv3_weight_fragments(w):
+def conv3_weight_fragments(w, N=None):
     """The (C_out, C_in, 3) conv weight in f32 as the f32 kernel of
     csrc/conv3_ln_act.cu stages it: (ceil(C_in/8), 3, N, 8) with N = C_out
-    padded to the first of CONV3_WIDTHS that holds it, zero where padded.
+    padded to the first of CONV3_WIDTHS that holds it (or ``N``, as the
+    wide kernel's slices take it), zero where padded.
     Entry [c, tap, n] is the 32-byte row ``w[n, 8c:8c + 8, tap]`` (the
     K-major B operand of TF32 wgmma) with its two 16-byte pieces k moved to
     k ^ ((n // 4) % 2), the 32-byte swizzle the kernel's descriptor names."""
     C_out, C_in, _ = w.shape
-    N = next(n for n in CONV3_WIDTHS if C_out <= n)
+    N = N or next(n for n in CONV3_WIDTHS if C_out <= n)
     nc = -(-C_in // 8)
     wp = w.new_zeros(N, 8 * nc, 3, dtype=torch.float32)
     wp[:C_out, :C_in] = w
@@ -101,16 +105,16 @@ def conv3_weight_operands(w):
                   lambda w: torch.stack(tf32_split(conv3_weight_fragments(w)), 1))
 
 
-def conv3_bf16_fragments(w):
+def conv3_bf16_fragments(w, N=None):
     """The (C_out, C_in, 3) conv weight rounded to bf16 as the bf16 kernel of
     csrc/conv3_ln_act.cu stages it: (ceil(C_in/32), 3, N, 32) with N = C_out
-    padded to the first of CONV3_WIDTHS that holds it, zero where
+    padded to the first of CONV3_WIDTHS that holds it (or ``N``), zero where
     padded. Entry [c, tap, n] is the 64-byte row ``w[n, 32c:32c + 32, tap]``
     (the K-major B operand of wgmma) with its four 16-byte pieces k moved to
     k ^ ((n // 2) % 4), the 64-byte swizzle the kernel's descriptor names;
     one chunk c is one bulk copy into shared memory."""
     C_out, C_in, _ = w.shape
-    N = next(n for n in CONV3_WIDTHS if C_out <= n)
+    N = N or next(n for n in CONV3_WIDTHS if C_out <= n)
     nc = -(-C_in // 32)
     wp = w.new_zeros(N, 32 * nc, 3, dtype=torch.bfloat16)
     wp[:C_out, :C_in] = w
@@ -127,6 +131,95 @@ def conv3_bf16_operands(w):
     """:func:`conv3_bf16_fragments` of ``w``, cached against its version as
     :func:`conv3_weight_operands` is."""
     return cached(w, "bf16_fragments", conv3_bf16_fragments)
+
+
+# the wide kernels of csrc/conv3_ln_act_wide.cu, per dtype: a cluster of up
+# to CONV3_WIDE_MAX_CLUSTER blocks, each one slice of one of
+# CONV3_WIDE_SLICES output channels; C_out up to CONV3_WIDE_MAX_C
+CONV3_WIDE_SLICES = {torch.float32: (144, 192, 256), torch.bfloat16: (128, 144)}
+CONV3_WIDE_MAX_CLUSTER = {torch.float32: 4, torch.bfloat16: 8}
+CONV3_WIDE_MAX_C = 1024
+# shared memory one block may take on an H100 (SMEM_LIMIT in the source)
+SMEM_LIMIT = 232448
+
+
+class Conv3WidePlan(NamedTuple):
+    """A launch plan of the wide conv3 kernels: output channels per block,
+    blocks per cluster, stages of the ring, dynamic shared memory bytes of a
+    block and time columns per work item."""
+    slice: int
+    cluster: int
+    stages: int
+    smem: int
+    tile: int
+
+
+def conv3_wide_plan(dtype, C_out):
+    """The plan of the ``dtype`` wide kernel at ``C_out`` (1 to
+    CONV3_WIDE_MAX_C), as csrc/conv3_ln_act_wide.cu computes it (wide_plan,
+    TfWide, BfWide; the C query decafnet_conv3_ln_act_wide_plan answers the
+    same): ceil(C_out / 256) blocks in f32, ceil(C_out / 144) in bf16, each
+    a slice of the narrowest of CONV3_WIDE_SLICES[dtype] that holds
+    ceil(C_out / cluster); a block's shared memory is its ring of stages (as
+    many as fit, at most 4) beside the LN exchange (8 KB), the slice's bias,
+    ln_w and ln_b, the barriers, and in bf16 the staged outputs. An f32
+    slice is split over the block's two warpgroups, items of 64 columns; a
+    bf16 block takes items of 128."""
+    if not 1 <= C_out <= CONV3_WIDE_MAX_C:
+        raise ValueError(f"conv3_ln_act_wide: C_out {C_out} outside 1.."
+                         f"{CONV3_WIDE_MAX_C}")
+    bf16 = dtype == torch.bfloat16
+    slices = CONV3_WIDE_SLICES[torch.bfloat16 if bf16 else torch.float32]
+    cluster = -(-C_out // slices[-1])
+    ns = next(n for n in slices if -(-C_out // cluster) <= n)
+    exchange, params = 2 * 8 * 128 * 4, 3 * ns * 4
+    if bf16:
+        tile, out = 128, 2 * ns * (2 * 64 + 16)
+        stage = 4 * 32 * 64 * 2 + 3 * ns * 32 * 2
+    else:
+        tile, out = 64, 0
+        stage = (tile // 32 + 2) * 8 * 32 * 4 + 2 * 3 * ns * 8 * 4
+
+    def fixed(stages):
+        return out + exchange + params + (2 * stages + 2) * 8 + 1024
+
+    stages = min(4, (SMEM_LIMIT - fixed(4)) // stage)
+    return Conv3WidePlan(ns, cluster, stages, stages * stage + fixed(stages), tile)
+
+
+def conv3_wide_source_plan(dtype, C_out):
+    """The plan csrc/conv3_ln_act_wide.cu computes at ``C_out`` (its C query
+    decafnet_conv3_ln_act_wide_plan), to hold :func:`conv3_wide_plan`
+    against on the card."""
+    out = (ctypes.c_int * 5)()
+    err = cuda.library().decafnet_conv3_ln_act_wide_plan(
+        C_out, int(dtype == torch.bfloat16), out)
+    if err:
+        raise ValueError(f"conv3_ln_act_wide: C_out {C_out} outside the "
+                         "kernels' plans")
+    return Conv3WidePlan(*out)
+
+
+def conv3_wide_operands(w, dtype=torch.float32):
+    """The ``dtype`` wide kernel's weight operand: ``w`` zero-padded to
+    cluster x slice output channels (:func:`conv3_wide_plan`), each slice's
+    image as the tuned kernel of that dtype stages it at N = slice, the
+    slices one after the other: f32 (cluster, ceil(C_in/8), 2, 3, slice, 8)
+    TF32 halves (:func:`conv3_weight_operands`), bf16 (cluster,
+    ceil(C_in/32), 3, slice, 32) (:func:`conv3_bf16_fragments`). Cached
+    against the weight's version, as those are."""
+    def build(w):
+        C_out, C_in, _ = w.shape
+        plan = conv3_wide_plan(dtype, C_out)
+        wp = w.new_zeros(plan.cluster * plan.slice, C_in, 3, dtype=torch.float32)
+        wp[:C_out] = w
+        if dtype == torch.bfloat16:
+            return torch.stack([conv3_bf16_fragments(s, plan.slice)
+                                for s in wp.split(plan.slice)])
+        return torch.stack([torch.stack(tf32_split(conv3_weight_fragments(s, plan.slice)), 1)
+                            for s in wp.split(plan.slice)])
+    key = "wide_bf16" if dtype == torch.bfloat16 else "wide_tf32"
+    return cached(w, key, build)
 
 
 # time columns per work item of the kernels of csrc/conv3_ln_act.cu: two
@@ -148,8 +241,12 @@ CONV3_MAX_LEVELS = 8
 def conv3_route(C_out):
     """The kernel a CUDA launch at ``C_out`` output channels takes, in either
     dtype: "tuned" (the wgmma kernels of csrc/conv3_ln_act.cu, built for N
-    up to CONV3_WIDTHS[-1]) or "general" (csrc/conv3_ln_act_general.cu)."""
-    return "tuned" if C_out <= CONV3_WIDTHS[-1] else "general"
+    up to CONV3_WIDTHS[-1]), "wide" (the wgmma kernels of
+    csrc/conv3_ln_act_wide.cu, a cluster of blocks splitting C_out up to
+    CONV3_WIDE_MAX_C) or "general" (csrc/conv3_ln_act_general.cu)."""
+    if C_out <= CONV3_WIDTHS[-1]:
+        return "tuned"
+    return "wide" if C_out <= CONV3_WIDE_MAX_C else "general"
 
 
 def conv3_general_tile(C_out):
@@ -214,8 +311,11 @@ def conv3_ln_act_levels(xs, masks, w, bias=None, ln_w=None, ln_b=None,
     and the weights laid out once per weight: for f32 x in three TF32
     passes (f32 accuracy; :func:`conv3_weight_operands`), for bf16 x in one
     bf16 pass with f32 accumulation (:func:`conv3_bf16_operands`), the
-    function of the bf16 plain version. Wider layers take the general
-    kernel of csrc/conv3_ln_act_general.cu, which reads the plain weight and
+    function of the bf16 plain version. Up to CONV3_WIDE_MAX_C the wide
+    kernels of csrc/conv3_ln_act_wide.cu do the same with a thread-block
+    cluster whose blocks split C_out (:func:`conv3_wide_plan`,
+    :func:`conv3_wide_operands`); wider layers take the general kernel of
+    csrc/conv3_ln_act_general.cu, which reads the plain weight and
     multiplies on the CUDA cores. The outputs have x's dtype.
 
     Under autograd (:func:`cuda.recording`) the same forward runs inside
@@ -276,8 +376,9 @@ def _conv3_ln_act_levels(xs, masks, w, bias, ln_w, ln_b, act, eps):
     if not cuda.use_kernel(xs[0]):
         return [conv3_ln_act_torch(x, m, w, bias, ln_w, ln_b, act=act, eps=eps)
                 for x, m in zip(xs, masks)]
-    launch = (launch_conv3_ln_act_general if conv3_route(w.shape[0]) == "general"
-              else launch_conv3_ln_act_levels)
+    launch = {"tuned": launch_conv3_ln_act_levels,
+              "wide": launch_conv3_ln_act_wide,
+              "general": launch_conv3_ln_act_general}[conv3_route(w.shape[0])]
     return [y for i, j in conv3_launch_groups(len(xs))
             for y in launch(xs[i:j], masks[i:j], w, bias, ln_w, ln_b, act, eps)]
 
@@ -361,6 +462,34 @@ def launch_conv3_ln_act_levels(xs, masks, w, bias, ln_w, ln_b, act, eps):
     return outs
 
 
+def launch_conv3_ln_act_wide(xs, masks, w, bias, ln_w, ln_b, act, eps):
+    """Check the arguments and make one launch of the wide kernels of
+    csrc/conv3_ln_act_wide.cu (C_out up to CONV3_WIDE_MAX_C; the card checks
+    hold them at narrower widths too, one block a cluster) over up to
+    CONV3_MAX_LEVELS levels of CUDA tensors."""
+    name = "conv3_ln_act_wide"
+    C_out, C_in = w.shape[0], xs[0].shape[1]
+    cuda.require(1 <= C_out <= CONV3_WIDE_MAX_C, name,
+                 f"C_out {C_out}: the wide kernels take up to {CONV3_WIDE_MAX_C}")
+    dtype = xs[0].dtype
+    bf16 = dtype == torch.bfloat16
+    head, (bias, ln_w, ln_b), outs, _keep = _conv3_launch_args(
+        name, xs, masks, w, bias, ln_w, ln_b, act,
+        lambda C_out: conv3_wide_plan(dtype, C_out).tile)
+    plan = conv3_wide_plan(dtype, C_out)
+    entry = (cuda.library().decafnet_conv3_ln_act_wide_bf16 if bf16
+             else cuda.library().decafnet_conv3_ln_act_wide_f32)
+    err = entry(*head, cuda.ptr(conv3_wide_operands(w, dtype)), cuda.ptr(bias),
+                cuda.ptr(ln_w), cuda.ptr(ln_b), C_in, C_out, plan.slice,
+                plan.cluster, float(eps), int(act == "relu"), cuda.stream())
+    cuda.check(err, name + ("_bf16" if bf16 else ""))
+    if bf16:
+        conv3_ln_act.launches_wide_bf16 += 1
+    else:
+        conv3_ln_act.launches_wide += 1
+    return outs
+
+
 def launch_conv3_ln_act_general(xs, masks, w, bias, ln_w, ln_b, act, eps):
     """Check the arguments and make one launch of the general kernel of
     csrc/conv3_ln_act_general.cu (any C_out; the card checks hold it at
@@ -387,6 +516,7 @@ def launch_conv3_ln_act_general(xs, masks, w, bias, ln_w, ln_b, act, eps):
 
 
 conv3_ln_act.launches = conv3_ln_act.launches_bf16 = 0
+conv3_ln_act.launches_wide = conv3_ln_act.launches_wide_bf16 = 0
 conv3_ln_act.launches_general = conv3_ln_act.launches_general_bf16 = 0
 
 

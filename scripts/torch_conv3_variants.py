@@ -38,6 +38,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 SRC = os.path.join(REPO, "decafnet_tpu_torch", "csrc", "conv3_ln_act.cu")
+HEADER = os.path.join(REPO, "decafnet_tpu_torch", "csrc", "conv3_wgmma.cuh")
 OUT = os.path.join(REPO, "build", "conv3_variants")
 
 FRESH = "      float d[NW / 2];\n"
@@ -58,6 +59,18 @@ CVT_RNA = """__device__ __forceinline__ uint32_t tf32_rna(float v) {
   return r;
 }"""
 
+
+
+def shipped_source():
+    """conv3_ln_act.cu with the header it shares with the wide kernels
+    (conv3_wgmma.cuh) inlined, so an edit can reach the helpers there too."""
+    with open(SRC) as f:
+        src = f.read()
+    with open(HEADER) as f:
+        head = f.read().replace("#pragma once\n", "")
+    include = '#include "conv3_wgmma.cuh"\n'
+    assert src.count(include) == 1, "conv3_ln_act.cu no longer includes its header"
+    return src.replace(include, head)
 
 
 def variants(src):
@@ -107,8 +120,7 @@ def main():
     from decafnet_tpu_torch.ops import cuda, fused_conv
     from decafnet_tpu_torch.ops.fused_conv import conv3_weight_operands
 
-    with open(SRC) as f:
-        fns = build_all(variants(f.read()))
+    fns = build_all(variants(shipped_source()))
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
 

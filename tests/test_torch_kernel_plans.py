@@ -286,6 +286,13 @@ def _entry_refuses(name, a):
             tile = a[10]
             return None if tile == _StubLibrary.GENERAL_TILE \
                 else f"general conv3 tile {tile} at C_out {C_out}"
+        if "wide" in name:
+            if not 1 <= C_out <= 1024:
+                return f"wide conv3 at C_out {C_out}"
+            dtype = torch.bfloat16 if name.endswith("bf16") else torch.float32
+            plan = tfc.conv3_wide_plan(dtype, C_out)
+            return None if (a[10], a[11]) == (plan.slice, plan.cluster) \
+                else f"wide conv3 plan {a[10:12]} at C_out {C_out}"
         return None if C_out <= 256 else f"tuned conv3 at C_out {C_out}"
     if name.startswith("decafnet_qkv_depthwise_ln"):
         C = a[15]
@@ -370,13 +377,14 @@ def test_band_dispatch_takes_every_head_width_and_window(dry_card, D, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C_out", [24, 160, 256, 257, 288, 544, 1024, 3000, 8000])
+@pytest.mark.parametrize("C_out", [24, 160, 256, 257, 288, 544, 1024, 1025, 3000,
+                                   8000])
 def test_conv3_dispatch_takes_every_width_and_level_count(dry_card, C_out, dtype):
     from decafnet_tpu_torch import ops
 
-    route = "tuned" if C_out <= 256 else "general"
+    route = "tuned" if C_out <= 256 else "wide" if C_out <= 1024 else "general"
     assert tfc.conv3_route(C_out) == route
-    entry = ("decafnet_conv3_ln_act" + ("_general" if route == "general" else "")
+    entry = ("decafnet_conv3_ln_act" + ("" if route == "tuned" else "_" + route)
              + ("_bf16" if dtype == torch.bfloat16 else "_f32"))
     w = torch.zeros(C_out, 16, 3)
     lw, lb = torch.ones(C_out, 1), torch.zeros(C_out, 1)
@@ -447,4 +455,4 @@ def test_served_and_mad_shapes_keep_the_tuned_kernels(dry_card, rows, t0, dtype)
         ops.conv3_ln_act_levels(xs, masks, torch.zeros(C, C, 3), torch.zeros(C),
                                 torch.ones(C, 1), torch.zeros(C, 1))
         assert dry_card.calls[-1] == "decafnet_conv3_ln_act" + suffix
-    assert not any("general" in c for c in dry_card.calls)
+    assert not any("general" in c or "wide" in c for c in dry_card.calls)

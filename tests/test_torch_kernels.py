@@ -523,6 +523,15 @@ def _counts(op):
     return tuple(getattr(op, a) for a in ops.COUNTERS)
 
 
+def _made(op, before, route, bf16, n=1):
+    """The op's counters moved by ``n`` launches of its ``route`` kernel in
+    bf16 or f32, and by nothing else, since ``before`` (:func:`_counts`)."""
+    attr = ("launches" + ("" if route == "tuned" else "_" + route)
+            + ("_bf16" if bf16 else ""))
+    want = tuple(b + n * (a == attr) for a, b in zip(ops.COUNTERS, before))
+    return _counts(op) == want
+
+
 def _band_general_case(card, B, D, T, window, dtype, seed, how="as_is"):
     g = torch.Generator(device=card).manual_seed(seed)
     lens = ([T, max(1, T * 3 // 5)] * B)[:B]
@@ -546,8 +555,7 @@ def test_general_band_attention_matches_plain(card, dtype, D, T, window, B):
     before = _counts(op)
     got = op(*args)
     bf16 = dtype == torch.bfloat16
-    assert _counts(op) == (before[0], before[1], before[2] + (not bf16),
-                           before[3] + bf16)
+    assert _made(op, before, "general", bf16)
     with cuda.plain_versions():
         want = op(*args)
     torch.cuda.synchronize()
@@ -588,7 +596,8 @@ def _conv3_general_case(card, B, c_in, c_out, T, lens, dtype, seed, bias=True,
     (16, 24, 100, True, True, "relu"), (16, 24, 256, True, False, "none"),
     (16, 24, 700, False, True, "relu"),      # the JAX kernel tests' shapes
     (288, 288, 301, True, True, "relu"), (256, 288, 2304, True, True, "relu"),
-    (544, 544, 1000, True, True, "relu"), (13, 2000, 37, True, True, "relu")])
+    (544, 544, 1000, True, True, "relu"), (13, 2000, 37, True, True, "relu"),
+    (64, 1100, 300, False, True, "relu")])   # above the wide kernels' C_out
 def test_general_conv3_matches_plain_and_f64(card, dtype, c_in, c_out, T, bias,
                                              affine, act):
     args = _conv3_general_case(card, 2, c_in, c_out, T, [T, int(0.6 * T)],
@@ -598,8 +607,7 @@ def test_general_conv3_matches_plain_and_f64(card, dtype, c_in, c_out, T, bias,
     got = fused_conv.launch_conv3_ln_act_general(
         [args[0]], [args[1]], *args[2:], act, 1e-5)[0]
     bf16 = dtype == torch.bfloat16
-    assert _counts(op) == (before[0], before[1], before[2] + (not bf16),
-                           before[3] + bf16)
+    assert _made(op, before, "general", bf16)
     if fused_conv.conv3_route(c_out) == "general":
         assert float((op(*args, act=act) - got).float().abs().max()) == 0.0
     with cuda.plain_versions():
@@ -613,7 +621,7 @@ def test_general_conv3_matches_plain_and_f64(card, dtype, c_in, c_out, T, bias,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C", [160, 288])
+@pytest.mark.parametrize("C", [160, 288, 544])
 def test_conv3_nine_levels_launch_twice(card, dtype, C):
     """Nine levels (more than CONV3_MAX_LEVELS) take two launches of the
     routed kernel, the first over 8 levels."""
@@ -627,9 +635,7 @@ def test_conv3_nine_levels_launch_twice(card, dtype, C):
     op = ops.conv3_ln_act
     before = _counts(op)
     got = ops.conv3_ln_act_levels(xs, masks, *params)
-    slot = 2 * (fused_conv.conv3_route(C) == "general") + (dtype == torch.bfloat16)
-    assert [a - b for a, b in zip(_counts(op), before)] == [
-        2 * (i == slot) for i in range(4)]
+    assert _made(op, before, fused_conv.conv3_route(C), dtype == torch.bfloat16, 2)
     for x, m, y in zip(xs, masks, got, strict=True):
         with cuda.plain_versions():
             want = op(x, m, *params)
@@ -647,24 +653,148 @@ def test_general_trio_matches_plain(card, dtype, C, T, how):
     before = _counts(op)
     got = fused_conv.launch_qkv_depthwise_ln_general(*args, 1e-5)
     bf16 = dtype == torch.bfloat16
-    assert _counts(op) == (before[0], before[1], before[2] + (not bf16),
-                           before[3] + bf16)
+    assert _made(op, before, "general", bf16)
     with cuda.plain_versions():
         want = op(*args)
     torch.cuda.synchronize()
     _assert_close(got, want, dtype, TOL["qkv_depthwise_ln"])
 
 
+# ------------------------------------------------------------------- wide
+# The wide conv3 kernels (csrc/conv3_ln_act_wide.cu: C_out 257 to 1024, a
+# thread-block cluster of 2 to 4 blocks splitting the channels), through the
+# route and, at narrower widths (one block a cluster), forced.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_out,T,bias,affine,act", [
+    (256, 264, 301, True, True, "relu"), (256, 288, 2304, False, True, "relu"),
+    (288, 288, 37, True, False, "none"), (16, 300, 700, True, True, "relu"),
+    (512, 512, 1000, False, True, "relu"), (544, 544, 2304, False, True, "relu"),
+    (100, 544, 17, True, True, "none"), (128, 1024, 500, True, True, "relu"),
+    (37, 777, 36, False, False, "relu")])
+def test_wide_conv3_matches_plain_and_f64(card, dtype, c_in, c_out, T, bias,
+                                          affine, act):
+    args = _conv3_general_case(card, 4, c_in, c_out, T,
+                               [T, max(T - 3, 1), T // 2, 0], dtype,
+                               c_in + c_out + T, bias, affine)
+    assert fused_conv.conv3_route(c_out) == "wide"
+    op = ops.conv3_ln_act
+    before = _counts(op)
+    got = op(*args, act=act)
+    bf16 = dtype == torch.bfloat16
+    assert _made(op, before, "wide", bf16)
+    with cuda.plain_versions():
+        want = op(*args, act=act)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype, TOL["conv3_ln_act"])
+    if not bf16:
+        ref = _conv3_f64(*args, act=act)
+        assert float((got.double() - ref).abs().max()) <= TOL_F64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_out,T", [
+    (16, 24, 100), (16, 24, 700),            # the JAX kernel tests' shapes
+    (160, 160, 301), (128, 200, 36), (64, 256, 2304)])
+def test_wide_conv3_forced_at_narrow_widths(card, dtype, c_in, c_out, T):
+    """The tuned kernels' widths through the wide ones: clusters of one
+    block (f32 up to 256 channels, bf16 up to 144, the exchange among one)
+    and of two (bf16 above 144)."""
+    args = _conv3_general_case(card, 2, c_in, c_out, T, [T, int(0.6 * T)],
+                               dtype, c_in + c_out + T)
+    widest = 144 if dtype == torch.bfloat16 else 256
+    assert fused_conv.conv3_wide_plan(dtype, c_out).cluster == -(-c_out // widest)
+    got = fused_conv.launch_conv3_ln_act_wide([args[0]], [args[1]], *args[2:],
+                                              "relu", 1e-5)[0]
+    with cuda.plain_versions():
+        want = ops.conv3_ln_act(*args)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype, TOL["conv3_ln_act"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [288, 544, 1024])
+@pytest.mark.parametrize("which", list(LEVEL_LISTS))
+def test_wide_conv3_levels_one_launch_matches_plain(card, which, C, dtype):
+    """One launch over the served 7-level list and over the edge list (odd
+    T, x off 16 bytes, T shorter than a tile), against the plain version
+    and f64."""
+    g = torch.Generator(device=card).manual_seed(C + 1)
+    rows = 8 if which == "served" else 4
+    xs, masks = [], []
+    for T, how in LEVEL_LISTS[which]:
+        xs.append(moved(torch.randn(rows, C, T, generator=g, device=card)
+                        .to(dtype), how))
+        masks.append(_mask(([T, max(T - 3, 1), T // 2, 0] * rows)[:rows], T, card))
+    params = (torch.randn(C, C, 3, generator=g, device=card) / math.sqrt(3 * C),
+              None, 1 + 0.1 * torch.randn(C, 1, generator=g, device=card),
+              0.1 * torch.randn(C, 1, generator=g, device=card))
+    op = ops.conv3_ln_act
+    before = _counts(op)
+    got = ops.conv3_ln_act_levels(xs, masks, *params)
+    bf16 = dtype == torch.bfloat16
+    assert _made(op, before, "wide", bf16)
+    for x, m, y in zip(xs, masks, got, strict=True):
+        with cuda.plain_versions():
+            want = op(x, m, *params)
+        _assert_close(y, want, dtype, TOL["conv3_ln_act"])
+        if not bf16:
+            ref = _conv3_f64(x, m, *params)
+            assert float((y.double() - ref).abs().max()) <= TOL_F64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_conv3_weight_operands_follow_updates(card, dtype):
+    """The sliced weight images are cached against the weight's version: an
+    in-place update builds fresh ones."""
+    conv = torch.nn.Conv1d(64, 544, 3).to(card)
+    x = torch.randn(2, 64, 300, device=card).to(dtype)
+    mask = _mask([300, 120], 300, card)
+    w, b = conv.weight, conv.bias
+    first = ops.conv3_ln_act(x, mask, w, b)
+    assert fused_conv.conv3_wide_operands(w, dtype) is \
+        fused_conv.conv3_wide_operands(w, dtype)
+    with torch.no_grad():
+        w.mul_(-1.0)
+    second = ops.conv3_ln_act(x, mask, w, b)
+    with cuda.plain_versions():
+        want = ops.conv3_ln_act(x, mask, w, b)
+    _assert_close(second, want, dtype, TOL["conv3_ln_act"])
+    assert float((second.float() - first.float()).abs().max()) > 1e-2
+
+
+@pytest.mark.cuda
+def test_wide_plan_matches_the_kernel_source(card):
+    """The wrapper's mirror of the wide kernels' plan is the one the source
+    computes, at every C_out the kernels take, in both dtypes; the source
+    refuses the rest."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for C_out in range(1, fused_conv.CONV3_WIDE_MAX_C + 1):
+            assert fused_conv.conv3_wide_source_plan(dtype, C_out) == \
+                fused_conv.conv3_wide_plan(dtype, C_out), (dtype, C_out)
+        with pytest.raises(ValueError):
+            fused_conv.conv3_wide_source_plan(dtype, fused_conv.CONV3_WIDE_MAX_C + 1)
+
+
 @pytest.mark.cuda
 def test_wide_shapes_route_to_the_general_kernels(card):
-    """The wrappers route C > 256 and D != 32 to the general kernels on
-    their own; nothing raises."""
+    """The wrappers route the trio at C > 256 and band attention at D != 32
+    to the general kernels, conv3 at C_out 257 to 1024 to the wide ones and
+    above that to the general one, on their own; nothing raises."""
     ops.reset_launch_counts()
     ops.qkv_depthwise_ln(*_case("qkv_depthwise_ln", 64, card, C=320))
     ops.conv3_ln_act(*_case("conv3_ln_act", 64, card, C=288))
     ops.band_attention(*_case("band_attention", 64, card, C=64))
-    assert ops.launch_counts(general=True) == {
-        "conv3_ln_act": 1, "band_attention": 1, "qkv_depthwise_ln": 1}
+    assert ops.launch_counts(route="general") == {
+        "conv3_ln_act": 0, "band_attention": 1, "qkv_depthwise_ln": 1}
+    assert ops.launch_counts(route="wide") == {
+        "conv3_ln_act": 1, "band_attention": 0, "qkv_depthwise_ln": 0}
+    ops.conv3_ln_act(*_case("conv3_ln_act", 64, card, C=1040))
+    assert ops.launch_counts(route="general")["conv3_ln_act"] == 1
     assert ops.launch_counts() == {
         "conv3_ln_act": 0, "band_attention": 0, "qkv_depthwise_ln": 0}
 
@@ -689,6 +819,9 @@ def test_launch_helpers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_conv.launch_conv3_ln_act_general([x], [mask], w, b, lw, lb,
                                                "relu", 1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_conv.launch_conv3_ln_act_wide([x], [mask], w, b, lw, lb,
+                                            "relu", 1e-5)
 
 
 @pytest.mark.parametrize("name", KERNELS)

@@ -1,13 +1,14 @@
 """The port's plain versions of the three kernel ops against the JAX
 package's XLA compositions (and, at one small shape each, its Pallas kernels
 in interpret mode) at the shapes outside the tuned CUDA kernels' envelope,
-which the general kernels (csrc/*_general.cu) take on the card: band
+which the general kernels (csrc/*_general.cu) take on the card, and for
+conv3 at C_out 257 to 1024 the wide ones (csrc/conv3_ln_act_wide.cu): band
 attention at head widths 16 and 64 and window 11, conv3 at C_out 288 and
-over 9 FPN levels, the trio at C 320. Same numpy inputs on both sides;
-tolerance 1e-5 absolute, the conv ops with rtol 1e-4 as
+544 and over 9 FPN levels, the trio at C 320. Same numpy inputs on both
+sides; tolerance 1e-5 absolute, the conv ops with rtol 1e-4 as
 tests/test_torch_ops.py holds them (3 * C_in-term f32 sums before the LN).
-The general kernels themselves are held against these plain versions on
-the card in tests/test_torch_kernels.py."""
+The kernels themselves are held against these plain versions on the card
+in tests/test_torch_kernels.py."""
 
 import numpy as np
 import pytest
@@ -95,7 +96,7 @@ def test_conv3_plain_matches_jax_wide(c_in, c_out, T, bias):
     want = np.asarray(_jit(jfc.conv3_ln_act_xla)(*map(_j, args)))
     got = tfc.conv3_ln_act_torch(*map(_t, args)).numpy()
     np.testing.assert_allclose(got, want, rtol=CONV_RTOL, atol=ATOL)
-    assert tfc.conv3_route(c_out) == "general"
+    assert tfc.conv3_route(c_out) == "wide"
 
 
 def test_conv3_plain_matches_pallas_interpret_wide():
