@@ -8,8 +8,8 @@ Phases, each printing one JSON line:
   build    compiles the CUDA kernels from decafnet_tpu_torch/csrc with nvcc,
            prints ptxas's registers / shared memory / spills of every
            kernel and checks in the SASS (cuobjdump) that the conv3
-           kernels, tuned and wide, run on wgmma (HGMMA, in f32 and in
-           bf16) and that the bf16 band-attention kernel loads by TMA
+           kernels, tuned, wide and pass, run on wgmma (HGMMA, in f32 and
+           in bf16) and that the bf16 band-attention kernel loads by TMA
            (UTMALDG) under mbarriers (SYNCS);
   kernels  holds each kernel against its plain PyTorch version on the card at
            the served shapes (V=8 videos x Q=8 queries = 64 rows, T=2304, all
@@ -39,24 +39,31 @@ Phases, each printing one JSON line:
            at the MAD decode shape;
   shapes   (after the MAD kernels) the general kernels
            (csrc/*_general.cu: the shapes the tuned kernels are not built
-           for) and conv3's wide kernels (csrc/conv3_ln_act_wide.cu: C_out
-           257 to 1024, a thread-block cluster splitting the channels)
-           against their plain versions in f32 and bf16: at the JAX
+           for), conv3's wide kernels (csrc/conv3_ln_act_wide.cu: C_out
+           257 to 1024, a thread-block cluster splitting the channels) and
+           pass kernels (csrc/conv3_ln_act_passes.cu: C_out 1025 to 4096,
+           one block computing the channels in passes) against their plain
+           versions in f32 and bf16: at the JAX
            package's own kernel-test shapes (band attention B 2, H 4, D 16,
            T 96 ... 7, windows 5 and 9; conv3 C_in 16 -> C_out 24 at T 100,
            256, 700; the trio C 16 at T 200, 384; the launch helpers force
            the general kernels there), band attention at D 16, 64 and 128
-           with window 11 over the served 7 levels, conv3 at C_out 288, 512
+           with window 11 and at D 256 with window 5 over the served 7
+           levels, conv3 at C_out 288, 512
            and 544 over 7 levels in one launch, the wide kernel routed and
            the general one forced (f32 also against f64), the wide kernel at
-           C_out 300 and 1024 over 16 rows, the trio at C 512, and a head
-           layer over 9 levels (two launches of the routed kernel) at C_out
-           160 (tuned), 288 (wide) and 1056 (general); a bf16 seed sweep of
-           conv3 (tuned at 160, wide at 288, 512, 544) against the plain
-           version and the exactly rounded composition; times kernel, plain
-           version, bound (conv3's products at the tensor cores' rate) and,
-           for band attention, SDPA; conv3's wide and general kernels in
-           turns (general, wide, wide, general) at 288, 512 and 544;
+           C_out 300 and 1024 over 16 rows, conv3 at C_out 1056 over 7
+           levels, the pass kernel routed and the general one forced (f32
+           also against f64), the pass kernel at C_out 1025 and 4096 over 4
+           rows, the trio at C 512, and a head layer over 9 levels (two
+           launches of the routed kernel) at C_out 160 (tuned), 288 (wide),
+           1056 (passes) and 4100 (general); a bf16 seed sweep of conv3
+           (tuned at 160, wide at 288, 512, 544, passes at 1056) against
+           the plain version and the exactly rounded composition; times
+           kernel, plain version, bound (conv3's products at the tensor
+           cores' rate) and, for band attention, SDPA; conv3's wide and
+           general kernels in turns (general, wide, wide, general) at 288,
+           512 and 544, the pass and general ones at 1056;
   card_tests (after it) the bf16 autograd card cases of
            tests/test_torch_kernels.py through pytest in a subprocess;
   bf16     (after the http phase) the bf16 compute mode, tpu.compute_dtype
@@ -106,7 +113,7 @@ Phases, each printing one JSON line:
            conv3 at 256 tuned and 288 wide), embd_dim 512 (conv3 at 512 and
            544 on the wide kernels, band attention and the trio on their
            general ones) and embd_dim 1024 (conv3 at 1024 wide and 1056 on
-           the general kernel): kernels against plain and served in f32 and
+           the pass kernels): kernels against plain and served in f32 and
            bf16, as above;
   serve    builds GroundingService at the Ego4D-NLQ width
            (configs/ego4d_nlq.yaml) with seeded random weights on the card,
@@ -269,11 +276,12 @@ legs, each with the breakdown; each kernel also carries its record at the
 MAD decode shape ("mad_decode"); the bf16 records also carry ptxas's
 registers, spills and shared memory of their kernels, conv3's HGMMA count,
 and the f32 kernel's time; then the six general kernels and conv3's two
-wide ones, f32 and bf16, with their launches over the configs phase's
-paths and their times summed over the shapes phase's timed calls, per
-shape in "shapes" (the wide ones beside the general kernel's time at the
-same shapes, "general_ms"). Every kernel must have launched on the main
-path. Then the nvidia-smi
+wide and two pass ones, f32 and bf16, with their launches over the configs
+phase's paths and their times summed over the shapes phase's timed calls,
+per shape in "shapes" (the wide and pass ones beside the general kernel's
+time at the same shapes, "general_ms"). Every kernel of a path must have
+launched on the main path; the general conv3 kernel is on none since the
+pass kernels (C_out above 4096 only: "on_path" false). Then the nvidia-smi
 name/power-limit line, and last {"ok": true, "device": {...}}. Any failed check raises: the
 script exits non-zero and prints no result. Without CUDA it exits 2.
 """
@@ -455,6 +463,13 @@ def ptxas_report(log):
     return out
 
 
+def bf16_kernel_name(name):
+    """Whether a compiled kernel's (mangled) name is a bf16 variant: its
+    name says so, or its first template argument is ``true``
+    (conv3_ln_act_passes_kernel<BF16, NS>)."""
+    return "bf16" in name or "bfloat16" in name or "ILb1E" in name
+
+
 def sass_counts(lib_path, name, ops):
     """Instructions per compiled kernel whose name holds ``name``, from
     cuobjdump -sass of the built library: each SASS line counts for the
@@ -529,13 +544,16 @@ def moved(x, how):
     return buf.copy_(x)
 
 
-def conv3_levels_case(dev, g, B, C, Ts, lens, how="as_is", dtype=torch.float32):
-    """One head layer over FPN levels: per level x (B, C, T) laid out as
-    ``how`` says and a mask of valid prefixes ``lens[i]``; one weight set."""
-    xs = [moved(torch.randn(B, C, T, generator=g, device=dev).to(dtype), how)
+def conv3_levels_case(dev, g, B, C, Ts, lens, how="as_is", dtype=torch.float32,
+                      c_in=None):
+    """One head layer over FPN levels: per level x (B, c_in, T) laid out as
+    ``how`` says and a mask of valid prefixes ``lens[i]``; one weight set
+    (C, c_in, 3); c_in is C unless given."""
+    c_in = c_in or C
+    xs = [moved(torch.randn(B, c_in, T, generator=g, device=dev).to(dtype), how)
           for T in Ts]
     masks = [prefix_mask(n, T, dev) for n, T in zip(lens, Ts)]
-    w = torch.randn(C, C, 3, generator=g, device=dev) / math.sqrt(3 * C)
+    w = torch.randn(C, c_in, 3, generator=g, device=dev) / math.sqrt(3 * c_in)
     lw = 1 + 0.1 * torch.randn(C, 1, generator=g, device=dev)
     lb = 0.1 * torch.randn(C, 1, generator=g, device=dev)
     return xs, masks, (w, None, lw, lb)
@@ -4088,26 +4106,44 @@ SHAPE_KERNELS = {
     ("band_attention", "general"): "decafnet_tpu_torch/csrc/band_attention_general.cu",
     ("conv3_ln_act", "general"): "decafnet_tpu_torch/csrc/conv3_ln_act_general.cu",
     ("conv3_ln_act", "wide"): "decafnet_tpu_torch/csrc/conv3_ln_act_wide.cu",
+    ("conv3_ln_act", "passes"): "decafnet_tpu_torch/csrc/conv3_ln_act_passes.cu",
     ("qkv_depthwise_ln", "general"): "decafnet_tpu_torch/csrc/qkv_depthwise_ln_general.cu"}
+# the kernels of the shapes phase that no path launches, and why
+OFF_PATH = {("conv3_ln_act", "general"):
+            "no path runs conv3 above C_out 4096: the embd-1024 heads' 1056 take "
+            "the pass kernels; timed here forced, at the wide and pass kernels' "
+            "widths"}
 JAX_BAND_SHAPES = ((96, 5), (40, 9), (130, 5), (8, 5), (7, 5), (96, 9), (7, 9))
 JAX_CONV3_T = (100, 256, 700)
 JAX_TRIO_T = (200, 384)
-SHAPES_HEAD_DIMS, SHAPES_WINDOW = (16, 64, 128), 11
+# band attention at head widths 16, 64 and 128 with window 11, and at the
+# embd-1024 leg's (D 256, the shipped window 5)
+SHAPES_BAND = ((16, 11), (64, 11), (128, 11), (256, WINDOW))
 # conv3 at embd 256 plus the heads' 32, and at embd 512 and 512 + 32: the
 # wide kernels, timed in turns against the general kernel (forced) there
 SHAPES_CONV3_C = (288, 512, 544)
 # the wide kernels also at a C_out off 8 and at their widest, over fewer
-# rows; the general kernel routed above them (9 levels, 4 rows)
-SHAPES_WIDE_EDGE_C, SHAPES_WIDE_EDGE_ROWS, SHAPES_ABOVE_WIDE_C = (300, 1024), 16, 1056
+# rows
+SHAPES_WIDE_EDGE_C, SHAPES_WIDE_EDGE_ROWS = (300, 1024), 16
+# conv3 at embd 1024 plus the heads' 32: the pass kernels, timed in turns
+# against the general kernel (forced); the pass kernels also at C_out 1025
+# (off 8) and at their widest, over fewer rows; a head layer over 9 levels
+# at a width of each route, the general one routed above the pass kernels
+SHAPES_PASSES_C, SHAPES_PASSES_EDGE_C, SHAPES_PASSES_EDGE_ROWS = 1056, (1025, 4096), 4
+SHAPES_NINE_LEVELS_C = (EMBD + RDIM, 288, 1056, 4100)
 SHAPES_TRIO_C = 512
 SHAPES_PER = {
     ("band_attention", "general"): "7 levels at 64 rows x T=2304, 4 heads of "
-                                   "D = 16, 64 and 128 each, window 11",
+                                   "D = 16, 64 and 128 each at window 11, "
+                                   "and D = 256 at window 5",
     ("conv3_ln_act", "wide"): "one launch over 7 levels at 64 rows x T=2304 at "
                               "C_in = C_out = 288, one at 512 and one at 544",
+    ("conv3_ln_act", "passes"): "one launch over 7 levels at 64 rows x T=2304 "
+                                "at C_in = C_out = 1056",
     ("conv3_ln_act", "general"): "one launch over 7 levels at 64 rows x "
                                  "T=2304 at C_in = C_out = 288, one at 512 and "
-                                 "one at 544, forced (the wide kernels' widths)",
+                                 "one at 544 (the wide kernels' widths) and one "
+                                 "at 1056 (the pass kernels'), forced",
     ("qkv_depthwise_ln", "general"): "64 rows x T=2304 at C = 512"}
 
 
@@ -4162,13 +4198,14 @@ def conv3_bf16_exact(x, mask, w, bias, ln_w, ln_b, eps=1e-5):
 
 # the bf16 conv3 at several seeds: the kernels' f32 sums run in another
 # order than cuDNN's, so which pre-LN bf16 roundings flip depends on the data
-SWEEP_SEEDS, SWEEP_ROWS, SWEEP_C = 8, 16, (160, 288, 512, 544)
+SWEEP_SEEDS, SWEEP_ROWS, SWEEP_C = 8, 16, (160, 288, 512, 544, 1056)
 
 
-def conv3_bf16_sweep(dev, rec):
+def conv3_bf16_sweep(dev, recs):
     """The bf16 conv3 kernels (the tuned one at C 160, the wide one at 288,
-    512 and 544; ``rec`` is the wide one's record) at SWEEP_SEEDS seeds over
-    7 levels of SWEEP_ROWS rows, x
+    512 and 544, the pass one at 1056; ``recs`` the shapes phase's records
+    by route, those of the wide and pass routes updated) at SWEEP_SEEDS
+    seeds over 7 levels of SWEEP_ROWS rows, x
     randn or relu(randn) (a head layer's input is the layer before's ReLU
     output), without a bias (as every conv3 of the model runs) and with a
     randn one. Each output is held against the plain bf16 version and
@@ -4215,7 +4252,8 @@ def conv3_bf16_sweep(dev, rec):
                     case["kernel_vs_exact"] = max(case["kernel_vs_exact"], ke)
                     case["plain_vs_exact"] = max(case["plain_vs_exact"], pe)
                     case["seeds_over_tol_vs_plain"] += kp > TOL_BF16
-                    if not bias and case["route"] == "wide":
+                    rec = recs.get(case["route"])
+                    if not bias and rec is not None:
                         rec["max_abs_err"] = max(rec["max_abs_err"], bf16_err(got, want)[0])
                         rec["max_rel_err"] = max(rec["max_rel_err"], kp)
                     del xs, masks, got, want, exact
@@ -4281,7 +4319,8 @@ def run_shapes(dev):
                 rec["library_ms"] = (rec["library_ms"] or 0.0) + lib_ms
             rec["shapes"].append({"shape": shape, "ms": ms, "plain_ms": plain_ms,
                                   "bound_ms": b_ms, "bound_by": by,
-                                  "share_of_bound": b_ms / ms, "library_ms": lib_ms,
+                                  "share_of_bound": b_ms / ms,
+                                  "excess_ms": ms - b_ms, "library_ms": lib_ms,
                                   **extra})
 
         def timed(name, fn, plain, n_bytes, n_flops, shape, lib=None,
@@ -4294,23 +4333,23 @@ def run_shapes(dev):
                  tc_flops)
 
         # band attention, the general kernel: the JAX kernel tests' shapes
-        # (B 2, H 4, D 16), then 64 rows x 7 levels at D 16, 64, 128
+        # (B 2, H 4, D 16), then 64 rows x 7 levels at D 16, 64, 128 (window
+        # 11) and 256 (window 5)
         band = ops.band_attention
         for T, w in JAX_BAND_SHAPES:
             args, _ = band_case(dev, g, 2, T, [T, max(1, T * 2 // 3)], D=16,
                                 dtype=dtype, window=w)
             hold("band_attention", lambda: band(*args), lambda: band(*args),
                  f"JAX test shape B 2, H 4, D 16, T {T}, window {w}")
-        for D in SHAPES_HEAD_DIMS:
+        for D, W in SHAPES_BAND:
             for level in range(LEVELS):
                 T = T0 // 2 ** level
                 lens = row_lens(level)
                 args, _ = band_case(dev, g, ROWS, T, lens, D=D, dtype=dtype,
-                                    window=SHAPES_WINDOW)
-                what = f"64 rows, D {D}, window {SHAPES_WINDOW}, level {level} (T {T})"
+                                    window=W)
+                what = f"64 rows, D {D}, window {W}, level {level} (T {T})"
                 hold("band_attention", lambda: band(*args), lambda: band(*args), what)
                 n_valid = sum(min(n, T) for n in lens)
-                W = SHAPES_WINDOW
                 timed("band_attention", lambda: band(*args), lambda: band(*args),
                       esz * (3 * n_valid * HEADS * D + ROWS * HEADS * T * D) + ROWS * T,
                       n_valid * HEADS * (4 * W * D + 4 * W), [ROWS, HEADS, T, D],
@@ -4320,8 +4359,9 @@ def run_shapes(dev):
         # conv3, the general kernel: the JAX kernel tests' shapes (C_in 16,
         # C_out 24, lengths T and 0.6 T; forced); the wide kernels at C_out
         # 288, 512 and 544 over 7 levels beside the general one (forced),
-        # and at 300 and 1024; then 9 levels (two launches) at a tuned, a
-        # wide and a general C_out
+        # and at 300 and 1024; the pass kernels at 1056 beside the general
+        # one (forced), and at 1025 and 4096; then 9 levels (two launches)
+        # at a tuned, a wide, a pass and a general C_out
         conv3 = ops.conv3_ln_act
         for T in JAX_CONV3_T:
             x = torch.randn(2, 16, T, generator=g, device=dev).to(dtype)
@@ -4334,14 +4374,22 @@ def run_shapes(dev):
                 [x], [m], *p, "relu", 1e-5)[0],
                 lambda: conv3(x, m, *p), f"JAX test shape C_in 16 -> C_out 24, T {T}")
         Ts = [T0 // 2 ** lvl for lvl in range(LEVELS)]
-        for C in SHAPES_CONV3_C + SHAPES_WIDE_EDGE_C:
-            rows = ROWS if C in SHAPES_CONV3_C else min(ROWS, SHAPES_WIDE_EDGE_ROWS)
+        timed_c = SHAPES_CONV3_C + (SHAPES_PASSES_C,)
+        for C in (SHAPES_CONV3_C + SHAPES_WIDE_EDGE_C + (SHAPES_PASSES_C,)
+                  + SHAPES_PASSES_EDGE_C):
+            route = fused_conv.conv3_route(C)
+            if C in timed_c:
+                rows = ROWS
+            elif route == "wide":
+                rows = SHAPES_WIDE_EDGE_ROWS
+            else:
+                rows = SHAPES_PASSES_EDGE_ROWS
             xs, masks, params = conv3_levels_case(
                 dev, g, rows, C, Ts,
                 [row_lens(lvl)[::ROWS // rows] for lvl in range(LEVELS)], dtype=dtype)
-            assert fused_conv.conv3_route(C) == "wide", C
+            assert route == ("wide" if C <= fused_conv.CONV3_WIDE_MAX_C else "passes"), C
 
-            def wide():
+            def routed():
                 return tuple(ops.conv3_ln_act_levels(xs, masks, *params))
 
             def general():
@@ -4352,8 +4400,8 @@ def run_shapes(dev):
                 return tuple(conv3(x, m, *params) for x, m in zip(xs, masks))
 
             where = f"{rows} rows, C {C}, 7 levels in one launch"
-            outs = {"wide": hold("conv3_ln_act", wide, plain, where, "wide")}
-            if C in SHAPES_CONV3_C:
+            outs = {route: hold("conv3_ln_act", routed, plain, where, route)}
+            if C in timed_c:
                 outs["general"] = hold("conv3_ln_act", general, plain,
                                        where + ", forced", "general")
             if not bf16:
@@ -4361,40 +4409,42 @@ def run_shapes(dev):
                 with cuda.plain_versions():
                     plain64 = max(max_err(conv3(x, m, *params).double(), r)
                                   for x, m, r in zip(xs, masks, refs))
-                for route, got in outs.items():
+                for kind, got in outs.items():
                     err64 = max(max_err(y.double(), r) for y, r in zip(got, refs))
-                    emit({"phase": "shapes", "kernel": "conv3_ln_act_" + route,
+                    emit({"phase": "shapes", "kernel": "conv3_ln_act_" + kind,
                           "check": f"vs f64, {where}",
                           "max_abs_err_f64": err64, "plain_max_abs_err_f64": plain64,
                           "tol": TOL_F64, "ok": err64 <= TOL_F64})
-                    assert err64 <= TOL_F64, (route, C, err64)
-                    rec = recs["conv3_ln_act", route, dtype]
+                    assert err64 <= TOL_F64, (kind, C, err64)
+                    rec = recs["conv3_ln_act", kind, dtype]
                     rec["max_abs_err_f64"] = max(rec.get("max_abs_err_f64", 0.0), err64)
                 del refs
             del outs
-            if C in SHAPES_CONV3_C:
-                # the wide and the general kernel in turns (general, wide,
-                # wide, general), then the plain version
-                ab = time_in_turns(general, wide, 5)
+            if C in timed_c:
+                # the routed and the general kernel in turns (general,
+                # routed, routed, general), then the plain version
+                ab = time_in_turns(general, routed, 5)
                 with cuda.plain_versions():
                     plain_ms = time_ms(plain, 3, warmup=1)
                 cols = ROWS * sum(Ts)
                 work = (esz * 2 * C * cols + ROWS * sum(Ts) + 4 * (3 * C * C + 2 * C),
                         8 * cols * C, [ROWS, C, Ts])
                 tc = tc_passes * 2 * cols * C * 3 * C
-                book("conv3_ln_act", "wide", ab["new_ms"], plain_ms, *work,
+                book("conv3_ln_act", route, ab["new_ms"], plain_ms, *work,
                      tc_flops=tc, general_ms=ab["old_ms"],
                      spread_ms=ab["new_spread_ms"])
                 book("conv3_ln_act", "general", ab["old_ms"], plain_ms, *work,
-                     tc_flops=tc, wide_ms=ab["new_ms"],
+                     tc_flops=tc, **{route + "_ms": ab["new_ms"]},
                      spread_ms=ab["old_spread_ms"])
             del xs, masks
-        for C in (EMBD + RDIM, SHAPES_CONV3_C[0], SHAPES_ABOVE_WIDE_C):
+        for C in SHAPES_NINE_LEVELS_C:
             route = fused_conv.conv3_route(C)
             Ts = [T0 // 2 ** lvl for lvl in range(9)]
+            # above the pass kernels, a narrow input (the general kernel
+            # multiplies on the CUDA cores)
             xs, masks, params = conv3_levels_case(
                 dev, g, 4, C, Ts, [[T, max(T - 3, 1), T // 2, 0] for T in Ts],
-                dtype=dtype)
+                dtype=dtype, c_in=64 if route == "general" else None)
             counts0 = [getattr(conv3, a) for a in ops.COUNTERS]
             hold("conv3_ln_act", lambda: tuple(ops.conv3_ln_act_levels(
                 xs, masks, *params)), lambda: tuple(
@@ -4410,7 +4460,7 @@ def run_shapes(dev):
 
         if bf16:
             recs["conv3_ln_act", "wide", dtype]["seed_sweep"] = conv3_bf16_sweep(
-                dev, recs["conv3_ln_act", "wide", dtype])
+                dev, {r: recs["conv3_ln_act", r, dtype] for r in ("wide", "passes")})
 
         # the trio, the general kernel: the JAX kernel tests' shapes (C 16;
         # forced), then C 512 at 64 rows x T = 2304
@@ -4819,23 +4869,31 @@ def main():
           "nvcc_s": compile_s, "seconds": time.perf_counter() - t0})
     for kernel in ("conv3_ln_act", "band_attention", "qkv_depthwise_ln"):
         for source in (kernel, kernel + "_general") + (
-                ("conv3_ln_act_wide",) if kernel == "conv3_ln_act" else ()):
+                ("conv3_ln_act_wide", "conv3_ln_act_passes")
+                if kernel == "conv3_ln_act" else ()):
             emit({"phase": "build", "kernel": source, "ptxas":
                   ptxas_report(cuda.build_log(source + ".cu"))})
-    # the tuned conv3 kernels and the wide ones (one per slice width of each
-    # dtype), on wgmma (HGMMA; the general kernel of
-    # csrc/conv3_ln_act_general.cu multiplies on the CUDA cores)
+    # the tuned conv3 kernels, the wide ones (one per slice width of each
+    # dtype) and the pass ones (one per pass width of each dtype), on wgmma
+    # (HGMMA; the general kernel of csrc/conv3_ln_act_general.cu multiplies
+    # on the CUDA cores)
     all_mma = sass_mma(path, "conv3_ln_act")
-    mma = {k: c for k, c in all_mma.items() if "general" not in k and "wide" not in k}
+    mma = {k: c for k, c in all_mma.items()
+           if not any(r in k for r in ("general", "wide", "passes"))}
     mma_wide = {k: c for k, c in all_mma.items() if "wide" in k}
+    mma_passes = {k: c for k, c in all_mma.items() if "passes" in k}
     emit({"phase": "build", "kernel": "conv3_ln_act", "sass_mma": mma})
     emit({"phase": "build", "kernel": "conv3_ln_act_wide", "sass_mma": mma_wide})
+    emit({"phase": "build", "kernel": "conv3_ln_act_passes", "sass_mma": mma_passes})
     assert mma and all(c["HGMMA"] > 0 for c in mma.values()), \
         "conv3_ln_act does not run on the tensor cores"
-    from decafnet_tpu_torch.ops.fused_conv import CONV3_WIDE_SLICES
+    from decafnet_tpu_torch.ops.fused_conv import CONV3_PASSES_SLICES, CONV3_WIDE_SLICES
     assert len(mma_wide) == sum(map(len, CONV3_WIDE_SLICES.values())) and all(
         c["HGMMA"] > 0 for c in mma_wide.values()), \
         "conv3_ln_act_wide does not run on the tensor cores"
+    assert len(mma_passes) == 2 * len(CONV3_PASSES_SLICES) and all(
+        c["HGMMA"] > 0 for c in mma_passes.values()), \
+        "conv3_ln_act_passes does not run on the tensor cores"
     # the bf16 band kernel's pipeline (split 1, its instantiations
     # <halo, 1>) loads its tiles by TMA (UTMALDG) under mbarriers (SYNCS)
     tma = sass_counts(path, "band_attention_bf16_kernel", ("UTMALDG", "SYNCS"))
@@ -4971,7 +5029,7 @@ def main():
         bf16 = dtype == torch.bfloat16
         by = cfg_paths[dtype, route]
         src = SHAPE_KERNELS[n, route]
-        wide = route == "wide"
+        wgmma = {"wide": mma_wide, "passes": mma_passes}.get(route)
         kernels.append({
             "name": f"{n}_{route}" + ("_bf16" if bf16 else ""), "route": "cuda",
             "source": src, "replaces": REPLACES[n],
@@ -4982,16 +5040,19 @@ def main():
             "bound_by": "bytes" if r["byte_ms"] >= r["flop_ms"] else "operations",
             "library_ms": r["library_ms"], "per": r["per"],
             **({"general_ms": sum(sh["general_ms"] for sh in r["shapes"]),
-                "sass_mma": {k: c for k, c in mma_wide.items()
-                             if ("bf16" in k) == bf16}} if wide else {}),
+                "sass_mma": {k: c for k, c in wgmma.items()
+                             if bf16_kernel_name(k) == bf16}}
+               if wgmma is not None else {}),
+            **({"on_path": False, "off_path": OFF_PATH[n, route]}
+               if (n, route) in OFF_PATH else {}),
             "ptxas": [k for k in ptxas_report(cuda.build_log(os.path.basename(src)))
-                      if ("bf16" in k["kernel"] or "bfloat16" in k["kernel"]) == bf16],
+                      if bf16_kernel_name(k["kernel"]) == bf16],
             **{k: r[k] for k in ("max_abs_err_f64", "seed_sweep") if k in r},
             "shapes": r["shapes"]})
     emit({"phase": "walls", "seconds": walls,
           "total_s": time.perf_counter() - t_start})
     # every kernel of the paths ran on the main path
-    assert all(k["launches"] > 0 for k in kernels), \
+    assert all(k["launches"] > 0 for k in kernels if k.get("on_path", True)), \
         [k["name"] for k in kernels if not k["launches"]]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -158,99 +158,6 @@ struct BfWide {
   static_assert(STAGE % 1024 == 0, "1024-byte aligned swizzle atoms");
 };
 
-// ------------------------------------------------------------------ cluster
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ int cluster_id() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
-  return (int)r;
-}
-__device__ __forceinline__ int cluster_count() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
-  return (int)r;
-}
-
-// every thread of every block of the cluster, the whole warp at once
-__device__ __forceinline__ void cluster_sync_aligned() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-// the same, where a warp's threads reach it at different points
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\n"
-               "barrier.cluster.wait.acquire;" ::: "memory");
-}
-
-// the shared::cluster address of p's counterpart in block `rank` of the cluster
-__device__ __forceinline__ uint32_t peer(const void* p, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void st_peer(uint32_t addr, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
-}
-// arrive on a peer's mbarrier, releasing this thread's earlier stores to the cluster
-__device__ __forceinline__ void arrive_peer(uint32_t bar) {
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-// mbar_wait with acquire at cluster scope: the peers' stores released by their
-// arrivals are visible after it (a wait past ~2^28 polls traps, as mbar_wait)
-__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n == (1u << 28)) __trap();
-  }
-}
-
-// The cluster's sum of one LN partial of the columns col[0], col[1] of the
-// item (s[h], this thread's channels): the quad's lanes add theirs, lane q
-// stores the quad's sums as source `src` into red[src][col] of blocks q and
-// q + 4 and arrives on their barriers `bar`, then every block waits for all
-// 64 * CL arrivals on its own and adds sources 0 .. n_src - 1 in order.
-__device__ __forceinline__ void cluster_sum(float (&s)[2], const int (&col)[2], float* red,
-                                            uint64_t* bar, int parity, int q, uint32_t cl,
-                                            int src, int n_src) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
-    s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
-  }
-#pragma unroll
-  for (uint32_t dst = q; dst < cl; dst += 4) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) st_peer(peer(red + src * 2 * WM + col[h], dst), s[h]);
-    arrive_peer(peer(bar, dst));
-  }
-  mbar_wait_cluster(bar, parity);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float v = red[col[h]];
-    for (int i = 1; i < n_src; ++i) v += red[i * 2 * WM + col[h]];
-    s[h] = v;
-  }
-}
-
 // barriers of a block: the ring's, and the exchange's (64 arrivals from each
 // block of the cluster: lanes g = 0..7 of one quad column of its 8 consumer
 // warps). The caller syncs the cluster before any block arrives on a peer's

@@ -18,13 +18,14 @@ KERNEL_OPS = (conv3_ln_act, band_attention, qkv_depthwise_ln)
 
 
 # the kernels of an op, by the route its wrapper picks from the shape: the
-# tuned kernels, conv3's wide ones (C_out 257 to 1024) and the general ones
-# (the shapes the others are not built for); ops without a route's kernel
-# count 0 there
-ROUTES = ("tuned", "wide", "general")
+# tuned kernels, conv3's wide ones (C_out 257 to 1024) and pass ones (1025 to
+# 4096), and the general ones (the shapes the others are not built for); ops
+# without a route's kernel count 0 there
+ROUTES = ("tuned", "wide", "passes", "general")
 # each op's launch counters: per route, f32 and bf16
 COUNTERS = ("launches", "launches_bf16", "launches_general",
-            "launches_general_bf16", "launches_wide", "launches_wide_bf16")
+            "launches_general_bf16", "launches_wide", "launches_wide_bf16",
+            "launches_passes", "launches_passes_bf16")
 
 
 def reset_launch_counts():
@@ -37,7 +38,8 @@ def launch_counts(dtype=torch.float32, route="tuned"):
     """Launches of each op's kernel of ``route`` (one of ROUTES) for
     ``dtype`` activations (f32 or bf16) since the last
     :func:`reset_launch_counts`."""
-    attr = ("launches" + {"tuned": "", "wide": "_wide", "general": "_general"}[route]
+    attr = ("launches" + {"tuned": "", "wide": "_wide", "passes": "_passes",
+                          "general": "_general"}[route]
             + {torch.float32: "", torch.bfloat16: "_bf16"}[dtype])
     return {op.__name__: getattr(op, attr) for op in KERNEL_OPS}
 

@@ -52,7 +52,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu), all returning an int: a
 # cudaError_t, or for decafnet_conv3_ln_act_general_tile a tile width
-# (decafnet_conv3_ln_act_wide_plan writes its plan into an int[5])
+# (decafnet_conv3_ln_act_wide_plan and decafnet_conv3_ln_act_passes_plan
+# write their plans into an int[5])
 _SIGNATURES = {
     "decafnet_conv3_ln_act_f32": [_vp, _i, _vp, _i] + [_vp] * 4 + [_i] * 2 + [_f, _i, _vp],
     "decafnet_conv3_ln_act_bf16": [_vp, _i, _vp, _i] + [_vp] * 4 + [_i] * 2 + [_f, _i, _vp],
@@ -66,6 +67,9 @@ _SIGNATURES = {
     "decafnet_conv3_ln_act_wide_f32": [_vp, _i, _vp, _i] + [_vp] * 4 + [_i] * 4 + [_f, _i, _vp],
     "decafnet_conv3_ln_act_wide_bf16": [_vp, _i, _vp, _i] + [_vp] * 4 + [_i] * 4 + [_f, _i, _vp],
     "decafnet_conv3_ln_act_wide_plan": [_i, _i, _vp],
+    "decafnet_conv3_ln_act_passes_f32": [_vp, _i, _vp, _i] + [_vp] * 4 + [_i] * 4 + [_f, _i, _vp],
+    "decafnet_conv3_ln_act_passes_bf16": [_vp, _i, _vp, _i] + [_vp] * 4 + [_i] * 4 + [_f, _i, _vp],
+    "decafnet_conv3_ln_act_passes_plan": [_i, _i, _vp],
     "decafnet_qkv_depthwise_ln_general_f32": [_vp] * 14 + [_i] * 3 + [_f, _vp],
     "decafnet_qkv_depthwise_ln_general_bf16": [_vp] * 14 + [_i] * 3 + [_f, _vp],
     "decafnet_band_attention_general_f32": [_vp] * 5 + [_i] * 4 + [_ll] * 4 + [_i, _vp],

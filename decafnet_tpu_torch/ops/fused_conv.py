@@ -5,16 +5,18 @@ Each op has a plain PyTorch version (``*_torch``) and hand-written CUDA
 kernels: tuned ones (csrc/conv3_ln_act.cu, csrc/qkv_depthwise_ln.cu) for
 the channel counts they are built for (up to 256), for conv3 wide ones
 (csrc/conv3_ln_act_wide.cu: a thread-block cluster splits C_out up to
-1024), and general ones (csrc/conv3_ln_act_general.cu,
+1024) and pass ones (csrc/conv3_ln_act_passes.cu: one block computes C_out
+up to 4096 in passes), and general ones (csrc/conv3_ln_act_general.cu,
 csrc/qkv_depthwise_ln_general.cu) for wider layers, each in f32 and bf16.
 The public op takes the plain version for a tensor on the CPU and, for a
 CUDA tensor, launches the kernel that its route rule (:func:`conv3_route`,
 :func:`qkv_route`) picks from the width, in the input's dtype;
 ``.launches`` / ``.launches_bf16`` on the op count launches of the tuned
-f32 / bf16 kernel, ``.launches_wide`` / ``.launches_wide_bf16`` of conv3's
-wide ones, ``.launches_general`` / ``.launches_general_bf16`` of the
-general ones (for conv3, one launch covers up to CONV3_MAX_LEVELS levels of
-a :func:`conv3_ln_act_levels` call). Under autograd each op's backward
+f32 / bf16 kernel, ``.launches_wide`` / ``.launches_wide_bf16`` and
+``.launches_passes`` / ``.launches_passes_bf16`` of conv3's wide and pass
+ones, ``.launches_general`` / ``.launches_general_bf16`` of the general
+ones (for conv3, one launch covers up to CONV3_MAX_LEVELS levels of a
+:func:`conv3_ln_act_levels` call). Under autograd each op's backward
 recomputes through its plain version (the rule in ops/cuda.py).
 """
 
@@ -209,16 +211,96 @@ def conv3_wide_operands(w, dtype=torch.float32):
     ceil(C_in/32), 3, slice, 32) (:func:`conv3_bf16_fragments`). Cached
     against the weight's version, as those are."""
     def build(w):
-        C_out, C_in, _ = w.shape
-        plan = conv3_wide_plan(dtype, C_out)
-        wp = w.new_zeros(plan.cluster * plan.slice, C_in, 3, dtype=torch.float32)
-        wp[:C_out] = w
-        if dtype == torch.bfloat16:
-            return torch.stack([conv3_bf16_fragments(s, plan.slice)
-                                for s in wp.split(plan.slice)])
-        return torch.stack([torch.stack(tf32_split(conv3_weight_fragments(s, plan.slice)), 1)
-                            for s in wp.split(plan.slice)])
+        plan = conv3_wide_plan(dtype, w.shape[0])
+        return _slice_images(w, dtype, plan.cluster, plan.slice)
     key = "wide_bf16" if dtype == torch.bfloat16 else "wide_tf32"
+    return cached(w, key, build)
+
+
+def _slice_images(w, dtype, n, width):
+    """``w`` zero-padded to ``n`` x ``width`` output channels, each slice of
+    ``width`` channels laid out as the tuned kernel of ``dtype`` stages it
+    at N = ``width``, the slices one after the other: f32 (n, ceil(C_in/8),
+    2, 3, width, 8) TF32 halves, bf16 (n, ceil(C_in/32), 3, width, 32)."""
+    C_out, C_in, _ = w.shape
+    wp = w.new_zeros(n * width, C_in, 3, dtype=torch.float32)
+    wp[:C_out] = w
+    if dtype == torch.bfloat16:
+        return torch.stack([conv3_bf16_fragments(s, width) for s in wp.split(width)])
+    return torch.stack([torch.stack(tf32_split(conv3_weight_fragments(s, width)), 1)
+                        for s in wp.split(width)])
+
+
+# the pass kernels of csrc/conv3_ln_act_passes.cu, both dtypes: one block per
+# item of CONV3_PASSES_TILE columns computes C_out in passes of one of
+# CONV3_PASSES_SLICES channels, up to CONV3_PASSES_MAX_C
+CONV3_PASSES_SLICES = (128, 160)
+CONV3_PASSES_MAX_C = 4096
+CONV3_PASSES_TILE = 128
+CONV3_PASSES_MAX_STAGES = 6
+
+
+class Conv3PassesPlan(NamedTuple):
+    """A launch plan of the pass conv3 kernels: output channels a pass,
+    passes, stages of the ring, dynamic shared memory bytes of a block and
+    time columns per work item."""
+    slice: int
+    passes: int
+    stages: int
+    smem: int
+    tile: int
+
+
+def conv3_passes_plan(dtype, C_out):
+    """The plan of the ``dtype`` pass kernel at ``C_out`` (1 to
+    CONV3_PASSES_MAX_C), as csrc/conv3_ln_act_passes.cu computes it
+    (passes_plan, Plan; its C query decafnet_conv3_ln_act_passes_plan
+    answers the same): passes of 160 channels where they pad C_out no more
+    than passes of 128, else of 128; a stage is one chunk of input channels
+    (8 in f32, 32 in bf16) of one pass, its x boxes (6 of 32 columns in
+    f32, 4 of 64 in bf16) and weights (192 bytes a channel), as many stages
+    as fit a block's shared memory beside the barriers, at most
+    CONV3_PASSES_MAX_STAGES; items of CONV3_PASSES_TILE columns."""
+    if not 1 <= C_out <= CONV3_PASSES_MAX_C:
+        raise ValueError(f"conv3_ln_act_passes: C_out {C_out} outside 1.."
+                         f"{CONV3_PASSES_MAX_C}")
+    narrow, wide = CONV3_PASSES_SLICES
+    ns = wide if wide * -(-C_out // wide) <= narrow * -(-C_out // narrow) else narrow
+    if dtype == torch.bfloat16:
+        x_bytes = (CONV3_PASSES_TILE // 64 + 2) * 32 * 64 * 2
+    else:
+        x_bytes = (CONV3_PASSES_TILE // 32 + 2) * 8 * 32 * 4
+    stage = x_bytes + 192 * ns
+    bars = 2 * 8
+    stages = min(CONV3_PASSES_MAX_STAGES,
+                 (SMEM_LIMIT - bars * CONV3_PASSES_MAX_STAGES - 1024) // stage)
+    return Conv3PassesPlan(ns, -(-C_out // ns), stages,
+                           stages * stage + bars * stages + 1024, CONV3_PASSES_TILE)
+
+
+def conv3_passes_source_plan(dtype, C_out):
+    """The plan csrc/conv3_ln_act_passes.cu computes at ``C_out`` (its C
+    query decafnet_conv3_ln_act_passes_plan), to hold
+    :func:`conv3_passes_plan` against on the card."""
+    out = (ctypes.c_int * 5)()
+    err = cuda.library().decafnet_conv3_ln_act_passes_plan(
+        C_out, int(dtype == torch.bfloat16), out)
+    if err:
+        raise ValueError(f"conv3_ln_act_passes: C_out {C_out} outside the "
+                         "kernels' plans")
+    return Conv3PassesPlan(*out)
+
+
+def conv3_passes_operands(w, dtype=torch.float32):
+    """The ``dtype`` pass kernel's weight operand: ``w`` zero-padded to
+    passes x slice output channels (:func:`conv3_passes_plan`), each pass's
+    image as the tuned kernel of that dtype stages it at N = slice, the
+    passes one after the other (the layout of :func:`conv3_wide_operands`
+    with passes for blocks). Cached against the weight's version."""
+    def build(w):
+        plan = conv3_passes_plan(dtype, w.shape[0])
+        return _slice_images(w, dtype, plan.passes, plan.slice)
+    key = "passes_bf16" if dtype == torch.bfloat16 else "passes_tf32"
     return cached(w, key, build)
 
 
@@ -243,10 +325,16 @@ def conv3_route(C_out):
     dtype: "tuned" (the wgmma kernels of csrc/conv3_ln_act.cu, built for N
     up to CONV3_WIDTHS[-1]), "wide" (the wgmma kernels of
     csrc/conv3_ln_act_wide.cu, a cluster of blocks splitting C_out up to
-    CONV3_WIDE_MAX_C) or "general" (csrc/conv3_ln_act_general.cu)."""
+    CONV3_WIDE_MAX_C), "passes" (the wgmma kernels of
+    csrc/conv3_ln_act_passes.cu, one block computing C_out up to
+    CONV3_PASSES_MAX_C in passes) or "general"
+    (csrc/conv3_ln_act_general.cu). A rule of the shape, decided before the
+    launch."""
     if C_out <= CONV3_WIDTHS[-1]:
         return "tuned"
-    return "wide" if C_out <= CONV3_WIDE_MAX_C else "general"
+    if C_out <= CONV3_WIDE_MAX_C:
+        return "wide"
+    return "passes" if C_out <= CONV3_PASSES_MAX_C else "general"
 
 
 def conv3_general_tile(C_out):
@@ -314,7 +402,10 @@ def conv3_ln_act_levels(xs, masks, w, bias=None, ln_w=None, ln_b=None,
     function of the bf16 plain version. Up to CONV3_WIDE_MAX_C the wide
     kernels of csrc/conv3_ln_act_wide.cu do the same with a thread-block
     cluster whose blocks split C_out (:func:`conv3_wide_plan`,
-    :func:`conv3_wide_operands`); wider layers take the general kernel of
+    :func:`conv3_wide_operands`); up to CONV3_PASSES_MAX_C the pass kernels
+    of csrc/conv3_ln_act_passes.cu, one block computing C_out in passes
+    whose pre-LN sums wait in the output (:func:`conv3_passes_plan`,
+    :func:`conv3_passes_operands`); wider layers take the general kernel of
     csrc/conv3_ln_act_general.cu, which reads the plain weight and
     multiplies on the CUDA cores. The outputs have x's dtype.
 
@@ -378,6 +469,7 @@ def _conv3_ln_act_levels(xs, masks, w, bias, ln_w, ln_b, act, eps):
                 for x, m in zip(xs, masks)]
     launch = {"tuned": launch_conv3_ln_act_levels,
               "wide": launch_conv3_ln_act_wide,
+              "passes": launch_conv3_ln_act_passes,
               "general": launch_conv3_ln_act_general}[conv3_route(w.shape[0])]
     return [y for i, j in conv3_launch_groups(len(xs))
             for y in launch(xs[i:j], masks[i:j], w, bias, ln_w, ln_b, act, eps)]
@@ -490,6 +582,34 @@ def launch_conv3_ln_act_wide(xs, masks, w, bias, ln_w, ln_b, act, eps):
     return outs
 
 
+def launch_conv3_ln_act_passes(xs, masks, w, bias, ln_w, ln_b, act, eps):
+    """Check the arguments and make one launch of the pass kernels of
+    csrc/conv3_ln_act_passes.cu (C_out up to CONV3_PASSES_MAX_C; the card
+    checks hold them at narrower widths too, one pass or a few) over up to
+    CONV3_MAX_LEVELS levels of CUDA tensors."""
+    name = "conv3_ln_act_passes"
+    C_out, C_in = w.shape[0], xs[0].shape[1]
+    cuda.require(1 <= C_out <= CONV3_PASSES_MAX_C, name,
+                 f"C_out {C_out}: the pass kernels take up to {CONV3_PASSES_MAX_C}")
+    dtype = xs[0].dtype
+    bf16 = dtype == torch.bfloat16
+    head, (bias, ln_w, ln_b), outs, _keep = _conv3_launch_args(
+        name, xs, masks, w, bias, ln_w, ln_b, act,
+        lambda C_out: conv3_passes_plan(dtype, C_out).tile)
+    plan = conv3_passes_plan(dtype, C_out)
+    entry = (cuda.library().decafnet_conv3_ln_act_passes_bf16 if bf16
+             else cuda.library().decafnet_conv3_ln_act_passes_f32)
+    err = entry(*head, cuda.ptr(conv3_passes_operands(w, dtype)), cuda.ptr(bias),
+                cuda.ptr(ln_w), cuda.ptr(ln_b), C_in, C_out, plan.slice,
+                plan.passes, float(eps), int(act == "relu"), cuda.stream())
+    cuda.check(err, name + ("_bf16" if bf16 else ""))
+    if bf16:
+        conv3_ln_act.launches_passes_bf16 += 1
+    else:
+        conv3_ln_act.launches_passes += 1
+    return outs
+
+
 def launch_conv3_ln_act_general(xs, masks, w, bias, ln_w, ln_b, act, eps):
     """Check the arguments and make one launch of the general kernel of
     csrc/conv3_ln_act_general.cu (any C_out; the card checks hold it at
@@ -517,6 +637,7 @@ def launch_conv3_ln_act_general(xs, masks, w, bias, ln_w, ln_b, act, eps):
 
 conv3_ln_act.launches = conv3_ln_act.launches_bf16 = 0
 conv3_ln_act.launches_wide = conv3_ln_act.launches_wide_bf16 = 0
+conv3_ln_act.launches_passes = conv3_ln_act.launches_passes_bf16 = 0
 conv3_ln_act.launches_general = conv3_ln_act.launches_general_bf16 = 0
 
 

@@ -6,7 +6,7 @@ The kernels run only on the card (tests/test_torch_kernels.py holds them
 against the plain version there). Here: the Python mirror of their launch
 plan (slices that cover every channel once, a block's shared memory, the
 cluster size), the sliced weight images read back through the swizzles
-the kernels' descriptors name, the three-way route, and a model of the
+the kernels' descriptors name, the route, and a model of the
 kernels' LayerNorm over the cluster (each block's partial sums over its
 slice, added in block order) against the JAX package's composition and its
 Pallas kernel in interpret mode."""
@@ -78,7 +78,7 @@ def test_wide_plan_refuses_what_the_kernels_do_not_take(dtype):
 def test_route_is_three_way():
     routes = [tfc.conv3_route(c) for c in (1, 160, 256, 257, 544, 1024, 1025,
                                             8000)]
-    assert routes == ["tuned"] * 3 + ["wide"] * 3 + ["general"] * 2
+    assert routes == ["tuned"] * 3 + ["wide"] * 3 + ["passes", "general"]
 
 
 def _unswizzle_f32(img):

@@ -286,6 +286,13 @@ def _entry_refuses(name, a):
             tile = a[10]
             return None if tile == _StubLibrary.GENERAL_TILE \
                 else f"general conv3 tile {tile} at C_out {C_out}"
+        if "passes" in name:
+            if not 1 <= C_out <= tfc.CONV3_PASSES_MAX_C:
+                return f"pass conv3 at C_out {C_out}"
+            dtype = torch.bfloat16 if name.endswith("bf16") else torch.float32
+            plan = tfc.conv3_passes_plan(dtype, C_out)
+            return None if (a[10], a[11]) == (plan.slice, plan.passes) \
+                else f"pass conv3 plan {a[10:12]} at C_out {C_out}"
         if "wide" in name:
             if not 1 <= C_out <= 1024:
                 return f"wide conv3 at C_out {C_out}"
@@ -377,12 +384,13 @@ def test_band_dispatch_takes_every_head_width_and_window(dry_card, D, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C_out", [24, 160, 256, 257, 288, 544, 1024, 1025, 3000,
-                                   8000])
+@pytest.mark.parametrize("C_out", [24, 160, 256, 257, 288, 544, 1024, 1025, 1056,
+                                   3000, 4096, 4097, 8000])
 def test_conv3_dispatch_takes_every_width_and_level_count(dry_card, C_out, dtype):
     from decafnet_tpu_torch import ops
 
-    route = "tuned" if C_out <= 256 else "wide" if C_out <= 1024 else "general"
+    route = ("tuned" if C_out <= 256 else "wide" if C_out <= 1024
+             else "passes" if C_out <= 4096 else "general")
     assert tfc.conv3_route(C_out) == route
     entry = ("decafnet_conv3_ln_act" + ("" if route == "tuned" else "_" + route)
              + ("_bf16" if dtype == torch.bfloat16 else "_f32"))

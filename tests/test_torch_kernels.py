@@ -597,7 +597,8 @@ def _conv3_general_case(card, B, c_in, c_out, T, lens, dtype, seed, bias=True,
     (16, 24, 700, False, True, "relu"),      # the JAX kernel tests' shapes
     (288, 288, 301, True, True, "relu"), (256, 288, 2304, True, True, "relu"),
     (544, 544, 1000, True, True, "relu"), (13, 2000, 37, True, True, "relu"),
-    (64, 1100, 300, False, True, "relu")])   # above the wide kernels' C_out
+    (64, 1100, 300, False, True, "relu"),    # the pass kernels' C_out
+    (8, 4100, 40, True, True, "relu")])      # above the pass kernels' C_out
 def test_general_conv3_matches_plain_and_f64(card, dtype, c_in, c_out, T, bias,
                                              affine, act):
     args = _conv3_general_case(card, 2, c_in, c_out, T, [T, int(0.6 * T)],
@@ -783,8 +784,9 @@ def test_wide_plan_matches_the_kernel_source(card):
 @pytest.mark.cuda
 def test_wide_shapes_route_to_the_general_kernels(card):
     """The wrappers route the trio at C > 256 and band attention at D != 32
-    to the general kernels, conv3 at C_out 257 to 1024 to the wide ones and
-    above that to the general one, on their own; nothing raises."""
+    to the general kernels, conv3 at C_out 257 to 1024 to the wide ones, to
+    4096 to the pass ones and above that to the general one, on their own;
+    nothing raises."""
     ops.reset_launch_counts()
     ops.qkv_depthwise_ln(*_case("qkv_depthwise_ln", 64, card, C=320))
     ops.conv3_ln_act(*_case("conv3_ln_act", 64, card, C=288))
@@ -794,9 +796,142 @@ def test_wide_shapes_route_to_the_general_kernels(card):
     assert ops.launch_counts(route="wide") == {
         "conv3_ln_act": 1, "band_attention": 0, "qkv_depthwise_ln": 0}
     ops.conv3_ln_act(*_case("conv3_ln_act", 64, card, C=1040))
+    assert ops.launch_counts(route="passes")["conv3_ln_act"] == 1
+    assert ops.launch_counts(route="general")["conv3_ln_act"] == 0
+    x, mask, w, b, lw, lb = _conv3_general_case(card, 2, 8, 4100, 40, [40, 17],
+                                                torch.float32, 4100)
+    ops.conv3_ln_act(x, mask, w, b, lw, lb)
     assert ops.launch_counts(route="general")["conv3_ln_act"] == 1
     assert ops.launch_counts() == {
         "conv3_ln_act": 0, "band_attention": 0, "qkv_depthwise_ln": 0}
+
+
+# ------------------------------------------------------------------- passes
+# The pass conv3 kernels (csrc/conv3_ln_act_passes.cu: C_out 1025 to 4096,
+# one block per 128-column item computing the channels in passes of 128 or
+# 160), through the route and, at narrower widths (one pass or a few),
+# forced.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("c_in,c_out,T,n_levels", [
+    (64, 1025, 301, 1), (1056, 1056, 2304, 1), (128, 1056, 2304, 7),
+    (96, 2048, 500, 7), (32, 2048, 100, 9), (16, 4096, 64, 1)])
+def test_passes_conv3_matches_plain_and_f64(card, dtype, bias, c_in, c_out, T,
+                                            n_levels):
+    """One launch over 1 or 7 levels of T, T/2, ... (two over 9), with and
+    without a bias, against the plain version and f64."""
+    g = torch.Generator(device=card).manual_seed(c_in + c_out + T + n_levels)
+    Ts = [max(1, T >> lvl) for lvl in range(n_levels)]
+    xs = [torch.randn(2, c_in, t, generator=g, device=card).to(dtype) for t in Ts]
+    masks = [_mask([t, max(t - 3, 1)], t, card) for t in Ts]
+    params = (torch.randn(c_out, c_in, 3, generator=g, device=card) / math.sqrt(3 * c_in),
+              torch.randn(c_out, generator=g, device=card) if bias else None,
+              1 + 0.1 * torch.randn(c_out, 1, generator=g, device=card),
+              0.1 * torch.randn(c_out, 1, generator=g, device=card))
+    assert fused_conv.conv3_route(c_out) == "passes"
+    op = ops.conv3_ln_act
+    before = _counts(op)
+    got = ops.conv3_ln_act_levels(xs, masks, *params)
+    bf16 = dtype == torch.bfloat16
+    assert _made(op, before, "passes", bf16, -(-n_levels // fused_conv.CONV3_MAX_LEVELS))
+    for x, m, y in zip(xs, masks, got, strict=True):
+        with cuda.plain_versions():
+            want = op(x, m, *params)
+        _assert_close(y, want, dtype, TOL["conv3_ln_act"])
+        if not bf16:
+            ref = _conv3_f64(x, m, *params)
+            assert float((y.double() - ref).abs().max()) <= TOL_F64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1025, 1056])
+@pytest.mark.parametrize("which", list(LEVEL_LISTS))
+def test_passes_conv3_levels_one_launch_matches_plain(card, which, C, dtype):
+    """One launch over the served 7-level list and over the edge list (odd
+    T, x off 16 bytes, T shorter than a tile), against the plain version
+    and f64."""
+    g = torch.Generator(device=card).manual_seed(C + 2)
+    rows = 4 if which == "served" else 3
+    xs, masks = [], []
+    for T, how in LEVEL_LISTS[which]:
+        xs.append(moved(torch.randn(rows, 96, T, generator=g, device=card)
+                        .to(dtype), how))
+        masks.append(_mask(([T, max(T - 3, 1), T // 2, 0] * rows)[:rows], T, card))
+    params = (torch.randn(C, 96, 3, generator=g, device=card) / math.sqrt(3 * 96),
+              torch.randn(C, generator=g, device=card),
+              1 + 0.1 * torch.randn(C, 1, generator=g, device=card),
+              0.1 * torch.randn(C, 1, generator=g, device=card))
+    op = ops.conv3_ln_act
+    before = _counts(op)
+    got = ops.conv3_ln_act_levels(xs, masks, *params)
+    bf16 = dtype == torch.bfloat16
+    assert _made(op, before, "passes", bf16)
+    for x, m, y in zip(xs, masks, got, strict=True):
+        with cuda.plain_versions():
+            want = op(x, m, *params)
+        _assert_close(y, want, dtype, TOL["conv3_ln_act"])
+        if not bf16:
+            ref = _conv3_f64(x, m, *params)
+            assert float((y.double() - ref).abs().max()) <= TOL_F64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_out,T,how", [
+    (16, 24, 100, "as_is"), (16, 24, 700, "offset"),   # the JAX kernel tests' shapes
+    (160, 160, 301, "offset"), (13, 200, 36, "as_is"), (64, 1024, 2304, "as_is")])
+def test_passes_conv3_forced_at_narrow_widths(card, dtype, c_in, c_out, T, how):
+    """The other routes' widths through the pass kernels: one pass (up to
+    160 channels) or several."""
+    args = _conv3_general_case(card, 2, c_in, c_out, T, [T, int(0.6 * T)],
+                               dtype, c_in + c_out + T)
+    args = (moved(args[0], how), *args[1:])
+    got = fused_conv.launch_conv3_ln_act_passes([args[0]], [args[1]], *args[2:],
+                                                "relu", 1e-5)[0]
+    with cuda.plain_versions():
+        want = ops.conv3_ln_act(*args)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype, TOL["conv3_ln_act"])
+    if dtype == torch.float32:
+        assert float((got.double() - _conv3_f64(*args)).abs().max()) <= TOL_F64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_passes_conv3_weight_operands_follow_updates(card, dtype):
+    """The pass weight images are cached against the weight's version: an
+    in-place update builds fresh ones."""
+    conv = torch.nn.Conv1d(64, 1056, 3).to(card)
+    x = torch.randn(2, 64, 300, device=card).to(dtype)
+    mask = _mask([300, 120], 300, card)
+    w, b = conv.weight, conv.bias
+    first = ops.conv3_ln_act(x, mask, w, b)
+    assert fused_conv.conv3_passes_operands(w, dtype) is \
+        fused_conv.conv3_passes_operands(w, dtype)
+    with torch.no_grad():
+        w.mul_(-1.0)
+    second = ops.conv3_ln_act(x, mask, w, b)
+    with cuda.plain_versions():
+        want = ops.conv3_ln_act(x, mask, w, b)
+    _assert_close(second, want, dtype, TOL["conv3_ln_act"])
+    assert float((second.float() - first.float()).abs().max()) > 1e-2
+
+
+@pytest.mark.cuda
+def test_passes_plan_matches_the_kernel_source(card):
+    """The wrapper's mirror of the pass kernels' plan is the one the source
+    computes, at every C_out the kernels take, in both dtypes; the source
+    refuses the rest."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for C_out in range(1, fused_conv.CONV3_PASSES_MAX_C + 1):
+            assert fused_conv.conv3_passes_source_plan(dtype, C_out) == \
+                fused_conv.conv3_passes_plan(dtype, C_out), (dtype, C_out)
+        for C_out in (0, fused_conv.CONV3_PASSES_MAX_C + 1):
+            with pytest.raises(ValueError):
+                fused_conv.conv3_passes_source_plan(dtype, C_out)
 
 
 def test_launch_helpers_refuse_cpu_tensors():
@@ -822,6 +957,9 @@ def test_launch_helpers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_conv.launch_conv3_ln_act_wide([x], [mask], w, b, lw, lb,
                                             "relu", 1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_conv.launch_conv3_ln_act_passes([x], [mask], w, b, lw, lb,
+                                              "relu", 1e-5)
 
 
 @pytest.mark.parametrize("name", KERNELS)
