@@ -39,17 +39,23 @@ Phases, each printing one JSON line:
            at the MAD decode shape;
   shapes   (after the MAD kernels) the general kernels
            (csrc/*_general.cu: the shapes the tuned kernels are not built
-           for), conv3's wide kernels (csrc/conv3_ln_act_wide.cu: C_out
+           for), band attention's wide kernels (csrc/band_attention_wide.cu:
+           D a multiple of 8 up to 256, windows up to 33, staged tiles and
+           D streamed in steps), conv3's wide kernels (csrc/conv3_ln_act_wide.cu: C_out
            257 to 1024, a thread-block cluster splitting the channels) and
            pass kernels (csrc/conv3_ln_act_passes.cu: C_out 1025 to 4096,
            one block computing the channels in passes) against their plain
            versions in f32 and bf16: at the JAX
            package's own kernel-test shapes (band attention B 2, H 4, D 16,
-           T 96 ... 7, windows 5 and 9; conv3 C_in 16 -> C_out 24 at T 100,
+           T 96 ... 7, windows 5 and 9, the wide kernel routed and the
+           general one forced; conv3 C_in 16 -> C_out 24 at T 100,
            256, 700; the trio C 16 at T 200, 384; the launch helpers force
            the general kernels there), band attention at D 16, 64 and 128
-           with window 11 and at D 256 with window 5 over the served 7
-           levels, conv3 at C_out 288, 512
+           with windows 11 and 5 and at D 256 with window 5 over the served
+           7 levels, the wide kernel routed and the general one forced, and
+           the wide kernel at other views (odd T, a base off 16 bytes,
+           rows padded, (B, H, T, D) tensors, a time-sharded rank's widened
+           time-minor buffers), conv3 at C_out 288, 512
            and 544 over 7 levels in one launch, the wide kernel routed and
            the general one forced (f32 also against f64), the wide kernel at
            C_out 300 and 1024 over 16 rows, conv3 at C_out 1056 over 7
@@ -61,9 +67,10 @@ Phases, each printing one JSON line:
            (tuned at 160, wide at 288, 512, 544, passes at 1056) against
            the plain version and the exactly rounded composition; times
            kernel, plain version, bound (conv3's products at the tensor
-           cores' rate) and, for band attention, SDPA; conv3's wide and
-           general kernels in turns (general, wide, wide, general) at 288,
-           512 and 544, the pass and general ones at 1056;
+           cores' rate) and, for band attention, SDPA; band attention's
+           wide and general kernels in turns (general, wide, wide, general)
+           at every level of its shapes, conv3's wide and general kernels
+           in turns at 288, 512 and 544, the pass and general ones at 1056;
   card_tests (after it) the bf16 autograd card cases of
            tests/test_torch_kernels.py through pytest in a subprocess;
   bf16     (after the http phase) the bf16 compute mode, tpu.compute_dtype
@@ -275,13 +282,15 @@ eval, the configs phase's bf16 serve calls and the ddp2_bf16 and seq2_bf16
 legs, each with the breakdown; each kernel also carries its record at the
 MAD decode shape ("mad_decode"); the bf16 records also carry ptxas's
 registers, spills and shared memory of their kernels, conv3's HGMMA count,
-and the f32 kernel's time; then the six general kernels and conv3's two
-wide and two pass ones, f32 and bf16, with their launches over the configs
-phase's paths and their times summed over the shapes phase's timed calls,
-per shape in "shapes" (the wide and pass ones beside the general kernel's
-time at the same shapes, "general_ms"). Every kernel of a path must have
-launched on the main path; the general conv3 kernel is on none since the
-pass kernels (C_out above 4096 only: "on_path" false). Then the nvidia-smi
+and the f32 kernel's time; then the six general kernels, band attention's
+two wide ones and conv3's two wide and two pass ones, f32 and bf16, with
+their launches over the configs phase's paths, their ptxas report and their
+times summed over the shapes phase's timed calls, per shape in "shapes" (the
+wide and pass ones beside the general kernel's time at the same shapes,
+"general_ms"). Every kernel of a path must have launched on the main path;
+the general conv3 kernel is on none since the pass kernels (C_out above
+4096 only), the general band kernel none since the wide ones (D off 8 or
+over 256, windows over 33 only: "on_path" false). Then the nvidia-smi
 name/power-limit line, and last {"ok": true, "device": {...}}. Any failed check raises: the
 script exits non-zero and prints no result. Without CUDA it exits 2.
 """
@@ -4104,6 +4113,7 @@ REPLACES = {"band_attention": "decafnet_tpu/ops/local_attention.py:244",
 # the records of the shapes phase, (op, route): the kernel's source
 SHAPE_KERNELS = {
     ("band_attention", "general"): "decafnet_tpu_torch/csrc/band_attention_general.cu",
+    ("band_attention", "wide"): "decafnet_tpu_torch/csrc/band_attention_wide.cu",
     ("conv3_ln_act", "general"): "decafnet_tpu_torch/csrc/conv3_ln_act_general.cu",
     ("conv3_ln_act", "wide"): "decafnet_tpu_torch/csrc/conv3_ln_act_wide.cu",
     ("conv3_ln_act", "passes"): "decafnet_tpu_torch/csrc/conv3_ln_act_passes.cu",
@@ -4112,13 +4122,26 @@ SHAPE_KERNELS = {
 OFF_PATH = {("conv3_ln_act", "general"):
             "no path runs conv3 above C_out 4096: the embd-1024 heads' 1056 take "
             "the pass kernels; timed here forced, at the wide and pass kernels' "
-            "widths"}
+            "widths",
+            ("band_attention", "general"):
+            "no path runs band attention at a D off 8 or over 256 or a window "
+            "over 33: the widths legs' D 16, 64, 128 and 256 at window 5 take the "
+            "wide kernels; held here forced at the JAX test shapes and timed "
+            "forced, in turns with the wide kernels, at their shapes"}
 JAX_BAND_SHAPES = ((96, 5), (40, 9), (130, 5), (8, 5), (7, 5), (96, 9), (7, 9))
 JAX_CONV3_T = (100, 256, 700)
 JAX_TRIO_T = (200, 384)
-# band attention at head widths 16, 64 and 128 with window 11, and at the
-# embd-1024 leg's (D 256, the shipped window 5)
-SHAPES_BAND = ((16, 11), (64, 11), (128, 11), (256, WINDOW))
+# band attention at head widths 16, 64 and 128 with window 11, at the
+# embd-1024 leg's (D 256, the shipped window 5), and at the other widths
+# legs' (D 16, 64, 128 at window 5)
+SHAPES_BAND = ((16, 11), (64, 11), (128, 11), (256, WINDOW), (16, WINDOW),
+               (64, WINDOW), (128, WINDOW))
+# the wide band kernel at other views, 4 rows x 4 heads at window 5, D 16
+# and 256: (layout, T); "time_minor" is a time-sharded rank's level-0 block
+# (T0 / 2 columns) widened by the halo on each side, time-minor as
+# band_attention builds it
+SHAPES_BAND_LAYOUTS = (("as_is", 301), ("offset", 301), ("padded", 300),
+                       ("contiguous", 300), ("time_minor", T0 // 2))
 # conv3 at embd 256 plus the heads' 32, and at embd 512 and 512 + 32: the
 # wide kernels, timed in turns against the general kernel (forced) there
 SHAPES_CONV3_C = (288, 512, 544)
@@ -4134,8 +4157,11 @@ SHAPES_NINE_LEVELS_C = (EMBD + RDIM, 288, 1056, 4100)
 SHAPES_TRIO_C = 512
 SHAPES_PER = {
     ("band_attention", "general"): "7 levels at 64 rows x T=2304, 4 heads of "
-                                   "D = 16, 64 and 128 each at window 11, "
-                                   "and D = 256 at window 5",
+                                   "D = 16, 64 and 128 each at windows 11 "
+                                   "and 5, and D = 256 at window 5; forced",
+    ("band_attention", "wide"): "7 levels at 64 rows x T=2304, 4 heads of "
+                                "D = 16, 64 and 128 each at windows 11 and 5, "
+                                "and D = 256 at window 5",
     ("conv3_ln_act", "wide"): "one launch over 7 levels at 64 rows x T=2304 at "
                               "C_in = C_out = 288, one at 512 and one at 544",
     ("conv3_ln_act", "passes"): "one launch over 7 levels at 64 rows x T=2304 "
@@ -4145,6 +4171,40 @@ SHAPES_PER = {
                                  "one at 544 (the wide kernels' widths) and one "
                                  "at 1056 (the pass kernels'), forced",
     ("qkv_depthwise_ln", "general"): "64 rows x T=2304 at C = 512"}
+
+
+def band_layout_case(dev, g, B, D, T, window, how, dtype):
+    """Band attention's arguments at B rows x HEADS heads laid out as ``how``
+    says: a :func:`moved` layout of the (B, C, T) projections ("as_is",
+    "offset", "padded"), "contiguous" (B, H, T, D) tensors, or "time_minor"
+    views of (B, H, D, T + 2 halo) buffers (a time-sharded rank's block
+    widened by its halo, as band_attention builds it); the rows' valid
+    lengths T, T - 5, T / 3 and 1 (of the widened length)."""
+    if how == "time_minor":
+        T = T + 2 * (window // 2)
+        qkv = [(torch.randn(B, HEADS, D, T, generator=g, device=dev)
+                * float(D) ** -0.25).to(dtype).transpose(2, 3) for _ in range(3)]
+        lens = [T, T - 5, T // 3, 1][:B]
+        return (*qkv, prefix_mask(lens, T, dev), window)
+    args, _ = band_case(dev, g, B, T, [T, T - 5, T // 3, 1][:B], D=D, how=how,
+                        dtype=dtype, window=window)
+    return args
+
+
+def band_by_shape(shapes):
+    """A band record's timed levels summed per (D, window): ms, bound,
+    plain, SDPA and the other kernel's ms in turns."""
+    out = {}
+    for sh in shapes:
+        key = f"D{sh['shape'][3]}_w{sh['window']}"
+        o = out.setdefault(key, {"levels": 0})
+        o["levels"] += 1
+        for k in ("ms", "bound_ms", "plain_ms", "library_ms", "general_ms", "wide_ms"):
+            if sh.get(k) is not None:
+                o[k] = o.get(k, 0.0) + sh[k]
+    for o in out.values():
+        o["share_of_bound"] = o["bound_ms"] / o["ms"]
+    return out
 
 
 def check_outputs(phase, name, dtype, got, want, what, route="general"):
@@ -4267,13 +4327,15 @@ def conv3_bf16_sweep(dev, recs):
 
 
 def run_shapes(dev):
-    """Hold every general-kernel path and conv3's wide kernels against their
-    plain versions in f32 and bf16 (the JAX kernel tests' shapes, the widths
-    legs' widths, C_out 300, 1024 and 1056, a head layer over 9 levels),
-    and time the widths' calls: kernel, plain version, bound and, for band
-    attention, SDPA; conv3 at C 288, 512 and 544 the wide kernel and the
-    general one in turns (general, wide, wide, general). Returns a record
-    per (op, route, dtype)."""
+    """Hold every general-kernel path, band attention's wide kernels and
+    conv3's wide and pass kernels against their plain versions in f32 and
+    bf16 (the JAX kernel tests' shapes, the widths legs' widths, other
+    views of band attention, C_out 300, 1024 and 1056, a head layer over 9
+    levels), and time the widths' calls: kernel, plain version, bound and,
+    for band attention, SDPA; band attention at SHAPES_BAND and conv3 at C
+    288, 512, 544 and 1056 the routed kernel and the general one in turns
+    (general, routed, routed, general). Returns a record per (op, route,
+    dtype)."""
     from decafnet_tpu_torch import ops
     from decafnet_tpu_torch.ops import cuda, fused_conv, local_attention
 
@@ -4332,29 +4394,56 @@ def run_shapes(dev):
             book(name, "general", ms, plain_ms, n_bytes, n_flops, shape, lib_ms,
                  tc_flops)
 
-        # band attention, the general kernel: the JAX kernel tests' shapes
-        # (B 2, H 4, D 16), then 64 rows x 7 levels at D 16, 64, 128 (window
-        # 11) and 256 (window 5)
+        # band attention: the JAX kernel tests' shapes (B 2, H 4, D 16), the
+        # wide kernel routed and the general one forced; then 64 rows x 7
+        # levels at each of SHAPES_BAND, both again, timed in turns (general,
+        # wide, wide, general) beside the plain version and SDPA; then the
+        # wide kernel at SHAPES_BAND_LAYOUTS
         band = ops.band_attention
+        band_general = local_attention.launch_band_attention_general
         for T, w in JAX_BAND_SHAPES:
             args, _ = band_case(dev, g, 2, T, [T, max(1, T * 2 // 3)], D=16,
                                 dtype=dtype, window=w)
-            hold("band_attention", lambda: band(*args), lambda: band(*args),
-                 f"JAX test shape B 2, H 4, D 16, T {T}, window {w}")
+            what = f"JAX test shape B 2, H 4, D 16, T {T}, window {w}"
+            hold("band_attention", lambda: band(*args), lambda: band(*args), what,
+                 "wide")
+            hold("band_attention", lambda: band_general(*args), lambda: band(*args),
+                 what + ", forced", "general")
         for D, W in SHAPES_BAND:
+            assert local_attention.band_attention_route(D, W) == "wide", (D, W)
             for level in range(LEVELS):
                 T = T0 // 2 ** level
                 lens = row_lens(level)
                 args, _ = band_case(dev, g, ROWS, T, lens, D=D, dtype=dtype,
                                     window=W)
                 what = f"64 rows, D {D}, window {W}, level {level} (T {T})"
-                hold("band_attention", lambda: band(*args), lambda: band(*args), what)
+                hold("band_attention", lambda: band(*args), lambda: band(*args), what,
+                     "wide")
+                hold("band_attention", lambda: band_general(*args),
+                     lambda: band(*args), what + ", forced", "general")
+                ab = time_in_turns(lambda: band_general(*args), lambda: band(*args), 5)
+                with cuda.plain_versions():
+                    plain_ms = time_ms(lambda: band(*args), 3, warmup=1)
+                lib_ms = time_ms(lambda: sdpa_band(*args), 3, warmup=1)
                 n_valid = sum(min(n, T) for n in lens)
-                timed("band_attention", lambda: band(*args), lambda: band(*args),
-                      esz * (3 * n_valid * HEADS * D + ROWS * HEADS * T * D) + ROWS * T,
-                      n_valid * HEADS * (4 * W * D + 4 * W), [ROWS, HEADS, T, D],
-                      lib=lambda: sdpa_band(*args))
+                work = (esz * (3 * n_valid * HEADS * D + ROWS * HEADS * T * D) + ROWS * T,
+                        n_valid * HEADS * (4 * W * D + 4 * W), [ROWS, HEADS, T, D])
+                at = {"window": W, "level": level}
+                book("band_attention", "wide", ab["new_ms"], plain_ms, *work, lib_ms,
+                     general_ms=ab["old_ms"], spread_ms=ab["new_spread_ms"], **at)
+                book("band_attention", "general", ab["old_ms"], plain_ms, *work, lib_ms,
+                     wide_ms=ab["new_ms"], spread_ms=ab["old_spread_ms"], **at)
                 del args
+        for D in (16, 256):
+            for how, T in SHAPES_BAND_LAYOUTS:
+                args = band_layout_case(dev, g, 4, D, T, WINDOW, how, dtype)
+                hold("band_attention", lambda: band(*args), lambda: band(*args),
+                     f"4 rows, D {D}, window {WINDOW}, T {args[0].shape[2]}, {how}",
+                     "wide")
+                del args
+        for route in ("wide", "general"):
+            recs["band_attention", route, dtype]["by_shape"] = band_by_shape(
+                recs["band_attention", route, dtype]["shapes"])
 
         # conv3, the general kernel: the JAX kernel tests' shapes (C_in 16,
         # C_out 24, lengths T and 0.6 T; forced); the wide kernels at C_out
@@ -4868,9 +4957,9 @@ def main():
     emit({"phase": "build", "library": os.path.relpath(path, REPO),
           "nvcc_s": compile_s, "seconds": time.perf_counter() - t0})
     for kernel in ("conv3_ln_act", "band_attention", "qkv_depthwise_ln"):
-        for source in (kernel, kernel + "_general") + (
-                ("conv3_ln_act_wide", "conv3_ln_act_passes")
-                if kernel == "conv3_ln_act" else ()):
+        for source in (kernel, kernel + "_general") + {
+                "conv3_ln_act": ("conv3_ln_act_wide", "conv3_ln_act_passes"),
+                "band_attention": ("band_attention_wide",)}.get(kernel, ()):
             emit({"phase": "build", "kernel": source, "ptxas":
                   ptxas_report(cuda.build_log(source + ".cu"))})
     # the tuned conv3 kernels, the wide ones (one per slice width of each
@@ -5029,7 +5118,8 @@ def main():
         bf16 = dtype == torch.bfloat16
         by = cfg_paths[dtype, route]
         src = SHAPE_KERNELS[n, route]
-        wgmma = {"wide": mma_wide, "passes": mma_passes}.get(route)
+        wgmma = ({"wide": mma_wide, "passes": mma_passes}.get(route)
+                 if n == "conv3_ln_act" else None)
         kernels.append({
             "name": f"{n}_{route}" + ("_bf16" if bf16 else ""), "route": "cuda",
             "source": src, "replaces": REPLACES[n],
@@ -5039,15 +5129,16 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["byte_ms"] >= r["flop_ms"] else "operations",
             "library_ms": r["library_ms"], "per": r["per"],
-            **({"general_ms": sum(sh["general_ms"] for sh in r["shapes"]),
-                "sass_mma": {k: c for k, c in wgmma.items()
+            **({"general_ms": sum(sh["general_ms"] for sh in r["shapes"])}
+               if route != "general" else {}),
+            **({"sass_mma": {k: c for k, c in wgmma.items()
                              if bf16_kernel_name(k) == bf16}}
                if wgmma is not None else {}),
             **({"on_path": False, "off_path": OFF_PATH[n, route]}
                if (n, route) in OFF_PATH else {}),
             "ptxas": [k for k in ptxas_report(cuda.build_log(os.path.basename(src)))
                       if bf16_kernel_name(k["kernel"]) == bf16],
-            **{k: r[k] for k in ("max_abs_err_f64", "seed_sweep") if k in r},
+            **{k: r[k] for k in ("max_abs_err_f64", "seed_sweep", "by_shape") if k in r},
             "shapes": r["shapes"]})
     emit({"phase": "walls", "seconds": walls,
           "total_s": time.perf_counter() - t_start})

@@ -74,6 +74,8 @@ _SIGNATURES = {
     "decafnet_qkv_depthwise_ln_general_bf16": [_vp] * 14 + [_i] * 3 + [_f, _vp],
     "decafnet_band_attention_general_f32": [_vp] * 5 + [_i] * 4 + [_ll] * 4 + [_i, _vp],
     "decafnet_band_attention_general_bf16": [_vp] * 5 + [_i] * 4 + [_ll] * 4 + [_i, _vp],
+    "decafnet_band_attention_wide_f32": [_vp] * 5 + [_i] * 4 + [_ll] * 4 + [_i] * 3 + [_vp],
+    "decafnet_band_attention_wide_bf16": [_vp] * 5 + [_i] * 4 + [_ll] * 4 + [_i] * 3 + [_vp],
 }
 
 

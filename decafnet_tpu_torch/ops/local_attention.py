@@ -9,11 +9,15 @@ plain version (the per-diagonal form of the JAX ``band_attention_diag``);
 (``band_attention_route``) and the inputs' dtype: at the served shapes
 (D = 32, windows 3..9) the tuned f32 or bf16 kernel of
 csrc/band_attention.cu, each with its own launch plan
-(``band_attention_plan``, ``band_attention_bf16_plan``); at any other D or
-odd window the general kernel of csrc/band_attention_general.cu.
+(``band_attention_plan``, ``band_attention_bf16_plan``); at the other D
+that are multiples of 8 up to 256 and windows up to 33 the wide kernel of
+csrc/band_attention_wide.cu (``band_attention_wide_plan``); at any other D
+or odd window the general kernel of csrc/band_attention_general.cu.
 """
 
 from __future__ import annotations
+
+from collections import namedtuple
 
 import torch
 import torch.nn.functional as F
@@ -74,18 +78,31 @@ def band_attention_torch(q, k, v, kv_mask, window_size):
 
 # head widths and halos (window // 2) the tuned kernels of
 # csrc/band_attention.cu are instantiated for (embd 128 / 4 heads, windows
-# 3..9); the general kernel takes every other D and odd window
+# 3..9); the wide kernel takes D a multiple of BAND_WIDE_DIMS up to
+# BAND_WIDE_MAX_D at halos up to BAND_WIDE_MAX_HALO, the general kernel
+# every other D and odd window
 BAND_HEAD_DIMS = (32,)
 BAND_HALOS = (1, 2, 3, 4)
+BAND_WIDE_DIMS, BAND_WIDE_MAX_D, BAND_WIDE_MAX_HALO = 8, 256, 16
 
 
 def band_attention_route(D, window_size):
-    """The kernel a CUDA launch at head width ``D`` and ``window_size`` takes:
-    "tuned" (csrc/band_attention.cu) at the shapes it is built for, else
-    "general" (csrc/band_attention_general.cu), in either dtype."""
+    """The kernel a CUDA launch at head width ``D`` and ``window_size`` takes,
+    in either dtype: "tuned" (csrc/band_attention.cu) at the shapes it is
+    built for, "wide" (csrc/band_attention_wide.cu) at D a multiple of 8
+    up to 256 and windows up to 33, else "general"
+    (csrc/band_attention_general.cu)."""
     if D in BAND_HEAD_DIMS and window_size // 2 in BAND_HALOS:
         return "tuned"
+    if band_wide_takes(D, window_size // 2):
+        return "wide"
     return "general"
+
+
+def band_wide_takes(D, halo):
+    """Whether the wide kernel takes head width ``D`` at ``halo``."""
+    return (D % BAND_WIDE_DIMS == 0 and BAND_WIDE_DIMS <= D <= BAND_WIDE_MAX_D
+            and 0 <= halo <= BAND_WIDE_MAX_HALO)
 
 
 BAND_MAX_TILE = 128
@@ -132,6 +149,84 @@ def band_attention_bf16_plan(B, H, T, sms, pipelined=True):
     return 4, -(-items // BAND_BF16_WARPS)
 
 
+# the wide kernel's launch plan: each block has ``warps`` warps (at most
+# BAND_WIDE_MAX_WARPS) over one tile of BAND_WIDE_PAIR_COLS // ``lanes``
+# columns of one (b, h); each lane owns two adjacent queries, and a query's
+# D is split over warps x lanes parts of BAND_WIDE_DIMS dims per step. Its
+# shared memory (two stages, the warps' partial scores, the mask bytes) is
+# at most a block's, SMEM_LIMIT bytes
+BAND_WIDE_PAIR_COLS, BAND_WIDE_MAX_WARPS, BAND_WIDE_LANES = 64, 8, (1, 2, 4)
+SMEM_LIMIT = 232448
+# the warps of the plan's blocks: measured on an H100
+# (scripts/torch_band_wide_variants.py), blocks of 4 warps with twice the
+# steps ran the long served levels 10-25 % faster than blocks of 8 at D 64
+# and 128 (more blocks per multiprocessor), within 4 % of them at D 256
+BAND_WIDE_PLAN_WARPS = 4
+BandWidePlan = namedtuple("BandWidePlan", "warps lanes tile grid smem")
+
+
+def band_wide_halo_class(halo):
+    """The halo the wide kernel is instantiated for that runs ``halo``
+    (csrc/band_attention_wide.cu: halo_class): 0..5 as they are, 6..8 on
+    8, 9..16 on 16, the offsets past ``halo`` masked."""
+    return halo if halo <= 5 else 8 if halo <= 8 else 16
+
+
+def band_wide_smem(dtype, warps, lanes, halo):
+    """Shared memory bytes of a wide-kernel block (csrc/band_attention_wide.cu:
+    wide_smem) at ``halo``'s class: two stages of q [dims][tile] and k or v
+    [dims][tile + 2 HA] (HA the halo rounded up to a 16-byte copy), the
+    warps' partial scores [warps][w][tile] in f32 (none at one warp), the
+    staged mask bytes."""
+    halo = band_wide_halo_class(halo)
+    esz = 2 if dtype == torch.bfloat16 else 4
+    vec = 16 // esz
+    tile = BAND_WIDE_PAIR_COLS // lanes
+    row = tile + 2 * (-(-halo // vec) * vec)
+    dims = BAND_WIDE_DIMS * warps * lanes
+    stage = -(-dims * (tile + row) * esz // 16) * 16
+    scratch = warps * (2 * halo + 1) * tile * 4 if warps > 1 else 0
+    return 2 * stage + scratch + -(-row // 16) * 16
+
+
+def band_attention_wide_plan(dtype, B, H, T, D, halo, sms, warps=None,
+                             lanes=None):
+    """Launch plan of the wide kernel for (B, H, T, D) queries at ``halo`` on
+    a card of ``sms`` multiprocessors, as a :class:`BandWidePlan`: ``warps``
+    the most (up to BAND_WIDE_PLAN_WARPS) whose parts of 8 dims divide D;
+    ``lanes`` 1 unless a launch would have fewer than 1024 threads per
+    multiprocessor (the short levels, where a query's latency and not the
+    bytes sets the time), then the fewest of 2 and 4 that reach them (or 4)
+    among those the dims allow; ``tile`` the columns of a block, ``grid``
+    its blocks, ``smem`` its shared memory. ``warps`` and ``lanes`` may be
+    forced (the design study does). Raises ValueError outside the kernel's
+    envelope."""
+    cuda.require(band_wide_takes(D, halo), "band_attention_wide",
+                 f"head width {D} at halo {halo}: the wide kernel takes D a "
+                 f"multiple of {BAND_WIDE_DIMS} up to {BAND_WIDE_MAX_D}, halos "
+                 f"up to {BAND_WIDE_MAX_HALO}")
+    n = D // BAND_WIDE_DIMS
+    if warps is None:
+        warps = max(w for w in range(1, BAND_WIDE_PLAN_WARPS + 1) if n % w == 0)
+
+    def grid(lanes):
+        return B * H * -(-T // (BAND_WIDE_PAIR_COLS // lanes))
+
+    if lanes is None:
+        fits = [l for l in BAND_WIDE_LANES if n % (warps * l) == 0]
+        lanes = next((l for l in fits if grid(l) * 32 * warps >= 1024 * sms),
+                     fits[-1])
+    cuda.require(1 <= warps <= BAND_WIDE_MAX_WARPS and lanes in BAND_WIDE_LANES
+                 and n % (warps * lanes) == 0, "band_attention_wide",
+                 f"plan of {warps} warps x {lanes} lanes at D {D}")
+    smem = band_wide_smem(dtype, warps, lanes, halo)
+    cuda.require(smem <= SMEM_LIMIT, "band_attention_wide",
+                 f"plan of {warps} warps x {lanes} lanes at halo {halo}: "
+                 f"{smem} bytes of shared memory")
+    return BandWidePlan(warps, lanes, BAND_WIDE_PAIR_COLS // lanes,
+                        grid(lanes), smem)
+
+
 def band_bf16_pipelined(q, k, v):
     """Whether the bf16 kernel's pipeline (split 1) reads these views: by
     TMA or by 8-byte copies, so time-contiguous rows whose strides and
@@ -154,8 +249,10 @@ def band_attention(q, k, v, kv_mask, window_size):
     tuned kernels of csrc/band_attention.cu are built for, its f32 kernel
     for f32 inputs, its bf16 kernel (bf16 tiles, f32 scores, softmax and
     sums, a bf16 result) for bf16 ones (``.launches``, ``.launches_bf16``
-    count them); at any other shape the general kernel of
-    csrc/band_attention_general.cu in the inputs' dtype
+    count them); at D a multiple of 8 up to 256 and windows up to 33 the
+    wide kernel of csrc/band_attention_wide.cu in the inputs' dtype
+    (``.launches_wide``, ``.launches_wide_bf16``); at any other shape the
+    general kernel of csrc/band_attention_general.cu
     (``.launches_general``, ``.launches_general_bf16``). q, k and v may be
     any strided (B, H, T, D) views that share their strides (the head view
     of a (B, C, T) projection is read in place); the result is a (B, H, T,
@@ -215,8 +312,11 @@ def _band_attention(q, k, v, kv_mask, window_size):
     if not cuda.use_kernel(q):
         return band_attention_torch(q, k, v, kv_mask, window_size)
     B, H, T, D = q.shape
-    if band_attention_route(D, window_size) == "general":
+    route = band_attention_route(D, window_size)
+    if route == "general":
         return launch_band_attention_general(q, k, v, kv_mask, window_size)
+    if route == "wide":
+        return launch_band_attention_wide(q, k, v, kv_mask, window_size)
     sms = cuda.sm_count(q.device)
     plan = (band_attention_bf16_plan(B, H, T, sms, band_bf16_pipelined(q, k, v))
             if q.dtype == torch.bfloat16 else band_attention_plan(B, H, T, sms))
@@ -265,6 +365,28 @@ def launch_band_attention_general(q, k, v, kv_mask, window_size):
     return out
 
 
+def launch_band_attention_wide(q, k, v, kv_mask, window_size, plan=None):
+    """Check the arguments and launch the wide kernel of
+    csrc/band_attention_wide.cu on CUDA tensors, with ``plan`` (a
+    :class:`BandWidePlan`; by default :func:`band_attention_wide_plan`'s)."""
+    name = "band_attention_wide"
+    q, k, v = _checked(name, q, k, v, kv_mask, window_size)
+    B, H, T, D = q.shape
+    if plan is None:
+        plan = band_attention_wide_plan(q.dtype, B, H, T, D, window_size // 2,
+                                        cuda.sm_count(q.device))
+    bf16 = q.dtype == torch.bfloat16
+    entry = (cuda.library().decafnet_band_attention_wide_bf16 if bf16
+             else cuda.library().decafnet_band_attention_wide_f32)
+    out = _launch(entry, name + ("_bf16" if bf16 else ""), q, k, v, kv_mask,
+                  window_size, plan.warps, plan.lanes)
+    if bf16:
+        band_attention.launches_wide_bf16 += 1
+    else:
+        band_attention.launches_wide += 1
+    return out
+
+
 def _checked(name, q, k, v, kv_mask, window_size):
     """The checks every band-attention kernel makes; q, k and v as one
     launch reads them (contiguous copies where their strides differ)."""
@@ -303,3 +425,4 @@ def _launch(entry, name, q, k, v, kv_mask, window_size, *plan):
 
 band_attention.launches = band_attention.launches_bf16 = 0
 band_attention.launches_general = band_attention.launches_general_bf16 = 0
+band_attention.launches_wide = band_attention.launches_wide_bf16 = 0

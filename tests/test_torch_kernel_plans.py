@@ -267,6 +267,15 @@ def _entry_refuses(name, a):
     checks at the top of each entry point in csrc/."""
     if name.startswith("decafnet_band_attention"):
         B, H, T, D, halo = a[5], a[6], a[7], a[8], a[13]
+        if "wide" in name:
+            warps, lanes = a[14], a[15]
+            dtype = torch.bfloat16 if name.endswith("bf16") else torch.float32
+            ok = (D % 8 == 0 and 8 <= D <= 256 and 0 <= halo <= 16
+                  and 1 <= warps <= 8 and lanes in (1, 2, 4)
+                  and D % (8 * warps * lanes) == 0
+                  and tla.band_wide_smem(dtype, warps, lanes, halo) <= tla.SMEM_LIMIT
+                  and B * H * -(-T // (64 // lanes)) <= INT_MAX)
+            return None if ok else f"wide band arguments D {D}, halo {halo}, plan {a[14:16]}"
         if "general" in name:
             return None if D >= 1 and halo >= 0 and B * H * -(-T // 128) <= INT_MAX \
                 else "general band arguments"
@@ -366,20 +375,22 @@ def _band_args(B, H, T, D, window, dtype):
 
 
 def _band_entry(route, dtype):
-    return ("decafnet_band_attention" + ("_general" if route == "general" else "")
+    return ("decafnet_band_attention" + ("" if route == "tuned" else "_" + route)
             + ("_bf16" if dtype == torch.bfloat16 else "_f32"))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [1, 4, 16, 32, 40, 64, 128, 256])
+@pytest.mark.parametrize("D", [1, 4, 8, 12, 16, 32, 40, 64, 128, 256, 264])
 def test_band_dispatch_takes_every_head_width_and_window(dry_card, D, dtype):
     from decafnet_tpu_torch import ops
 
-    for window in (1, 3, 5, 9, 11, 33):
+    for window in (1, 3, 5, 9, 11, 33, 35):
         for T in (7, 301, 2304):
             ops.band_attention(*_band_args(2, 2, T, D, window, dtype))
             route = tla.band_attention_route(D, window)
-            assert route == ("tuned" if D == 32 and 3 <= window <= 9 else "general")
+            assert route == ("tuned" if D == 32 and 3 <= window <= 9
+                             else "wide" if D % 8 == 0 and 8 <= D <= 256 and window <= 33
+                             else "general")
             assert dry_card.calls[-1] == _band_entry(route, dtype)
 
 

@@ -549,11 +549,13 @@ def _band_general_case(card, B, D, T, window, dtype, seed, how="as_is"):
     (16, 2304, 11, 64), (64, 2304, 11, 64), (128, 1152, 11, 64),
     (64, 301, 5, 4), (40, 36, 1, 4), (32, 300, 11, 4), (32, 17, 21, 4)])
 def test_general_band_attention_matches_plain(card, dtype, D, T, window, B):
+    """The general kernel, forced: since the wide kernels no path's shape
+    routes to it (the route takes it only off their envelope: D not a
+    multiple of 8 or over 256, windows over 33)."""
     args = _band_general_case(card, B, D, T, window, dtype, D + T + window)
-    assert local_attention.band_attention_route(D, window) == "general"
     op = ops.band_attention
     before = _counts(op)
-    got = op(*args)
+    got = local_attention.launch_band_attention_general(*args)
     bf16 = dtype == torch.bfloat16
     assert _made(op, before, "general", bf16)
     with cuda.plain_versions():
@@ -574,6 +576,195 @@ def test_general_band_attention_layouts(card, dtype, how):
     with cuda.plain_versions():
         want = ops.band_attention(*args)
     _assert_close(got, want, dtype, TOL["band_attention"])
+
+
+# ---------------------------------------------------------------- wide band
+# The wide band-attention kernels (csrc/band_attention_wide.cu: D a multiple
+# of 8 up to 256, windows up to 33, off the tuned shape), through the route
+# and at forced plans: f32 within TOL, bf16 within TOL_BF16 of max(1,
+# |plain|).
+
+WIDE_BAND_D = [8, 16, 40, 64, 128, 256]
+# windows 13 and 19 (halos 6 and 9) run on the kernel's halo classes 8 and
+# 16, their extra offsets masked
+WIDE_BAND_WINDOWS = [1, 5, 11, 13, 19, 33]
+# (T, rows): several 64-column tiles with an odd T; the served level 0 at
+# a few rows; the shortest served level at 64 rows (the plan's lane split
+# at D >= 128); a T inside one tile
+WIDE_BAND_TB = [(301, 4), (2304, 4), (36, 64), (7, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", WIDE_BAND_WINDOWS)
+@pytest.mark.parametrize("D", WIDE_BAND_D)
+def test_wide_band_attention_matches_plain(card, dtype, D, window):
+    op = ops.band_attention
+    bf16 = dtype == torch.bfloat16
+    assert local_attention.band_attention_route(D, window) == "wide"
+    for T, B in WIDE_BAND_TB:
+        args = _band_general_case(card, B, D, T, window, dtype, D + T + window)
+        before = _counts(op)
+        got = op(*args)
+        assert _made(op, before, "wide", bf16)
+        with cuda.plain_versions():
+            want = op(*args)
+        torch.cuda.synchronize()
+        _assert_close(got, want, dtype, TOL["band_attention"])
+
+
+def _band_wide_layout(card, dtype, D, T, window, how):
+    """q, k, v of 4 rows x 4 heads as ``how`` lays them out: "offset" (a
+    base one element off 16 bytes), "padded" (rows padded to 4 columns),
+    "contiguous" ((B, H, T, D) tensors), "time_minor" (views of (B, H, D,
+    T + 2 halo) buffers, as the time-sharded path widens a block),
+    "as_is" (head views of (B, C, T))."""
+    B, h = 4, window // 2
+    g = torch.Generator(device=card).manual_seed(D + T)
+    if how == "time_minor":
+        qkv = [(torch.randn(B, 4, D, T + 2 * h, generator=g, device=card)
+                * D ** -0.25).to(dtype).transpose(2, 3) for _ in range(3)]
+        T = T + 2 * h
+    else:
+        qkv = [moved((torch.randn(B, 4 * D, T, generator=g, device=card)
+                      * D ** -0.25).to(dtype), "as_is" if how == "contiguous" else how)
+               .reshape(B, 4, D, T).transpose(2, 3) for _ in range(3)]
+        if how == "contiguous":
+            qkv = [t.contiguous() for t in qkv]
+    return (*qkv, _mask([T, T - 5, T // 3, 1], T, card), window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("how", ["as_is", "offset", "padded", "contiguous", "time_minor"])
+@pytest.mark.parametrize("T", [300, 301])
+@pytest.mark.parametrize("D", [16, 256])
+def test_wide_band_attention_layouts(card, dtype, D, T, how):
+    args = _band_wide_layout(card, dtype, D, T, 5, how)
+    op = ops.band_attention
+    before = _counts(op)
+    got = op(*args)
+    assert _made(op, before, "wide", dtype == torch.bfloat16)
+    with cuda.plain_versions():
+        want = op(*args)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype, TOL["band_attention"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,window", [(64, 5), (256, 33)])
+def test_wide_band_attention_masked_rows_and_tiles(card, dtype, D, window):
+    """Rows all masked, one valid column, the valid columns ending inside
+    the first tile (the later tiles have no valid query and write zeros),
+    and a mask with holes: every output finite, zero where the query is
+    masked."""
+    T = 300
+    args = _band_general_case(card, 4, D, T, window, dtype, 3)
+    mask = _mask([0, 1, 40, T], T, card)
+    mask[3, 50:90] = False
+    mask[3, 200::3] = False
+    args = (*args[:3], mask, window)
+    got = ops.band_attention(*args)
+    with cuda.plain_versions():
+        want = ops.band_attention(*args)
+    torch.cuda.synchronize()
+    _assert_close(got, want, dtype, TOL["band_attention"])
+    assert float(got[0].float().abs().max()) == 0.0
+    assert float(got[2, :, 40:].float().abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,warps,lanes", [
+    (64, 1, 1), (64, 2, 1), (64, 4, 1), (64, 8, 1), (64, 2, 4), (64, 4, 2),
+    (256, 8, 1), (256, 8, 2), (256, 8, 4), (256, 1, 1), (40, 5, 1), (40, 1, 1),
+    (16, 1, 2), (128, 4, 4)])
+def test_wide_band_attention_every_split(card, dtype, D, warps, lanes):
+    """Forced plans: the dims split over 1 to 8 warps and 1, 2 or 4 lanes
+    (the plans the design study compares), at a served level and a short
+    one."""
+    for T, B in ((576, 8), (36, 8)):
+        args = _band_general_case(card, B, D, T, 11, dtype, D + warps + lanes)
+        plan = local_attention.band_attention_wide_plan(
+            dtype, B, 4, T, D, 5, cuda.sm_count(card), warps=warps, lanes=lanes)
+        got = local_attention.launch_band_attention_wide(*args, plan=plan)
+        with cuda.plain_versions():
+            want = ops.band_attention(*args)
+        torch.cuda.synchronize()
+        _assert_close(got, want, dtype, TOL["band_attention"])
+
+
+@pytest.mark.cuda
+def test_wide_band_entry_refuses_outside_its_envelope(card):
+    """The C entry returns cudaErrorInvalidValue (1) for a D off 8, a halo
+    over 16, a split that does not divide D, and launches nothing."""
+    q, k, v, mask, _ = _band_general_case(card, 2, 64, 40, 5, torch.float32, 0)
+    out = torch.empty(2, 4, 64, 40, device=card)
+    lib = cuda.library()
+
+    def call(D, halo, warps, lanes):
+        return lib.decafnet_band_attention_wide_f32(
+            cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(cuda.as_bytes(mask)),
+            cuda.ptr(out), 2, 4, 40, D, *q.stride(), halo, warps, lanes, cuda.stream())
+
+    assert call(64, 2, 8, 1) == 0
+    torch.cuda.synchronize()
+    for bad in ((60, 2, 1, 1), (264, 2, 1, 1), (64, 17, 1, 1), (64, 2, 3, 1),
+                (64, 2, 8, 2), (64, 2, 9, 1), (64, 2, 1, 3)):
+        assert call(*bad) == 1, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [2304, 301, 9])
+def test_wide_band_attention_autograd(card, dtype, T):
+    """Under autograd the forward launches the wide kernel once and the
+    backward nothing: it recomputes through the plain version, so the
+    gradients are plain autograd's for the same output gradient (bf16:
+    within BF16_GRAD_REL_L2)."""
+    args = _band_general_case(card, 8, 64, T, 5, dtype, T)
+    op = ops.band_attention
+    runs = []
+    for fn in (op, ops.band_attention_torch):
+        leaves = _grad_leaves("band_attention", args)
+        ops.reset_launch_counts()
+        out = fn(*_call_args(leaves))
+        fwd = ops.launch_counts(dtype, "wide")["band_attention"]
+        g = torch.Generator(device=card).manual_seed(1)
+        torch.autograd.backward([out], [torch.randn(out.shape, generator=g,
+                                                    device=card).to(dtype)])
+        runs.append((fwd, ops.launch_counts(dtype, "wide")["band_attention"],
+                     _grads(leaves)))
+    (k_fwd, k_all, k_grads), (p_fwd, p_all, p_grads) = runs
+    assert (k_fwd, k_all, p_fwd, p_all) == (1, 1, 0, 0)
+    assert len(k_grads) == len(p_grads) == 3
+    for a, b in zip(k_grads, p_grads):
+        assert torch.isfinite(a).all()
+        if dtype == torch.bfloat16:
+            rel = float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+            assert rel <= BF16_GRAD_REL_L2
+        else:
+            assert float((a - b).abs().max()) <= 1e-5 * max(float(b.abs().max()), 1.0)
+
+
+@pytest.mark.cuda
+def test_band_routes_count_apart(card):
+    """Each band route counts its own launches, by dtype: D 32 at window 5
+    tuned, D 16 and 64 wide, D 12 and window 35 general."""
+    ops.reset_launch_counts()
+    for D, window, dtype in ((32, 5, torch.float32), (16, 5, torch.float32),
+                             (64, 11, torch.bfloat16), (12, 5, torch.float32),
+                             (64, 35, torch.bfloat16)):
+        ops.band_attention(*_band_general_case(card, 2, D, 50, window, dtype, D)[:4],
+                           window)
+    want = {("tuned", torch.float32): 1, ("wide", torch.float32): 1,
+            ("wide", torch.bfloat16): 1, ("general", torch.float32): 1,
+            ("general", torch.bfloat16): 1}
+    for route in ops.ROUTES:
+        for dtype in (torch.float32, torch.bfloat16):
+            assert ops.launch_counts(dtype, route)["band_attention"] == \
+                want.get((route, dtype), 0), (route, dtype)
 
 
 def _conv3_general_case(card, B, c_in, c_out, T, lens, dtype, seed, bias=True,
@@ -783,18 +974,19 @@ def test_wide_plan_matches_the_kernel_source(card):
 
 @pytest.mark.cuda
 def test_wide_shapes_route_to_the_general_kernels(card):
-    """The wrappers route the trio at C > 256 and band attention at D != 32
-    to the general kernels, conv3 at C_out 257 to 1024 to the wide ones, to
-    4096 to the pass ones and above that to the general one, on their own;
-    nothing raises."""
+    """The wrappers route the trio at C > 256 to the general kernel, band
+    attention at D 16 to the wide one and at D 12 to the general one, conv3
+    at C_out 257 to 1024 to the wide ones, to 4096 to the pass ones and
+    above that to the general one, on their own; nothing raises."""
     ops.reset_launch_counts()
     ops.qkv_depthwise_ln(*_case("qkv_depthwise_ln", 64, card, C=320))
     ops.conv3_ln_act(*_case("conv3_ln_act", 64, card, C=288))
     ops.band_attention(*_case("band_attention", 64, card, C=64))
+    ops.band_attention(*_case("band_attention", 64, card, C=48))
     assert ops.launch_counts(route="general") == {
         "conv3_ln_act": 0, "band_attention": 1, "qkv_depthwise_ln": 1}
     assert ops.launch_counts(route="wide") == {
-        "conv3_ln_act": 1, "band_attention": 0, "qkv_depthwise_ln": 0}
+        "conv3_ln_act": 1, "band_attention": 1, "qkv_depthwise_ln": 0}
     ops.conv3_ln_act(*_case("conv3_ln_act", 64, card, C=1040))
     assert ops.launch_counts(route="passes")["conv3_ln_act"] == 1
     assert ops.launch_counts(route="general")["conv3_ln_act"] == 0
@@ -950,6 +1142,8 @@ def test_launch_helpers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         local_attention.launch_band_attention_general(q, k, v, mask[:, :40],
                                                       window)
+    with pytest.raises(ValueError, match="CUDA"):
+        local_attention.launch_band_attention_wide(q, k, v, mask[:, :40], window)
     x, mask, w, b, lw, lb = _case("conv3_ln_act", 40, torch.device("cpu"), C=16)
     with pytest.raises(ValueError, match="CUDA"):
         fused_conv.launch_conv3_ln_act_general([x], [mask], w, b, lw, lb,

@@ -2,8 +2,9 @@
 package's XLA compositions (and, at one small shape each, its Pallas kernels
 in interpret mode) at the shapes outside the tuned CUDA kernels' envelope,
 which the general kernels (csrc/*_general.cu) take on the card, and for
-conv3 at C_out 257 to 1024 the wide ones (csrc/conv3_ln_act_wide.cu): band
-attention at head widths 16 and 64 and window 11, conv3 at C_out 288 and
+conv3 at C_out 257 to 1024 and band attention at D a multiple of 8 up to
+256 the wide ones (csrc/conv3_ln_act_wide.cu, csrc/band_attention_wide.cu):
+band attention at head widths 12 to 256 and windows 1 to 35, conv3 at C_out 288 and
 544 and over 9 FPN levels, the trio at C 320. Same numpy inputs on both
 sides; tolerance 1e-5 absolute, the conv ops with rtol 1e-4 as
 tests/test_torch_ops.py holds them (3 * C_in-term f32 sums before the LN).
@@ -49,16 +50,21 @@ def _band_inputs(B, H, T, D, seed):
     return q, k, v, _mask(B, T, seed)
 
 
-@pytest.mark.parametrize("D,T,window", [
-    (16, 96, 5), (16, 7, 9), (64, 40, 11), (48, 9, 1)])
-def test_band_attention_plain_matches_jax(D, T, window):
+# (D, T, window, the route a CUDA launch takes): the wide kernels at D a
+# multiple of 8 up to 256 and windows up to 33 (D 128 and 256 at the
+# widths legs' window 5), the general one off that envelope
+@pytest.mark.parametrize("D,T,window,route", [
+    (16, 96, 5, "wide"), (16, 7, 9, "wide"), (64, 40, 11, "wide"), (48, 9, 1, "wide"),
+    (128, 37, 5, "wide"), (256, 20, 5, "wide"), (12, 30, 5, "general"),
+    (16, 40, 35, "general")])
+def test_band_attention_plain_matches_jax(D, T, window, route):
     q, k, v, mask = _band_inputs(2, 4, T, D, D + T + window)
     want = np.asarray(_jit(jla.band_attention_diag, 4)(
         *map(jnp.asarray, (q, k, v, mask)), window))
     got = tla.band_attention_torch(*map(torch.from_numpy, (q, k, v, mask)),
                                    window).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
-    assert tla.band_attention_route(D, window) == "general"
+    assert tla.band_attention_route(D, window) == route
 
 
 def test_band_attention_plain_matches_pallas_interpret():
