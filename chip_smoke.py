@@ -44,12 +44,15 @@ Phases, each printing one JSON line:
            D streamed in steps), conv3's wide kernels (csrc/conv3_ln_act_wide.cu: C_out
            257 to 1024, a thread-block cluster splitting the channels) and
            pass kernels (csrc/conv3_ln_act_passes.cu: C_out 1025 to 4096,
-           one block computing the channels in passes) against their plain
+           one block computing the channels in passes) and the trio's wide
+           kernels (csrc/qkv_depthwise_ln_wide.cu: C 257 to 4096, a
+           thread-block cluster splitting the channels) against their plain
            versions in f32 and bf16: at the JAX
            package's own kernel-test shapes (band attention B 2, H 4, D 16,
            T 96 ... 7, windows 5 and 9, the wide kernel routed and the
            general one forced; conv3 C_in 16 -> C_out 24 at T 100,
-           256, 700; the trio C 16 at T 200, 384; the launch helpers force
+           256, 700; the trio C 16 at T 200, 384, the general kernel and
+           the wide one forced; the launch helpers force
            the general kernels there), band attention at D 16, 64 and 128
            with windows 11 and 5 and at D 256 with window 5 over the served
            7 levels, the wide kernel routed and the general one forced, and
@@ -61,7 +64,13 @@ Phases, each printing one JSON line:
            C_out 300 and 1024 over 16 rows, conv3 at C_out 1056 over 7
            levels, the pass kernel routed and the general one forced (f32
            also against f64), the pass kernel at C_out 1025 and 4096 over 4
-           rows, the trio at C 512, and a head layer over 9 levels (two
+           rows, the trio's wide kernel at C 257, 320, 512 and 1024 at T 7,
+           36, 301 and 2304 (4 rows: valid, partly valid, half, all
+           masked), at C 4096 over 2 rows (f32 also against f64), with a
+           base off 16 bytes and at a time-sharded rank's level-0 block
+           (T0 / 2 + 2 columns), and at C 512 and 1024 over 64 rows x T =
+           2304 in turns with the general kernel (forced), and a head
+           layer over 9 levels (two
            launches of the routed kernel) at C_out 160 (tuned), 288 (wide),
            1056 (passes) and 4100 (general); a bf16 seed sweep of conv3
            (tuned at 160, wide at 288, 512, 544, passes at 1056) against
@@ -118,9 +127,10 @@ Phases, each printing one JSON line:
            microbatch. Then the widths legs, configs/ego4d_nlq.yaml at
            --set model.vid_net.n_heads 8 (band D 16), embd_dim 256 (D 64,
            conv3 at 256 tuned and 288 wide), embd_dim 512 (conv3 at 512 and
-           544 on the wide kernels, band attention and the trio on their
-           general ones) and embd_dim 1024 (conv3 at 1024 wide and 1056 on
-           the pass kernels): kernels against plain and served in f32 and
+           544, band attention at D 128 and the trio at C 512 on their wide
+           kernels) and embd_dim 1024 (conv3 at 1024 wide and 1056 on the
+           pass kernels, band attention at D 256 and the trio at C 1024 on
+           their wide kernels): kernels against plain and served in f32 and
            bf16, as above;
   serve    builds GroundingService at the Ego4D-NLQ width
            (configs/ego4d_nlq.yaml) with seeded random weights on the card,
@@ -523,6 +533,20 @@ def conv3_f64(x, mask, w, bias, ln_w, ln_b, act="relu", eps=1e-5):
     if ln_w is not None:
         y = y * ln_w.reshape(-1, 1).to(d) + ln_b.reshape(-1, 1).to(d)
     return torch.relu(y) if act == "relu" else y
+
+
+def trio_f64(x, mask, ws, ln_ws, ln_bs, eps=1e-5):
+    """The q/k/v trio in f64 end to end: the yardstick of the wide kernel's
+    statistics, merged over chunks and a cluster's blocks."""
+    d = torch.float64
+    xm = x.to(d) * mask[:, None, :].to(d)
+    outs = []
+    for w, lw, lb in zip(ws, ln_ws, ln_bs):
+        y = torch.nn.functional.conv1d(xm, w.to(d), padding=1, groups=x.shape[1])
+        y = y - y.mean(dim=1, keepdim=True)
+        y = y * torch.rsqrt(y.square().mean(dim=1, keepdim=True) + eps)
+        outs.append(y * lw.reshape(-1, 1).to(d) + lb.reshape(-1, 1).to(d))
+    return tuple(outs)
 
 
 def conv3_case(dev, g, B, C, T, lens, bias=False, act="relu", how="as_is",
@@ -4102,8 +4126,8 @@ def run_multi(root, cfg_file, eval_logdir, eval_base, smi, mad_ref, mad_eval):
 
 # ------------------------------------------------------------------- shapes
 # The kernels of the shapes the tuned kernels are not built for: the general
-# kernels (csrc/*_general.cu) and conv3's wide ones (csrc/conv3_ln_act_wide.cu,
-# C_out 257 to 1024). At the JAX package's own kernel-test shapes
+# kernels (csrc/*_general.cu), the wide ones (csrc/*_wide.cu) and conv3's pass
+# ones (csrc/conv3_ln_act_passes.cu). At the JAX package's own kernel-test shapes
 # (tests/test_local_attention.py, tests/test_fused_conv.py; the launch
 # helpers force the general kernels there) and at the widths of the widths
 # legs of the configs phase, 64 rows x T = 2304 x 7 levels.
@@ -4117,6 +4141,7 @@ SHAPE_KERNELS = {
     ("conv3_ln_act", "general"): "decafnet_tpu_torch/csrc/conv3_ln_act_general.cu",
     ("conv3_ln_act", "wide"): "decafnet_tpu_torch/csrc/conv3_ln_act_wide.cu",
     ("conv3_ln_act", "passes"): "decafnet_tpu_torch/csrc/conv3_ln_act_passes.cu",
+    ("qkv_depthwise_ln", "wide"): "decafnet_tpu_torch/csrc/qkv_depthwise_ln_wide.cu",
     ("qkv_depthwise_ln", "general"): "decafnet_tpu_torch/csrc/qkv_depthwise_ln_general.cu"}
 # the kernels of the shapes phase that no path launches, and why
 OFF_PATH = {("conv3_ln_act", "general"):
@@ -4127,7 +4152,12 @@ OFF_PATH = {("conv3_ln_act", "general"):
             "no path runs band attention at a D off 8 or over 256 or a window "
             "over 33: the widths legs' D 16, 64, 128 and 256 at window 5 take the "
             "wide kernels; held here forced at the JAX test shapes and timed "
-            "forced, in turns with the wide kernels, at their shapes"}
+            "forced, in turns with the wide kernels, at their shapes",
+            ("qkv_depthwise_ln", "general"):
+            "no path runs the trio above C 4096: the embd-512 and embd-1024 legs' "
+            "C 512 and 1024 take the wide kernels; held here forced at the JAX "
+            "test shapes and timed forced, in turns with the wide kernels, at "
+            "C 512 and 1024"}
 JAX_BAND_SHAPES = ((96, 5), (40, 9), (130, 5), (8, 5), (7, 5), (96, 9), (7, 9))
 JAX_CONV3_T = (100, 256, 700)
 JAX_TRIO_T = (200, 384)
@@ -4154,7 +4184,18 @@ SHAPES_WIDE_EDGE_C, SHAPES_WIDE_EDGE_ROWS = (300, 1024), 16
 # at a width of each route, the general one routed above the pass kernels
 SHAPES_PASSES_C, SHAPES_PASSES_EDGE_C, SHAPES_PASSES_EDGE_ROWS = 1056, (1025, 4096), 4
 SHAPES_NINE_LEVELS_C = (EMBD + RDIM, 288, 1056, 4100)
-SHAPES_TRIO_C = 512
+# the trio's wide kernels: timed at the embd-512 and embd-1024 legs' C over
+# 64 rows x T0, in turns with the general kernel (forced); held against the
+# plain version at SHAPES_TRIO_EDGE (C x T, 4 rows), at its widest over 2
+# rows, and at SHAPES_TRIO_LAYOUTS (C, T, layout; 4 rows): a base off 16
+# bytes, a time-sharded rank's level-0 block (T0 / 2 and a halo column
+# each side)
+SHAPES_TRIO_C = (512, 1024)
+SHAPES_TRIO_EDGE = [(C, T) for C in (257, 320, 512, 1024) for T in (7, 36, 301, 2304)]
+SHAPES_TRIO_WIDEST = 4096
+SHAPES_TRIO_LAYOUTS = ((320, 301, "offset"), (1024, 2304, "offset"),
+                       (512, T0 // 2 + 2, "as_is"), (1024, T0 // 2 + 2, "offset"),
+                       (4096, 36, "offset"))
 SHAPES_PER = {
     ("band_attention", "general"): "7 levels at 64 rows x T=2304, 4 heads of "
                                    "D = 16, 64 and 128 each at windows 11 "
@@ -4170,7 +4211,9 @@ SHAPES_PER = {
                                  "T=2304 at C_in = C_out = 288, one at 512 and "
                                  "one at 544 (the wide kernels' widths) and one "
                                  "at 1056 (the pass kernels'), forced",
-    ("qkv_depthwise_ln", "general"): "64 rows x T=2304 at C = 512"}
+    ("qkv_depthwise_ln", "wide"): "64 rows x T=2304 at C = 512 and at C = 1024",
+    ("qkv_depthwise_ln", "general"): "64 rows x T=2304 at C = 512 and at C = 1024, "
+                                     "forced"}
 
 
 def band_layout_case(dev, g, B, D, T, window, how, dtype):
@@ -4385,15 +4428,6 @@ def run_shapes(dev):
                                   "excess_ms": ms - b_ms, "library_ms": lib_ms,
                                   **extra})
 
-        def timed(name, fn, plain, n_bytes, n_flops, shape, lib=None,
-                  tc_flops=0):
-            ms = time_ms(fn, 10)
-            with cuda.plain_versions():
-                plain_ms = time_ms(plain, 3, warmup=1)
-            lib_ms = time_ms(lib, 3, warmup=1) if lib else None
-            book(name, "general", ms, plain_ms, n_bytes, n_flops, shape, lib_ms,
-                 tc_flops)
-
         # band attention: the JAX kernel tests' shapes (B 2, H 4, D 16), the
         # wide kernel routed and the general one forced; then 64 rows x 7
         # levels at each of SHAPES_BAND, both again, timed in turns (general,
@@ -4551,22 +4585,63 @@ def run_shapes(dev):
             recs["conv3_ln_act", "wide", dtype]["seed_sweep"] = conv3_bf16_sweep(
                 dev, {r: recs["conv3_ln_act", r, dtype] for r in ("wide", "passes")})
 
-        # the trio, the general kernel: the JAX kernel tests' shapes (C 16;
-        # forced), then C 512 at 64 rows x T = 2304
+        # the trio: the JAX kernel tests' shapes (C 16), the general and the
+        # wide kernel forced; the wide kernel routed at SHAPES_TRIO_EDGE, its
+        # widest and SHAPES_TRIO_LAYOUTS; then 64 rows x T0 at SHAPES_TRIO_C,
+        # the wide and the general kernel in turns (general, wide, wide,
+        # general) beside the plain version
         trio = ops.qkv_depthwise_ln
         for T in JAX_TRIO_T:
             args, _ = trio_case(dev, g, 2, 16, T, [T, int(0.6 * T)], dtype=dtype)
+            what = f"JAX test shape C 16, T {T}"
             hold("qkv_depthwise_ln", lambda: fused_conv.launch_qkv_depthwise_ln_general(
-                *args, 1e-5), lambda: trio(*args),
-                f"JAX test shape C 16, T {T}")
-        C = SHAPES_TRIO_C
-        args, _ = trio_case(dev, g, ROWS, C, T0, row_lens(0), dtype=dtype)
-        hold("qkv_depthwise_ln", lambda: trio(*args), lambda: trio(*args),
-             f"64 rows, C {C}, T {T0}")
-        timed("qkv_depthwise_ln", lambda: trio(*args), lambda: trio(*args),
-              esz * 4 * ROWS * C * T0 + 4 * 15 * C + ROWS * T0,
-              3 * ROWS * C * T0 * (5 + 8), [ROWS, C, T0])
-        del args
+                *args, 1e-5), lambda: trio(*args), what + ", forced")
+            hold("qkv_depthwise_ln", lambda: fused_conv.launch_qkv_depthwise_ln_wide(
+                *args, 1e-5, fused_conv.qkv_wide_plan(16, T, dtype)),
+                lambda: trio(*args), what + ", forced", "wide")
+        edge = ([(C, T, "as_is", 4) for C, T in SHAPES_TRIO_EDGE]
+                + [(SHAPES_TRIO_WIDEST, 301, "as_is", 2)]
+                + [(C, T, how, 2 if C == SHAPES_TRIO_WIDEST else 4)
+                   for C, T, how in SHAPES_TRIO_LAYOUTS])
+        for C, T, how, rows in edge:
+            assert fused_conv.qkv_route(C) == "wide", C
+            lens = [T, max(1, T * 3 // 5), T // 2, 0][:rows]
+            args, _ = trio_case(dev, g, rows, C, T, lens, how, dtype)
+            what = f"{rows} rows, C {C}, T {T}, x {how}"
+            got = hold("qkv_depthwise_ln", lambda: trio(*args), lambda: trio(*args),
+                       what, "wide")
+            if C == SHAPES_TRIO_WIDEST and not bf16:
+                err64 = max_err(tuple(y.double() for y in got), trio_f64(*args))
+                emit({"phase": "shapes", "kernel": "qkv_depthwise_ln_wide",
+                      "check": f"vs f64, {what}", "max_abs_err_f64": err64,
+                      "tol": TOL_F64, "ok": err64 <= TOL_F64})
+                assert err64 <= TOL_F64, (C, T, err64)
+                rec = recs["qkv_depthwise_ln", "wide", dtype]
+                rec["max_abs_err_f64"] = max(rec.get("max_abs_err_f64", 0.0), err64)
+            del args, got
+        for C in SHAPES_TRIO_C:
+            args, _ = trio_case(dev, g, ROWS, C, T0, row_lens(0), dtype=dtype)
+            what = f"64 rows, C {C}, T {T0}"
+
+            def wide():
+                return trio(*args)
+
+            def general():
+                return fused_conv.launch_qkv_depthwise_ln_general(*args, 1e-5)
+
+            hold("qkv_depthwise_ln", wide, wide, what, "wide")
+            hold("qkv_depthwise_ln", general, wide, what + ", forced")
+            ab = time_in_turns(general, wide, 5)
+            with cuda.plain_versions():
+                plain_ms = time_ms(wide, 3, warmup=1)
+            work = (esz * 4 * ROWS * C * T0 + 4 * 15 * C + ROWS * T0,
+                    3 * ROWS * C * T0 * (5 + 8), [ROWS, C, T0])
+            book("qkv_depthwise_ln", "wide", ab["new_ms"], plain_ms, *work,
+                 general_ms=ab["old_ms"], spread_ms=ab["new_spread_ms"],
+                 plan=fused_conv.qkv_wide_plan(C, T0, dtype)._asdict())
+            book("qkv_depthwise_ln", "general", ab["old_ms"], plain_ms, *work,
+                 wide_ms=ab["new_ms"], spread_ms=ab["old_spread_ms"])
+            del args
         torch.cuda.empty_cache()
     return recs
 
@@ -4959,7 +5034,8 @@ def main():
     for kernel in ("conv3_ln_act", "band_attention", "qkv_depthwise_ln"):
         for source in (kernel, kernel + "_general") + {
                 "conv3_ln_act": ("conv3_ln_act_wide", "conv3_ln_act_passes"),
-                "band_attention": ("band_attention_wide",)}.get(kernel, ()):
+                "band_attention": ("band_attention_wide",),
+                "qkv_depthwise_ln": ("qkv_depthwise_ln_wide",)}.get(kernel, ()):
             emit({"phase": "build", "kernel": source, "ptxas":
                   ptxas_report(cuda.build_log(source + ".cu"))})
     # the tuned conv3 kernels, the wide ones (one per slice width of each

@@ -6,7 +6,7 @@
 // descriptors, the work items, the TF32 split, the wgmma shared-memory
 // descriptor, the warpgroup product instructions in TF32 (m64nNk8) and bf16
 // (m64nNk16) at the widths the kernels use, the x boxes' swizzled offsets,
-// and the cluster helpers of the wide kernels.
+// and the wide kernels' LN exchange between the blocks of a cluster.
 
 #pragma once
 
@@ -443,49 +443,10 @@ struct Wgmma<256> {
 };
 
 // ------------------------------------------------------------------ cluster
-// The thread-block cluster of the wide kernels (conv3_ln_act_wide.cu): a
-// block's rank and the cluster's size and index, cluster barriers, remote
-// stores and mbarrier arrivals in a peer block's shared memory, and the
-// cluster's sum of an LN partial.
+// The LN exchange of the wide kernels (conv3_ln_act_wide.cu): remote stores
+// and mbarrier arrivals in a peer block's shared memory, and the cluster's
+// sum of an LN partial (the cluster's rank, size and barriers: hopper.cuh).
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ int cluster_id() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
-  return (int)r;
-}
-__device__ __forceinline__ int cluster_count() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
-  return (int)r;
-}
-
-// every thread of every block of the cluster, the whole warp at once
-__device__ __forceinline__ void cluster_sync_aligned() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-// the same, where a warp's threads reach it at different points
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\n"
-               "barrier.cluster.wait.acquire;" ::: "memory");
-}
-
-// the shared::cluster address of p's counterpart in block `rank` of the cluster
-__device__ __forceinline__ uint32_t peer(const void* p, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
-  return r;
-}
 __device__ __forceinline__ void st_peer(uint32_t addr, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
 }

@@ -1,8 +1,11 @@
 // Helpers of the port's Hopper (sm_90) kernels that are fed by the Tensor
-// Memory Accelerator: mbarriers, bulk and tensor copies into shared memory,
-// the shared-state-space address of a pointer, named barriers, the grid of a
-// persistent launch, and the host's cuTensorMapEncodeTiled. Shared by
-// csrc/conv3_ln_act.cu, csrc/conv3_ln_act_wide.cu and csrc/band_attention.cu.
+// Memory Accelerator or run in thread-block clusters: mbarriers, bulk and
+// tensor copies into shared memory, 8-byte cp.async, the shared-state-space
+// address of a pointer, named barriers, a block's rank in its cluster, the
+// cluster's barriers and loads from a peer block's shared memory, the grid
+// of a persistent launch, and the host's cuTensorMapEncodeTiled. Shared by
+// csrc/conv3_ln_act*.cu, csrc/band_attention.cu and
+// csrc/qkv_depthwise_ln_wide.cu.
 
 #pragma once
 
@@ -82,9 +85,11 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
-// 8-byte copy global -> shared (cp.async; both addresses on 8 bytes)
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(smem_u32(dst)), "l"(src)
+// 8-byte copy global -> shared (cp.async; both addresses on 8 bytes); when
+// !valid nothing is read and the bytes are zeroed
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 8 : 0)
                : "memory");
 }
 
@@ -95,6 +100,65 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ------------------------------------------------------------------ cluster
+// A block's rank and the cluster's size and index, the cluster's barriers,
+// and addresses and loads in a peer block's shared memory.
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ int cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(r));
+  return (int)r;
+}
+
+// every thread of every block of the cluster, the whole warp at once
+__device__ __forceinline__ void cluster_sync_aligned() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// the same, where a warp's threads reach it at different points
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// the shared::cluster address of p's counterpart in block `rank` of the cluster
+__device__ __forceinline__ uint32_t peer(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+// the two halves of cluster_sync: this thread's arrival, releasing its
+// earlier stores to the cluster, and the wait for every thread's
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+// the float2 at p's counterpart in block `rank` of the cluster
+__device__ __forceinline__ float2 ld_peer(const float2* p, uint32_t rank) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y)
+               : "r"(peer(p, rank))
+               : "memory");
+  return v;
 }
 
 // blocks of a persistent launch: one per SM, or one per item when there are

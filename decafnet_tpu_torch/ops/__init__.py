@@ -18,8 +18,9 @@ KERNEL_OPS = (conv3_ln_act, band_attention, qkv_depthwise_ln)
 
 
 # the kernels of an op, by the route its wrapper picks from the shape: the
-# tuned kernels, conv3's wide ones (C_out 257 to 1024) and pass ones (1025 to
-# 4096), and the general ones (the shapes the others are not built for); ops
+# tuned kernels, the wide ones (conv3 C_out 257 to 1024, band attention off
+# the tuned shape, the trio C 257 to 4096), conv3's pass ones (1025 to 4096),
+# and the general ones (the shapes the others are not built for); ops
 # without a route's kernel count 0 there
 ROUTES = ("tuned", "wide", "passes", "general")
 # each op's launch counters: per route, f32 and bf16

@@ -70,6 +70,8 @@ _SIGNATURES = {
     "decafnet_conv3_ln_act_passes_f32": [_vp, _i, _vp, _i] + [_vp] * 4 + [_i] * 4 + [_f, _i, _vp],
     "decafnet_conv3_ln_act_passes_bf16": [_vp, _i, _vp, _i] + [_vp] * 4 + [_i] * 4 + [_f, _i, _vp],
     "decafnet_conv3_ln_act_passes_plan": [_i, _i, _vp],
+    "decafnet_qkv_depthwise_ln_wide_f32": [_vp] * 14 + [_i] * 3 + [_f] + [_i] * 3 + [_vp],
+    "decafnet_qkv_depthwise_ln_wide_bf16": [_vp] * 14 + [_i] * 3 + [_f] + [_i] * 3 + [_vp],
     "decafnet_qkv_depthwise_ln_general_f32": [_vp] * 14 + [_i] * 3 + [_f, _vp],
     "decafnet_qkv_depthwise_ln_general_bf16": [_vp] * 14 + [_i] * 3 + [_f, _vp],
     "decafnet_band_attention_general_f32": [_vp] * 5 + [_i] * 4 + [_ll] * 4 + [_i, _vp],

@@ -2,18 +2,18 @@
 q/k/v trio (port of decafnet_tpu/ops/fused_conv.py).
 
 Each op has a plain PyTorch version (``*_torch``) and hand-written CUDA
-kernels: tuned ones (csrc/conv3_ln_act.cu, csrc/qkv_depthwise_ln.cu) for
-the channel counts they are built for (up to 256), for conv3 wide ones
-(csrc/conv3_ln_act_wide.cu: a thread-block cluster splits C_out up to
-1024) and pass ones (csrc/conv3_ln_act_passes.cu: one block computes C_out
-up to 4096 in passes), and general ones (csrc/conv3_ln_act_general.cu,
-csrc/qkv_depthwise_ln_general.cu) for wider layers, each in f32 and bf16.
-The public op takes the plain version for a tensor on the CPU and, for a
-CUDA tensor, launches the kernel that its route rule (:func:`conv3_route`,
-:func:`qkv_route`) picks from the width, in the input's dtype;
+kernels, each in f32 and bf16: tuned ones (csrc/conv3_ln_act.cu,
+csrc/qkv_depthwise_ln.cu) up to 256 channels, wide ones (a cluster splits
+the channels: csrc/conv3_ln_act_wide.cu, C_out up to 1024, and
+csrc/qkv_depthwise_ln_wide.cu, C up to 4096), conv3 pass ones (one block
+computes C_out up to 4096 in passes) and general ones for wider layers
+(csrc/*_general.cu). The public op takes the plain version
+for a tensor on the CPU and, for a CUDA tensor, launches the kernel that
+its route rule (:func:`conv3_route`, :func:`qkv_route`) picks from the
+width, in the input's dtype;
 ``.launches`` / ``.launches_bf16`` on the op count launches of the tuned
-f32 / bf16 kernel, ``.launches_wide`` / ``.launches_wide_bf16`` and
-``.launches_passes`` / ``.launches_passes_bf16`` of conv3's wide and pass
+f32 / bf16 kernel, ``.launches_wide`` / ``.launches_wide_bf16`` of the wide
+ones, ``.launches_passes`` / ``.launches_passes_bf16`` of conv3's pass
 ones, ``.launches_general`` / ``.launches_general_bf16`` of the general
 ones (for conv3, one launch covers up to CONV3_MAX_LEVELS levels of a
 :func:`conv3_ln_act_levels` call). Under autograd each op's backward
@@ -669,14 +669,91 @@ QKV_LANES = 4
 
 # the widest C the tuned trio kernels take
 QKV_MAX_C = 256
+# the wide trio kernels of csrc/qkv_depthwise_ln_wide.cu: C up to
+# QKV_WIDE_MAX_C, a cluster of up to QKV_WIDE_MAX_CLUSTER blocks of up to
+# QKV_WIDE_MAX_THREADS threads. The plan stages at most QKV_WIDE_CHANNELS
+# channels a block at once, on the tuned kernel's tiles: at C 512 and 1024,
+# 64 rows x T = 2304 on an H100, the fastest of every plan in f32 and within
+# 2 % of it in bf16 (scripts/torch_trio_wide_variants.py, PERF.md)
+QKV_WIDE_MAX_C = 4096
+QKV_WIDE_MAX_CLUSTER = 8
+QKV_WIDE_MAX_THREADS = 256
+QKV_WIDE_CHANNELS = 128
 
 
 def qkv_route(C):
     """The kernel a CUDA launch at ``C`` channels takes, in either dtype:
     "tuned" (csrc/qkv_depthwise_ln.cu, which stages all C channels of a
-    tile in shared memory and is built for C up to QKV_MAX_C) or "general"
-    (csrc/qkv_depthwise_ln_general.cu)."""
-    return "tuned" if C <= QKV_MAX_C else "general"
+    tile in shared memory and is built for C up to QKV_MAX_C), "wide"
+    (csrc/qkv_depthwise_ln_wide.cu, the channels split over a cluster, up to
+    QKV_WIDE_MAX_C) or "general" (csrc/qkv_depthwise_ln_general.cu)."""
+    if C <= QKV_MAX_C:
+        return "tuned"
+    return "wide" if C <= QKV_WIDE_MAX_C else "general"
+
+
+class QkvWidePlan(NamedTuple):
+    """A launch plan of the wide trio kernels: blocks per cluster (they
+    split the channels, ceil(C / cluster) each), time columns per block,
+    channels staged at once (a block's channels, or fewer: the block then
+    stages its chunks again from L2 for the outputs) and dynamic shared
+    memory bytes of a block."""
+    cluster: int
+    tile: int
+    chunk: int
+    smem: int
+
+
+def qkv_wide_row(dtype, tile):
+    """Row stride, in elements, of a staged row of the wide trio kernel
+    (csrc/cp_async.cuh: row_stride): ``tile`` columns, 16 bytes of halo room
+    each side, padded so the QKV_LANES lanes of a column read distinct
+    banks."""
+    esz = 2 if dtype == torch.bfloat16 else 4
+    per_word, vec = 4 // esz, 16 // esz
+    r = tile + 2 * vec
+    while (r // per_word) % 32 != 32 // QKV_LANES:
+        r += vec
+    return r
+
+
+def qkv_wide_smem(dtype, tile, chunk):
+    """Shared memory bytes of a wide trio block (csrc/qkv_depthwise_ln_wide.cu:
+    wide_smem): ``chunk`` staged rows, their taps (float4) and LN vectors
+    (float2) per branch, the tile's mask columns and the cluster's exchange
+    of (mean, M2) per branch and column."""
+    esz = 2 if dtype == torch.bfloat16 else 4
+    return (esz * chunk * qkv_wide_row(dtype, tile) + (3 * 16 + 3 * 8) * chunk
+            + 4 * (tile + 2) + 3 * 8 * tile)
+
+
+def qkv_wide_plan(C, T, dtype=torch.float32, cluster=None, tile=None, chunk=None):
+    """The plan of the wide trio kernel at ``C`` channels and ``T`` columns,
+    as a :class:`QkvWidePlan`: ``tile`` the tuned kernel's
+    (:func:`qkv_depthwise_ln_plan`); ``cluster`` the fewest blocks (up to
+    QKV_WIDE_MAX_CLUSTER) whose share of the channels is at most
+    QKV_WIDE_CHANNELS; ``chunk`` the block's share, or QKV_WIDE_CHANNELS
+    where that is less (above 1024 channels). Each may be forced (the
+    design study does). Raises ValueError outside the kernel's envelope."""
+    name = "qkv_depthwise_ln_wide"
+    cuda.require(1 <= C <= QKV_WIDE_MAX_C, name,
+                 f"C {C}: the wide kernel takes up to {QKV_WIDE_MAX_C}")
+    cols = 2 if dtype == torch.bfloat16 else 1   # columns per lane
+    per_warp = 32 // QKV_LANES * cols
+    tile = tile or qkv_depthwise_ln_plan(T, dtype)
+    cluster = cluster or min(QKV_WIDE_MAX_CLUSTER, -(-C // QKV_WIDE_CHANNELS))
+    share = -(-C // cluster)
+    chunk = chunk or min(share, QKV_WIDE_CHANNELS)
+    threads = QKV_LANES * tile // cols
+    cuda.require(1 <= cluster <= QKV_WIDE_MAX_CLUSTER
+                 and (cluster - 1) * share < C and 1 <= chunk <= share, name,
+                 f"cluster {cluster}, chunk {chunk} at C {C}")
+    cuda.require(tile % per_warp == 0 and threads <= QKV_WIDE_MAX_THREADS, name,
+                 f"tile {tile}")
+    smem = qkv_wide_smem(dtype, tile, chunk)
+    cuda.require(smem <= SMEM_LIMIT, name,
+                 f"tile {tile}, chunk {chunk}: {smem} bytes of shared memory")
+    return QkvWidePlan(cluster, tile, chunk, smem)
 
 
 def qkv_depthwise_ln_plan(T, dtype=torch.float32):
@@ -696,7 +773,8 @@ def qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps=1e-5):
     On CUDA this launches the counterpart of the TPU kernel
     decafnet_tpu/ops/fused_conv.py:_qkv_depthwise_ln_pallas_impl in x's
     dtype: up to QKV_MAX_C channels the tuned kernel of
-    csrc/qkv_depthwise_ln.cu, above that the general one of
+    csrc/qkv_depthwise_ln.cu, up to QKV_WIDE_MAX_C the wide one of
+    csrc/qkv_depthwise_ln_wide.cu, above that the general one of
     csrc/qkv_depthwise_ln_general.cu (:func:`qkv_route`).
     Under autograd the same forward runs inside :class:`_QkvDepthwiseLn`,
     whose backward recomputes through :func:`qkv_depthwise_ln_torch`, as the
@@ -744,10 +822,15 @@ def _qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps):
     tensors."""
     if not cuda.use_kernel(x):
         return qkv_depthwise_ln_torch(x, mask, ws, ln_ws, ln_bs, eps=eps)
-    if qkv_route(x.shape[1]) == "general":
+    _, C, T = x.shape
+    route = qkv_route(C)
+    if route == "general":
         return launch_qkv_depthwise_ln_general(x, mask, ws, ln_ws, ln_bs, eps)
+    if route == "wide":
+        return launch_qkv_depthwise_ln_wide(x, mask, ws, ln_ws, ln_bs, eps,
+                                            qkv_wide_plan(C, T, x.dtype))
     return launch_qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps,
-                                   qkv_depthwise_ln_plan(x.shape[-1], x.dtype))
+                                   qkv_depthwise_ln_plan(T, x.dtype))
 
 
 def launch_qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps, tile):
@@ -768,6 +851,25 @@ def launch_qkv_depthwise_ln(x, mask, ws, ln_ws, ln_bs, eps, tile):
     return outs
 
 
+def launch_qkv_depthwise_ln_wide(x, mask, ws, ln_ws, ln_bs, eps, plan):
+    """Check the arguments and launch the wide kernel of
+    csrc/qkv_depthwise_ln_wide.cu (C up to QKV_WIDE_MAX_C) on CUDA tensors
+    with the launch ``plan`` (see :func:`qkv_wide_plan`; the design study
+    passes others)."""
+    name = "qkv_depthwise_ln_wide"
+    C = x.shape[1]
+    cuda.require(C <= QKV_WIDE_MAX_C, name,
+                 f"C {C}: the wide kernel takes up to {QKV_WIDE_MAX_C}")
+    bf16 = x.dtype == torch.bfloat16
+    outs = _launch_trio(name, x, mask, ws, ln_ws, ln_bs, eps, plan.cluster,
+                        plan.tile, plan.chunk)
+    if bf16:
+        qkv_depthwise_ln.launches_wide_bf16 += 1
+    else:
+        qkv_depthwise_ln.launches_wide += 1
+    return outs
+
+
 def launch_qkv_depthwise_ln_general(x, mask, ws, ln_ws, ln_bs, eps):
     """Check the arguments and launch the general kernel of
     csrc/qkv_depthwise_ln_general.cu (any C, no launch plan) on CUDA
@@ -785,7 +887,8 @@ def launch_qkv_depthwise_ln_general(x, mask, ws, ln_ws, ln_bs, eps):
 def _launch_trio(name, x, mask, ws, ln_ws, ln_bs, eps, *plan):
     """The checks every trio kernel makes, then one launch of the entry
     point of kernel ``name`` in x's dtype with the launch ``plan`` (the
-    tuned kernel's tile, or nothing)."""
+    tuned kernel's tile, the wide one's cluster, tile and chunk, or
+    nothing)."""
     B, C, T = x.shape
     params = list(ws) + list(ln_ws) + list(ln_bs)
     cuda.require(x.is_cuda, name, "the kernel takes CUDA tensors")
@@ -824,4 +927,5 @@ def _launch_trio(name, x, mask, ws, ln_ws, ln_bs, eps, *plan):
 
 
 qkv_depthwise_ln.launches = qkv_depthwise_ln.launches_bf16 = 0
+qkv_depthwise_ln.launches_wide = qkv_depthwise_ln.launches_wide_bf16 = 0
 qkv_depthwise_ln.launches_general = qkv_depthwise_ln.launches_general_bf16 = 0

@@ -314,6 +314,11 @@ def _entry_refuses(name, a):
         C = a[15]
         if "general" in name:
             return None if C >= 1 else "general trio arguments"
+        if "wide" in name:
+            dtype = torch.bfloat16 if name.endswith("bf16") else torch.float32
+            plan = tfc.qkv_wide_plan(C, a[16], dtype)
+            return None if C <= tfc.QKV_WIDE_MAX_C and tuple(a[18:21]) == plan[:3] \
+                else f"wide trio plan {a[18:21]} at C {C}"
         tile = a[18]
         if C > 256:
             return f"tuned trio at C {C}"
@@ -431,11 +436,11 @@ def test_conv3_general_tile_comes_from_the_kernel_source(dry_card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("C", [16, 128, 256, 257, 320, 512, 2048])
+@pytest.mark.parametrize("C", [16, 128, 256, 257, 320, 512, 2048, 4096, 4100])
 def test_trio_dispatch_takes_every_width(dry_card, C, dtype):
     from decafnet_tpu_torch import ops
 
-    route = "tuned" if C <= 256 else "general"
+    route = "tuned" if C <= 256 else "wide" if C <= 4096 else "general"
     assert tfc.qkv_route(C) == route
     for T in (7, 301, 2304):
         ops.qkv_depthwise_ln(torch.zeros(2, C, T, dtype=dtype),
@@ -443,7 +448,7 @@ def test_trio_dispatch_takes_every_width(dry_card, C, dtype):
                              [torch.zeros(C, 1, 3)] * 3, [torch.ones(C)] * 3,
                              [torch.zeros(C)] * 3)
         assert dry_card.calls[-1] == (
-            "decafnet_qkv_depthwise_ln" + ("_general" if route == "general" else "")
+            "decafnet_qkv_depthwise_ln" + ("" if route == "tuned" else "_" + route)
             + ("_bf16" if dtype == torch.bfloat16 else "_f32"))
 
 

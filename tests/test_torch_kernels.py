@@ -974,19 +974,21 @@ def test_wide_plan_matches_the_kernel_source(card):
 
 @pytest.mark.cuda
 def test_wide_shapes_route_to_the_general_kernels(card):
-    """The wrappers route the trio at C > 256 to the general kernel, band
-    attention at D 16 to the wide one and at D 12 to the general one, conv3
-    at C_out 257 to 1024 to the wide ones, to 4096 to the pass ones and
-    above that to the general one, on their own; nothing raises."""
+    """The wrappers route the trio at C 257 to 4096 to the wide kernel and
+    above that to the general one, band attention at D 16 to the wide one
+    and at D 12 to the general one, conv3 at C_out 257 to 1024 to the wide
+    ones, to 4096 to the pass ones and above that to the general one, on
+    their own; nothing raises."""
     ops.reset_launch_counts()
     ops.qkv_depthwise_ln(*_case("qkv_depthwise_ln", 64, card, C=320))
+    ops.qkv_depthwise_ln(*_case("qkv_depthwise_ln", 64, card, C=4100))
     ops.conv3_ln_act(*_case("conv3_ln_act", 64, card, C=288))
     ops.band_attention(*_case("band_attention", 64, card, C=64))
     ops.band_attention(*_case("band_attention", 64, card, C=48))
     assert ops.launch_counts(route="general") == {
         "conv3_ln_act": 0, "band_attention": 1, "qkv_depthwise_ln": 1}
     assert ops.launch_counts(route="wide") == {
-        "conv3_ln_act": 1, "band_attention": 1, "qkv_depthwise_ln": 0}
+        "conv3_ln_act": 1, "band_attention": 1, "qkv_depthwise_ln": 1}
     ops.conv3_ln_act(*_case("conv3_ln_act", 64, card, C=1040))
     assert ops.launch_counts(route="passes")["conv3_ln_act"] == 1
     assert ops.launch_counts(route="general")["conv3_ln_act"] == 0
@@ -1139,6 +1141,9 @@ def test_launch_helpers_refuse_cpu_tensors():
         fused_conv.launch_qkv_depthwise_ln(x, mask, ws, lws, lbs, 1e-5, 64)
     with pytest.raises(ValueError, match="CUDA"):
         fused_conv.launch_qkv_depthwise_ln_general(x, mask, ws, lws, lbs, 1e-5)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_conv.launch_qkv_depthwise_ln_wide(
+            x, mask, ws, lws, lbs, 1e-5, fused_conv.qkv_wide_plan(16, 40))
     with pytest.raises(ValueError, match="CUDA"):
         local_attention.launch_band_attention_general(q, k, v, mask[:, :40],
                                                       window)

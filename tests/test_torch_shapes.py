@@ -144,7 +144,7 @@ def _trio_inputs(B, C, T, seed):
     return x, _mask(B, T, seed), ws, lws, lbs
 
 
-@pytest.mark.parametrize("C,T", [(320, 60), (512, 17)])
+@pytest.mark.parametrize("C,T", [(320, 60), (512, 17), (1024, 23)])
 def test_trio_plain_matches_jax_wide(C, T):
     x, mask, ws, lws, lbs = _trio_inputs(2, C, T, C + T)
     want = _jit(jfc.qkv_depthwise_ln_xla)(
@@ -155,7 +155,7 @@ def test_trio_plain_matches_jax_wide(C, T):
     for g, w in zip(got, want, strict=True):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=CONV_RTOL,
                                    atol=ATOL)
-    assert tfc.qkv_route(C) == "general"
+    assert tfc.qkv_route(C) == "wide"
 
 
 def test_trio_plain_matches_pallas_interpret_wide():
