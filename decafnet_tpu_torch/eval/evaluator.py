@@ -14,8 +14,22 @@ fixed-k SoftNMS with voting runs on the device and only the (Q, k, 2)
 detections return to the host, or (``eval.reference_exact``) the (Q, P)
 candidates return and the host C++ SoftNMS runs per query. With targets the
 same call computes the per-query eval losses (focal and IoU over the
-annotated points). Wall-clock goes into the reference's buckets: prepare /
-forward / post_process / nms.
+annotated points).
+
+Spans and counters go into the decoder's record (``timer``, a
+:class:`~decafnet_tpu_torch.utils.profiling.PhaseTimer`; ``time_dict`` is
+its buckets): the reference's ``prepare`` (a request), ``forward`` and
+``post_process`` (a decode call), ``nms`` (the host SoftNMS, when it runs);
+``forward``'s parts ``decode.stage`` (the group's arrays joined on the
+host), ``decode.h2d`` (copied to the device), ``decode.dispatch`` (the
+forward's and the decode's launches) and ``decode.d2h`` (the outputs back,
+where the host waits for the device); the counters ``decode.h2d_bytes``,
+``decode.rows`` (V x Q) and ``decode.real_rows`` (the rows of real
+queries); and the stages ``model.*`` (:mod:`models.decafnet`) and
+``decode.select_nms`` (scores, the top-k threshold, the device SoftNMS),
+whose stream times, while a profiler records, go under ``<stage>.stream``.
+Each decode shape's first call also goes into the set-up record
+(``profiling.SETUP``).
 
 :class:`Evaluator` walks a dataset one video at a time (or, with
 ``eval.shard_videos`` V > 1, decodes same-bucket groups of V videos in one
@@ -32,9 +46,9 @@ SoftNMS and table run on every rank as in one process; the lead writes.
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
-from collections import defaultdict
 
 import numpy as np
 import torch
@@ -53,6 +67,7 @@ from ..train.annotate import annotate_points
 from ..train.losses import calc_focal_loss, calc_iou_loss
 from ..utils import analysis   # a module: utils.analysis imports eval.metrics
 from ..utils.logging import Logger, easy_reduce, time_str
+from ..utils.profiling import SETUP, PhaseTimer, is_count, stage
 from .metrics import RecallMeter
 
 
@@ -105,7 +120,8 @@ class Decoder:
     ``cfg`` is a full config tree; ``model`` a
     :class:`~decafnet_tpu_torch.models.DeCafNetIterative` on ``device``.
     ``cfg.eval.reference_exact`` selects the host SoftNMS.
-    ``decode_calls`` counts model forwards (one per decoded group). With a
+    ``decode_calls`` counts model forwards (one per decoded group);
+    ``timer`` records the spans and counters of the module docstring. With a
     time ``shard`` (:class:`parallel.TimeShard`) the forward runs on this
     rank's block of the video and its outputs are gathered before the
     decode."""
@@ -134,8 +150,10 @@ class Decoder:
         self.loss_cfg = (cfg.loss.fc_a, cfg.loss.fc_s,
                          cfg.train.center_sampling,
                          cfg.train.center_sampling_radius)
-        self.time_dict = defaultdict(list)
+        self.timer = PhaseTimer()
+        self.time_dict = self.timer.buckets
         self._points = {}
+        self._shapes = set()    # decode shapes called at least once
         self.decode_calls = 0
 
     def points(self, T):
@@ -151,11 +169,10 @@ class Decoder:
         """Split one video into per-chunk work items; where the sample has
         ground truth, each item holds its rows' targets in grid units
         (padding rows get [0, 1])."""
-        t_prep = time.perf_counter()
-        meta, chunks = batchify_eval(
-            sample, self.chunk, self.base_len, self.vid_stride,
-            self.query_cap, text_len_cap=self.text_len_cap)
-        self.time_dict["prepare"].append(time.perf_counter() - t_prep)
+        with self.timer.phase("prepare"):
+            meta, chunks = batchify_eval(
+                sample, self.chunk, self.base_len, self.vid_stride,
+                self.query_cap, text_len_cap=self.text_len_cap)
         items, q_done = [], 0
         tgt = meta.get("target")
         for chunk in chunks:
@@ -190,36 +207,40 @@ class Decoder:
         self.decode_calls += 1
         logits2, offsets, masks = self.level_outputs(
             vid, shallow, vid_masks, text, text_cls, text_masks, pe_interp, Q)
-        scores = torch.cat(modulated_level_scores(logits2, masks, ext_scores), 1)
-        offs = torch.cat(offsets, dim=2)                       # (R, 2, P)
-        pmask = torch.cat(masks, dim=1)                        # (R, P)
-        points_t = self.points(vid.shape[-1])
+        with stage("decode.select_nms"):
+            scores = torch.cat(
+                modulated_level_scores(logits2, masks, ext_scores), 1)
+            offs = torch.cat(offsets, dim=2)                   # (R, 2, P)
+            pmask = torch.cat(masks, dim=1)                    # (R, P)
+            points_t = self.points(vid.shape[-1])
 
-        # top-k as a per-query threshold at the k-th largest value: the
-        # same candidate set as the JAX decode, ties included
-        valid = (scores > self.pre_nms_thresh) & pmask
-        ranked = torch.where(valid, scores, torch.full_like(scores, -1.0))
-        topk = min(self.pre_nms_topk, scores.shape[1])
-        kth = torch.topk(ranked, topk, dim=1).values[:, -1:]
-        valid = valid & (scores >= kth)
+            # top-k as a per-query threshold at the k-th largest value: the
+            # same candidate set as the JAX decode, ties included
+            valid = (scores > self.pre_nms_thresh) & pmask
+            ranked = torch.where(valid, scores, torch.full_like(scores, -1.0))
+            topk = min(self.pre_nms_topk, scores.shape[1])
+            kth = torch.topk(ranked, topk, dim=1).values[:, -1:]
+            valid = valid & (scores >= kth)
 
-        ctr, stride = points_t[0][None], points_t[3][None]
-        left = ctr - offs[:, 0, :] * stride
-        right = ctr + offs[:, 1, :] * stride
-        top_valid = valid & ((right - left) > self.seg_len_thresh)
-        top_scores = torch.where(top_valid, scores, torch.zeros_like(scores))
+            ctr, stride = points_t[0][None], points_t[3][None]
+            left = ctr - offs[:, 0, :] * stride
+            right = ctr + offs[:, 1, :] * stride
+            top_valid = valid & ((right - left) > self.seg_len_thresh)
+            top_scores = torch.where(top_valid, scores,
+                                     torch.zeros_like(scores))
 
-        if self.reference_exact:
-            out = {"left": left, "right": right, "scores": top_scores,
-                   "valid": top_valid}
-        else:
-            nc = self.nms_cfg
-            segs, det_scores, counts = batched_nms_device(
-                left, right, top_scores, top_valid, nc["max_num_segs"],
-                mode=nc["mode"], iou_thresh=nc["iou_thresh"],
-                min_score=nc["min_score"], sigma=nc["sigma"],
-                voting_thresh=nc["voting_thresh"])
-            out = {"segments": segs, "scores": det_scores, "counts": counts}
+            if self.reference_exact:
+                out = {"left": left, "right": right, "scores": top_scores,
+                       "valid": top_valid}
+            else:
+                nc = self.nms_cfg
+                segs, det_scores, counts = batched_nms_device(
+                    left, right, top_scores, top_valid, nc["max_num_segs"],
+                    mode=nc["mode"], iou_thresh=nc["iou_thresh"],
+                    min_score=nc["min_score"], sigma=nc["sigma"],
+                    voting_thresh=nc["voting_thresh"])
+                out = {"segments": segs, "scores": det_scores,
+                       "counts": counts}
 
         if targets is not None:
             # per-query eval-loss diagnostics
@@ -262,72 +283,111 @@ class Decoder:
         """Decode V same-bucket items (V videos x Q query rows) in one call.
         Returns one (results, losses) pair per item: per-query detections
         in seconds, and per-query {cls_loss, reg_loss} when ``losses`` (an
-        empty list otherwise)."""
-        V = len(items)
+        empty list otherwise). A shape's first call also goes into the
+        set-up record as ``setup.first_call``, less the kernel library's
+        load when the call loads it."""
+        shape = (len(items),) + self.bucket_key(items[0])
+        if shape in self._shapes:
+            return self._decode_group(items, losses)
+        library_s = SETUP.total("setup.library")
+        t0 = time.perf_counter()
+        out = self._decode_group(items, losses)
+        SETUP.add("setup.first_call", time.perf_counter() - t0
+                  - (SETUP.total("setup.library") - library_s))
+        self._shapes.add(shape)
+        return out
+
+    def _decode_group(self, items, losses):
+        Q = items[0]["chunk"]["text"].shape[0]
+        timer = self.timer
+        with timer.recording(call=self.decode_calls + 1):
+            with timer.phase("forward"):
+                with timer.phase("decode.stage"):
+                    host = self._stage(items, Q, losses)
+                timer.add("decode.h2d_bytes",
+                          sum(a.nbytes for a in host.values()))
+                timer.add("decode.rows", len(items) * Q)
+                timer.add("decode.real_rows", sum(it["n_q"] for it in items))
+                with timer.phase("decode.h2d"):
+                    dev = {k: torch.from_numpy(a).to(self.device)
+                           for k, a in host.items()}
+                    pe_interp = None
+                    if "pe_interp0" in dev:
+                        pe_interp = [dev["pe_interp0"].long(),
+                                     dev["pe_interp1"].long(),
+                                     dev["pe_interp2"]]
+                with timer.phase("decode.dispatch"):
+                    out = self.decode(
+                        dev["vid"], dev["shallow_vid"], dev["vid_masks"],
+                        dev["text"], dev["text_cls"], dev["text_masks"],
+                        dev.get("ext_scores"), pe_interp, Q,
+                        targets=dev.get("targets"))
+                with timer.phase("decode.d2h"):
+                    # bf16 scores (reference_exact in the bf16 mode) reach
+                    # numpy as f32
+                    out = {k: (v.float() if v.is_floating_point() else v)
+                           .cpu().numpy() for k, v in out.items()}
+            timer.stream_times()
+            return self._post_process(items, Q, out, losses)
+
+    def _stage(self, items, Q, losses):
+        """The host arrays the call sends, by name, in the order sent: the
+        three ``pe_interp`` plans (when the model has them; per-row plans
+        (V, t) repeated to (V*Q, t)), the ``targets`` (with ``losses``),
+        then the chunks' arrays, each joined over the items (ext_scores
+        when present)."""
         c0 = items[0]["chunk"]
-        Q = c0["text"].shape[0]
-        has_ext = c0["ext_scores"] is not None
+        out = {}
+        if c0["pe_interp"] is not None:
+            for j in range(3):
+                out[f"pe_interp{j}"] = (
+                    c0["pe_interp"][j] if len(items) == 1 else np.repeat(
+                        np.stack([it["chunk"]["pe_interp"][j]
+                                  for it in items]), Q, axis=0))
+        if losses:
+            out["targets"] = np.concatenate([it["targets"] for it in items])
+        keys = ("vid", "shallow_vid", "vid_masks", "text", "text_cls",
+                "text_masks") + (("ext_scores",)
+                                 if c0["ext_scores"] is not None else ())
+        for k in keys:
+            out[k] = np.concatenate([it["chunk"][k] for it in items], axis=0)
+        return out
 
-        t_fwd = time.perf_counter()
-
-        def to_dev(arr):
-            return torch.from_numpy(arr).to(self.device)
-
-        def cat(key):
-            return to_dev(np.concatenate([it["chunk"][key] for it in items], axis=0))
-
-        pe_interp = c0["pe_interp"]
-        if pe_interp is not None:
-            if V == 1:
-                pe_interp = [to_dev(a) for a in pe_interp]
-            else:   # per-row plans: (V, t) repeated to (V*Q, t)
-                pe_interp = [to_dev(np.repeat(np.stack(
-                    [it["chunk"]["pe_interp"][j] for it in items]), Q, axis=0))
-                    for j in range(3)]
-            pe_interp[0], pe_interp[1] = pe_interp[0].long(), pe_interp[1].long()
-        targets = (to_dev(np.concatenate([it["targets"] for it in items]))
-                   if losses else None)
-        out = self.decode(
-            cat("vid"), cat("shallow_vid"), cat("vid_masks"), cat("text"),
-            cat("text_cls"), cat("text_masks"),
-            cat("ext_scores") if has_ext else None, pe_interp, Q,
-            targets=targets)
-        # bf16 scores (reference_exact in the bf16 mode) reach numpy as f32
-        out = {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
-               for k, v in out.items()}
-        self.time_dict["forward"].append(time.perf_counter() - t_fwd)
-
-        # "post_process": host-side slicing and grid -> seconds; "nms": the
-        # host SoftNMS proper (device NMS already ran inside "forward")
-        t_post = time.perf_counter()
-        nms_s = 0.0
+    def _post_process(self, items, Q, out, losses):
+        """Per item, its queries' detections in seconds and their losses:
+        "nms", the host SoftNMS proper (``reference_exact``; device NMS
+        already ran inside "forward"), then "post_process", the host-side
+        slicing and grid -> seconds."""
         nc = self.nms_cfg
-        per_item = []
-        for v, item in enumerate(items):
-            rows = range(v * Q, v * Q + item["n_q"])
-            results = []
-            for r in rows:
-                if self.reference_exact:
+        rows = [range(v * Q, v * Q + item["n_q"])
+                for v, item in enumerate(items)]
+        dets = {}
+        if self.reference_exact:
+            with self.timer.phase("nms"):
+                for r in itertools.chain(*rows):
                     m = out["valid"][r]
-                    t_nms = time.perf_counter()
-                    segs, scores = batched_nms_host(
+                    dets[r] = batched_nms_host(
                         np.stack([out["left"][r][m], out["right"][r][m]], -1),
                         out["scores"][r][m], iou_thresh=nc["iou_thresh"],
                         min_score=nc["min_score"],
                         max_num_segs=nc["max_num_segs"], mode=nc["mode"],
                         sigma=nc["sigma"], voting_thresh=nc["voting_thresh"])
-                    nms_s += time.perf_counter() - t_nms
-                else:
-                    c = int(out["counts"][r])
-                    segs, scores = out["segments"][r][:c], out["scores"][r][:c]
-                results.append(self.to_seconds(segs, scores, item["meta"]))
-            row_losses = [{"cls_loss": float(out["cls_loss"][r]),
-                           "reg_loss": float(out["reg_loss"][r])}
-                          for r in rows] if losses else []
-            per_item.append((results, row_losses))
-        self.time_dict["post_process"].append(
-            time.perf_counter() - t_post - nms_s)
-        self.time_dict["nms"].append(nms_s)
+        per_item = []
+        with self.timer.phase("post_process"):
+            for item, rs in zip(items, rows):
+                results = []
+                for r in rs:
+                    if self.reference_exact:
+                        segs, scores = dets[r]
+                    else:
+                        c = int(out["counts"][r])
+                        segs = out["segments"][r][:c]
+                        scores = out["scores"][r][:c]
+                    results.append(self.to_seconds(segs, scores, item["meta"]))
+                row_losses = [{"cls_loss": float(out["cls_loss"][r]),
+                               "reg_loss": float(out["reg_loss"][r])}
+                              for r in rs] if losses else []
+                per_item.append((results, row_losses))
         return per_item
 
     def to_seconds(self, segs, scores, meta):
@@ -533,7 +593,7 @@ class Evaluator:
         if tag is not None:
             self.tag = tag
         self.meter.reset()
-        self.decoder.time_dict.clear()
+        self.decoder.timer.reset()
         self.video_ms = []
         self.logger.write("Evaluation started.")
         start = time.time()
@@ -560,7 +620,8 @@ class Evaluator:
                                  for k, v in self.loss_means.items())
         self.logger.write(log_str)
         phase_summary = " | ".join(
-            f"{k}: {sum(v):.2f}s (n={len(v)})"
+            f"{k}: {sum(v)} (n={len(v)})" if is_count(k)
+            else f"{k}: {sum(v):.2f}s (n={len(v)})"
             for k, v in self.decoder.time_dict.items())
         self.logger.write(f"phase wall-times: {phase_summary}")
         self.logger.write(

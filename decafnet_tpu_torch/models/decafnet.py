@@ -26,6 +26,11 @@ each use (nn/blocks.py), and the outputs come in the compute dtype. In
 training the casts are differentiable (``ops.params.cast``), so the
 gradients of the f32 parameters come back in f32.
 
+Each forward names its stages as spans (:func:`utils.profiling.stage`:
+``model.delegation`` (delegation and vid_map), ``model.text``,
+``model.fusion``, ``model.fpn`` (the video net) and ``model.heads``), which
+record into the decode's record and do nothing outside one.
+
 Time-sharded (:mod:`parallel.seq`: the Trainer's ``tpu.shard_time``, the
 Evaluator's ``eval.shard_time``), the video inputs are this rank's block of
 each video's time axis and the outputs the block's points: the text net
@@ -46,6 +51,7 @@ from ..ops.delegation import delegate, delegation_weights
 from ..ops.masked import interpolate_nearest_1d, masked_max_pool1d
 from ..ops.params import cast
 from ..parallel import seq
+from ..utils.profiling import stage
 from .fusion import XAttNFusion
 from .heads import ClsHead, RegHead
 from .tcn import TCN
@@ -231,32 +237,37 @@ class DeCafNetIterative(nn.Module):
         m = self.cfg
         Q = queries_per_video
         grouped_ok = not self.training or self.cdrop == 0.0
-        if Q > 1 and grouped_ok and not m.get("sfonly", False):
-            vid, vm = self._delegate_project_grouped(
-                vid, shallow_vid, vid_masks, text_cls, Q)
-        else:
-            vid, shallow_vid, vid_masks = _expand_videos(Q, vid, shallow_vid,
-                                                         vid_masks)
-            vid, vid_masks, _ = delegate(
-                vid, shallow_vid, vid_masks, text_cls, sn=m.get("sn", 60),
-                ratio=m.get("sratio", 0.0), normalize=m.get("norm", False),
-                msf=m.get("msf", False), scat=m.get("scat", False),
-                sfonly=m.get("sfonly", False) and not self.training)
-            vid = dropout(_to_compute(vid, self.compute_dtype), self.cdrop,
-                          generator, self.training, shape=vid.shape[:2] + (1,),
-                          time_axis=None)
-            vid, vm = self.vid_map(vid, vid_masks[:, None, :])
+        with stage("model.delegation"):
+            if Q > 1 and grouped_ok and not m.get("sfonly", False):
+                vid, vm = self._delegate_project_grouped(
+                    vid, shallow_vid, vid_masks, text_cls, Q)
+            else:
+                vid, shallow_vid, vid_masks = _expand_videos(
+                    Q, vid, shallow_vid, vid_masks)
+                vid, vid_masks, _ = delegate(
+                    vid, shallow_vid, vid_masks, text_cls, sn=m.get("sn", 60),
+                    ratio=m.get("sratio", 0.0), normalize=m.get("norm", False),
+                    msf=m.get("msf", False), scat=m.get("scat", False),
+                    sfonly=m.get("sfonly", False) and not self.training)
+                vid = dropout(_to_compute(vid, self.compute_dtype), self.cdrop,
+                              generator, self.training,
+                              shape=vid.shape[:2] + (1,), time_axis=None)
+                vid, vm = self.vid_map(vid, vid_masks[:, None, :])
 
-        with seq.replicated():     # every rank encodes the whole text
+        with stage("model.text"), seq.replicated():
+            # every rank encodes the whole text
             text_enc, text_mask_enc = self.text_net(
                 _to_compute(text, self.compute_dtype), text_masks,
                 generator=generator)
-        vid, vm = self.fusion(vid, vm, text_enc, text_mask_enc,
-                              generator=generator)
-        fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp,
-                                      generator=generator)
-        return self.fuse_and_predict(fpn, fpn_masks, text_enc, text_mask_enc,
-                                     generator=generator)
+        with stage("model.fusion"):
+            vid, vm = self.fusion(vid, vm, text_enc, text_mask_enc,
+                                  generator=generator)
+        with stage("model.fpn"):
+            fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp,
+                                          generator=generator)
+        with stage("model.heads"):
+            return self.fuse_and_predict(fpn, fpn_masks, text_enc,
+                                         text_mask_enc, generator=generator)
 
 
 class _OneHeadModel(nn.Module):
@@ -315,21 +326,26 @@ class DeCafNetEarlyFusion(_OneHeadModel):
     def forward(self, vid, shallow_vid, vid_masks, text, text_cls, text_masks,
                 pe_interp=None, queries_per_video=1, generator=None):
         sfonly = self.cfg.get("sfonly", False) and not self.training
-        vid, vm = self._delegate(vid, shallow_vid, vid_masks, text_cls,
-                                 queries_per_video, sfonly, generator)
-        vid, vm = self.vid_map(vid, vm)
-        with seq.replicated():     # every rank encodes the whole text
+        with stage("model.delegation"):
+            vid, vm = self._delegate(vid, shallow_vid, vid_masks, text_cls,
+                                     queries_per_video, sfonly, generator)
+            vid, vm = self.vid_map(vid, vm)
+        with stage("model.text"), seq.replicated():
+            # every rank encodes the whole text
             text_enc, text_mask_enc = self.text_net(
                 _to_compute(text, self.compute_dtype), text_masks,
                 generator=generator)
-        vid, vm = self.fusion(vid, vm, text_enc, text_mask_enc,
-                              generator=generator)
-        fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp,
-                                      generator=generator)
-        if self.second_fusion:
-            fpn, fpn_masks = self.fusion(fpn, fpn_masks, text_enc,
-                                         text_mask_enc, generator=generator)
-        return self._heads(fpn, fpn_masks)
+        with stage("model.fusion"):
+            vid, vm = self.fusion(vid, vm, text_enc, text_mask_enc,
+                                  generator=generator)
+        with stage("model.fpn"):
+            fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp,
+                                          generator=generator)
+        with stage("model.heads"):
+            if self.second_fusion:
+                fpn, fpn_masks = self.fusion(fpn, fpn_masks, text_enc,
+                                             text_mask_enc, generator=generator)
+            return self._heads(fpn, fpn_masks)
 
 
 class DeCafNetLateFusion(_OneHeadModel):
@@ -344,17 +360,22 @@ class DeCafNetLateFusion(_OneHeadModel):
     def forward(self, vid, shallow_vid, vid_masks, text, text_cls, text_masks,
                 pe_interp=None, queries_per_video=1, generator=None):
         # no sfonly here, as in the JAX model
-        vid, vm = self._delegate(vid, shallow_vid, vid_masks, text_cls,
-                                 queries_per_video, False, generator)
-        fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp,
-                                      generator=generator)
-        with seq.replicated():     # every rank encodes the whole text
+        with stage("model.delegation"):
+            vid, vm = self._delegate(vid, shallow_vid, vid_masks, text_cls,
+                                     queries_per_video, False, generator)
+        with stage("model.fpn"):
+            fpn, fpn_masks = self.vid_net(vid, vm, pe_interp=pe_interp,
+                                          generator=generator)
+        with stage("model.text"), seq.replicated():
+            # every rank encodes the whole text
             text_enc, text_mask_enc = self.text_net(
                 _to_compute(text, self.compute_dtype), text_masks,
                 generator=generator)
-        fpn, fpn_masks = self.fusion(fpn, fpn_masks, text_enc, text_mask_enc,
-                                     generator=generator)
-        return self._heads(fpn, fpn_masks)
+        with stage("model.fusion"):
+            fpn, fpn_masks = self.fusion(fpn, fpn_masks, text_enc,
+                                         text_mask_enc, generator=generator)
+        with stage("model.heads"):
+            return self._heads(fpn, fpn_masks)
 
 
 # compute dtype names -> the models' ``compute_dtype`` (None: f32)

@@ -42,6 +42,8 @@ import time
 
 import torch
 
+from ..utils.profiling import SETUP
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -178,13 +180,15 @@ def _compile(path, out_dir):
 
 @functools.lru_cache(maxsize=1)
 def library():
-    """The loaded kernel library (built on first call)."""
-    path, _ = build()
-    lib = ctypes.CDLL(path)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    """The loaded kernel library (built on first call; that call goes into
+    the set-up record as ``setup.library``)."""
+    with SETUP.phase("setup.library"):
+        path, _ = build()
+        lib = ctypes.CDLL(path)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 

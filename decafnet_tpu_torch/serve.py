@@ -14,7 +14,8 @@ HTTP endpoint, on the CUDA card unless ``--device`` says otherwise::
         [--host 127.0.0.1] [--port 8787] [--warmup T,Q,L ...]
         [--set dotted.key value ...] [--device cuda|cpu]
 
-  GET  /healthz       -> {"status": "ok", "device": ..., "n_devices": ...}
+  GET  /healthz       -> {"status": "ok", "device": ..., "n_devices": ...,
+                          "phase_stats": GroundingService.stats()}
   POST /ground        -> {"detections": [{"segments": [[s, e], ...],
                                           "scores": [...]}, ...]}
   POST /ground_batch  -> {"detections_batch": [...]} for {"requests": [...]}
@@ -29,6 +30,7 @@ duration, and ext_scores | ext_scores_path (Q, t).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import threading
@@ -40,6 +42,7 @@ import torch
 from .eval.evaluator import (Decoder, checkpoint_path, config_from_logdir,
                              resolve_device)
 from .models import load_params, load_pth, make_model, require_two_heads
+from .utils.profiling import SETUP, is_count
 
 
 class GroundingService:
@@ -50,38 +53,61 @@ class GroundingService:
     ``checkpoint``, a reference-layout ``.pth`` (its ``model_ema``).
     ``device``: None for the CUDA card, or an explicit device. The model
     computes in ``tpu.compute_dtype`` (f32 for "auto"; ``--set
-    tpu.compute_dtype bfloat16`` serves in bf16)."""
+    tpu.compute_dtype bfloat16`` serves in bf16).
+
+    The decoder's record (``decoder.time_dict``) holds the decode's spans
+    and counters (:mod:`eval.evaluator`) and the service's own:
+    ``serve.queue``, the wait for the single-flight lock, and
+    ``serve.answer``, the answers turned into lists. Building the service
+    goes into the set-up record as ``setup.service``."""
 
     def __init__(self, cfg, params=None, checkpoint=None, device=None):
         require_two_heads(cfg, "GroundingService")
         if (params is None) == (checkpoint is None):
             raise ValueError("pass exactly one of params / checkpoint")
-        self.device = resolve_device(device)
-        model = make_model(cfg)
-        if params is not None:
-            load_params(model, params)
-        else:
-            load_pth(model, checkpoint)
-        self.model = model.to(self.device).eval()
-        self._dec = Decoder(cfg, self.model, self.device)
+        with SETUP.phase("setup.service"):
+            self.device = resolve_device(device)
+            model = make_model(cfg)
+            if params is not None:
+                load_params(model, params)
+            else:
+                load_pth(model, checkpoint)
+            self.model = model.to(self.device).eval()
+            self._dec = Decoder(cfg, self.model, self.device)
         self._lock = threading.Lock()  # single-flight: decode serially
-        self._stats_window = 512       # rolling phase-timing retention
+        self._stats_window = 512       # entries a summary reads
 
     @property
     def decoder(self):
         return self._dec
 
+    @contextlib.contextmanager
+    def _turn(self):
+        """Hold the single-flight lock; the wait is ``serve.queue``."""
+        with self._dec.timer.phase("serve.queue"):
+            self._lock.acquire()
+        try:
+            yield
+        finally:
+            self._lock.release()
+
     def stats(self):
-        """Rolling phase wall-times over the last window of requests."""
+        """Per span or counter of the record, a summary of its last
+        entries (at most 512): their number, and their mean and largest
+        in ms (``mean_ms``, ``max_ms``), or as counts (``mean``, ``max``)
+        for byte and row counters."""
         out = {}
-        with self._lock:
-            for k, v in self._dec.time_dict.items():
-                if len(v) > self._stats_window:
-                    del v[:-self._stats_window]
-                if v:
-                    out[k] = {"n": len(v),
-                              "mean_ms": round(1e3 * sum(v) / len(v), 3),
-                              "max_ms": round(1e3 * max(v), 3)}
+        for k, v in list(self._dec.time_dict.items()):
+            v = v[-self._stats_window:]
+            if not v:
+                continue
+            if is_count(k):
+                out[k] = {"n": len(v), "mean": round(sum(v) / len(v), 3),
+                          "max": max(v)}
+            else:
+                out[k] = {"n": len(v),
+                          "mean_ms": round(1e3 * sum(v) / len(v), 3),
+                          "max_ms": round(1e3 * max(v), 3)}
         return out
 
     def warmup(self, vid_len, num_queries=1, text_len=8, vid_dim=None,
@@ -109,7 +135,7 @@ class GroundingService:
                 by_bucket.setdefault(Decoder.bucket_key(item), []).append((i, item))
 
         out = [[] for _ in requests]
-        with self._lock:
+        with self._turn():
             for tagged in by_bucket.values():
                 for pos in range(0, len(tagged), max_group):
                     group = tagged[pos:pos + max_group]
@@ -122,11 +148,12 @@ class GroundingService:
                             group, self._dec.decode_group(items)):
                         out[req_i].append((item["q_start"], results))
         final = []
-        for (_, meta, _), chunks in zip(prepared, out):
-            results = [None] * meta["num_queries"]
-            for q_start, r in chunks:
-                results[q_start:q_start + len(r)] = r
-            final.append(_as_lists(results))
+        with self._dec.timer.phase("serve.answer"):
+            for (_, meta, _), chunks in zip(prepared, out):
+                results = [None] * meta["num_queries"]
+                for q_start, r in chunks:
+                    results[q_start:q_start + len(r)] = r
+                final.append(_as_lists(results))
         return final
 
     def _prepare(self, vid, shallow_vid, texts, text_cls, *, fps=30.0,
@@ -174,10 +201,11 @@ class GroundingService:
         order (non-increasing score)."""
         _, items = self._prepare(**request)
         results = []
-        with self._lock:
+        with self._turn():
             for item in items:
                 results.extend(self._dec.decode_group([item])[0][0])
-        return _as_lists(results)
+        with self._dec.timer.phase("serve.answer"):
+            return _as_lists(results)
 
 
 def _as_lists(results):

@@ -10,8 +10,6 @@ import pickle
 
 import numpy as np
 
-from ..eval.metrics import interval_iou
-
 
 class EvalResults:
     """Per-video evaluation records: detections + targets in seconds."""
@@ -48,6 +46,9 @@ class EvalResults:
 
     def top1_ious(self):
         """(gt_length_sec, top1_iou) pairs over all queries."""
+        # imported here: the eval package imports the models, whose stage
+        # spans import this package's profiling
+        from ..eval.metrics import interval_iou
         pairs = []
         for v in self.videos:
             for target, det in zip(v["targets"], v["detections"]):

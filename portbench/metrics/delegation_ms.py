@@ -1,0 +1,10 @@
+"""delegation_ms: mean over the traced calls of the stream time of the model's
+"model.delegation" stage (the delegation and the vid_map projection; its
+CUDA events' interval on the current stream, recorded while the profiler
+runs), in ms."""
+
+from portbench import spans
+
+
+def read(ctx):
+    return spans.mean(ctx, "model.delegation.stream", 1e3)

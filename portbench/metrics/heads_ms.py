@@ -1,0 +1,10 @@
+"""heads_ms: mean over the traced calls of the stream time of the model's
+"model.heads" stage (the heads and the TCN refinement; its CUDA events'
+interval on the current stream, recorded while the profiler runs), in
+ms."""
+
+from portbench import spans
+
+
+def read(ctx):
+    return spans.mean(ctx, "model.heads.stream", 1e3)
